@@ -3,12 +3,15 @@
 A port of the JAX package ``crescent_tpu`` beside it.  Plain tensor code is
 PyTorch; every Pallas TPU kernel on a ported path is a hand-written CUDA C++
 kernel for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use.  Host
-crypto (fields, curves, pairings, the native C++ backend) is the JAX
-package's own, reached through ``_host`` without importing jax.
+crypto (``core``: fields, curves, pairings; ``native``: the C++ backend;
+``utils``) is the port's own copy of the JAX package's; the port imports
+nothing of that package and nothing of jax.
 
 Ported so far: Groth16 ``setup`` -> ``prove`` -> ``verify``
-(``models.groth16``) with the QAP witness map h(x) on the device through the
-``mul`` and ``butterfly`` kernels, and the MSMs on the native host backend.
+(``models.groth16``) with the QAP witness map h(x) on the device (``mul``,
+``butterfly``) and the four G1 MSMs as a chunk fold of sorted-segment affine
+MSMs there (``inv``, ``affine_denom``, ``affine_add``, ``jadd``, ``jdbl_n``;
+``jdbl`` beside them); the G2 MSM runs on the native host backend.
 """
 
 __version__ = "0.1.0"

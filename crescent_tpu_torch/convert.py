@@ -7,22 +7,56 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.fields import Fq2
 from .models import groth16
 from .ops import limb
+from .utils.pointvec import ArrayPointVec
+
+
+def _g1(p):
+    return None if p is None else (int(p[0]), int(p[1]))
+
+
+def _g2(p):
+    if p is None:
+        return None
+    x, y = p
+    return (Fq2(int(x.c0), int(x.c1)), Fq2(int(y.c0), int(y.c1)))
+
+
+def _table(pts, g2: bool):
+    """A reference SRS table (list of affine points, or its ArrayPointVec:
+    anything with xs / ys / inf limb arrays) as the port's."""
+    if hasattr(pts, "xs") and hasattr(pts, "inf"):
+        return ArrayPointVec(np.asarray(pts.xs), np.asarray(pts.ys),
+                             np.asarray(pts.inf), bool(pts.g2))
+    return [(_g2 if g2 else _g1)(p) for p in pts]
 
 
 def proving_key_from_reference(pk) -> groth16.ProvingKey:
-    """The reference's ``ProvingKey`` (tables as lists of affine points or
-    ``ArrayPointVec``) as the port's; tables are shared, not copied."""
+    """The reference's ``ProvingKey`` as the port's.  The two packages
+    define their own point and field classes, so every G2 coordinate, ``vk``
+    element and point vector is rebuilt from plain ints and numpy arrays
+    (the arrays themselves are shared, not copied)."""
     vk = pk.vk
     pvk = groth16.VerifyingKey(
-        vk.alpha_g1, vk.beta_g2, vk.gamma_g2, vk.delta_g1, vk.delta_g2,
-        list(vk.gamma_abc_g1),
+        _g1(vk.alpha_g1), _g2(vk.beta_g2), _g2(vk.gamma_g2), _g1(vk.delta_g1),
+        _g2(vk.delta_g2), [_g1(p) for p in vk.gamma_abc_g1],
     )
     return groth16.ProvingKey(
-        pvk, pk.beta_g1, pk.delta_g1, pk.a_query, pk.b_g1_query,
-        pk.b_g2_query, pk.h_query, pk.l_query,
+        pvk, _g1(pk.beta_g1), _g1(pk.delta_g1), _table(pk.a_query, False),
+        _table(pk.b_g1_query, False), _table(pk.b_g2_query, True),
+        _table(pk.h_query, False), _table(pk.l_query, False),
     )
+
+
+def device_table_from_reference(planes, device="cpu"):
+    """The reference's ``ProvingKey.device_table`` planes ((N, 16) x limbs,
+    (N, 16) y limbs, (N,) valid; Montgomery form) as the port's ((N, 8)
+    words, (N, 8) words, (N,) int32) on `device`."""
+    x, y, valid = (np.asarray(a) for a in planes)
+    return (limb.limbs_to_words(x, device), limb.limbs_to_words(y, device),
+            torch.from_numpy(valid.astype(np.int32)).to(device))
 
 
 def domain_tables_from_reference(dom, device="cpu") -> dict:

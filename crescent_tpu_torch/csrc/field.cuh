@@ -31,6 +31,45 @@ struct Fe {
   uint32_t w[8];
 };
 
+// One short-Weierstrass curve y^2 = x^3 + a*x + b over the field of M:
+// what the point formulas need (b never enters them).  Passed by value like
+// `Mod`.
+struct Curve {
+  Mod M;
+  uint32_t one[8];     // Montgomery 1 (2^256 mod p)
+  uint32_t a[8];       // a in Montgomery form
+  uint32_t a_is_zero;  // 1: the a-terms are skipped
+};
+
+__device__ __forceinline__ Fe fe_from(const uint32_t* w) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = w[j];
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_zero() {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = 0;
+  return r;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const Fe& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc |= a.w[j];
+  return acc == 0;
+}
+
+// c ? a : b
+__device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = c ? a.w[j] : b.w[j];
+  return r;
+}
+
 // 32-byte element from a 16-byte-aligned row: two 128-bit loads.
 __device__ __forceinline__ Fe fe_load(const uint4* src) {
   uint4 lo = src[0], hi = src[1];
@@ -134,6 +173,19 @@ __device__ __forceinline__ Fe fe_mont_mul(const Fe& a, const Fe& b,
 #pragma unroll
   for (int j = 0; j < 8; ++j) r.w[j] = t[j];
   return fe_reduce_once(r, t[8], M);
+}
+
+__device__ __forceinline__ Fe fe_sqr(const Fe& a, const Mod& M) {
+  return fe_mont_mul(a, a, M);
+}
+
+__device__ __forceinline__ Fe fe_dbl(const Fe& a, const Mod& M) {
+  return fe_add(a, a, M);
+}
+
+// 0 - a (0 stays 0)
+__device__ __forceinline__ Fe fe_neg(const Fe& a, const Mod& M) {
+  return fe_sub(fe_zero(), a, M);
 }
 
 }  // namespace crescent

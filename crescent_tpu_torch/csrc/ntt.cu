@@ -37,15 +37,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// out[i] = x[i] * y[i or 0] * 2^-256 mod p
+// out[i] = x[i] * y[i] * 2^-256 mod p.  Row i of each plane starts
+// xs / ys / os 16-byte units after row i-1: 2 for packed rows, 4 for every
+// second row of a packed plane, 0 for one row read by every lane.
 // (out may alias x or y: each thread reads its rows before writing them)
 __global__ void mul_kernel(Mod M, const uint4* x, const uint4* y, uint4* out,
-                           long long n, int y_broadcast) {
+                           long long n, long long xs, long long ys,
+                           long long os) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fe a = crescent::fe_load(x + 2 * i);
-  const Fe b = crescent::fe_load(y + (y_broadcast ? 0 : 2 * i));
-  crescent::fe_store(out + 2 * i, crescent::fe_mont_mul(a, b, M));
+  const Fe a = crescent::fe_load(x + xs * i);
+  const Fe b = crescent::fe_load(y + ys * i);
+  crescent::fe_store(out + os * i, crescent::fe_mont_mul(a, b, M));
 }
 
 // Pair i (blk = i >> log_half, j = i mod 2^log_half) sits at row
@@ -81,13 +84,14 @@ unsigned grid_for(long long n) {
 }  // namespace
 
 // mod9: host array of nine u32, the modulus words then -p^-1 mod 2^32.
+// xs, ys, os: row strides of x, y and out in 16-byte units (ys 0: one y row).
 extern "C" int crescent_mul(const uint32_t* mod9, const void* x, const void* y,
-                            void* out, long long n, int y_broadcast,
-                            void* stream) {
+                            void* out, long long n, long long xs, long long ys,
+                            long long os, void* stream) {
   if (n > 0) {
     mul_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        make_mod(mod9), (const uint4*)x, (const uint4*)y, (uint4*)out, n,
-        y_broadcast);
+        make_mod(mod9), (const uint4*)x, (const uint4*)y, (uint4*)out, n, xs,
+        ys, os);
   }
   return (int)cudaGetLastError();
 }

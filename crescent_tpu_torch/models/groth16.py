@@ -1,33 +1,45 @@
-"""Groth16 setup, prove and verify with the QAP witness map h(x) on a device.
+"""Groth16 setup, prove and verify with h(x) and the G1 MSMs on a device.
 
-Counterpart of ``crescent_tpu/models/groth16.py`` in the configuration the
-reference selects with ``CRESCENT_PROVE_MSM=native``: h(x) runs on the device
-(``device="cuda"`` launches the ``mul`` and ``butterfly`` kernels; a CPU
-device runs their plain PyTorch versions), and the four G1 MSMs and the G2
-MSM run on the native C++ host backend, as at groth16.py:868-875.  ``setup``
-is the reference's host-native branch (groth16.py:605-642): the same order of
-rng draws, gamma == 1, QAP evaluations at tau and fixed-base muls on the
-native backend.  Keys and proofs hold host affine points, so they compare
-equal to the reference's on the same inputs.
+Counterpart of ``crescent_tpu/models/groth16.py``.  ``prove`` runs the QAP
+witness map h(x) on the device (``device="cuda"`` launches the kernels; a CPU
+device runs their plain PyTorch versions) and then, by the reference's switch
+``CRESCENT_PROVE_MSM``:
+
+* ``device``: the four G1 MSMs as one chunk fold of sorted-segment affine
+  MSMs on the device (``ops/msm.py``), with h staying there, while the G2
+  MSM runs on the native C++ host backend on a worker thread
+  (groth16.py:876-931);
+* ``native``: all five MSMs on the native host backend (groth16.py:868-875);
+* ``auto`` (the default): ``device`` on a CUDA device, ``native`` on the CPU.
+
+``setup`` is the reference's host-native branch (groth16.py:605-642): the
+same order of rng draws, gamma == 1, QAP evaluations at tau and fixed-base
+muls on the native backend.  Keys and proofs hold host affine points, so
+they compare equal to the reference's on the same inputs.
 
 The native backend is required: every entry point raises without it.
 """
 
 from __future__ import annotations
 
+import os
 import random
+import threading
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .._host import curves, fields, nb, trace
-from .._host import pairing as pr
+from ..core import curves, fields
+from ..core import pairing as pr
+from ..native import backend as nb
+from ..utils import trace
 from ..ops import limb, ntt
-from ..ops.cuda_ec import get_cuda_ec
+from ..ops.ec import JPoints, points_valid
+from ..ops.msm import MSM, get_msm
 
 G1 = curves.BN254_G1
 G2 = curves.BN254G2
@@ -37,8 +49,21 @@ Fr = fields.Fr
 
 def _require_native() -> None:
     if not nb.available():
-        raise RuntimeError("the native host backend (crescent_tpu/native) is "
-                           "required and did not build")
+        raise RuntimeError("the native host backend (crescent_tpu_torch/native) "
+                           "is required and did not build")
+
+
+def _device_msm_prove(device: torch.device) -> bool:
+    """Whether `prove` runs the G1 MSMs on `device` (else on the native
+    host backend), by CRESCENT_PROVE_MSM = auto | device | native."""
+    env = os.environ.get("CRESCENT_PROVE_MSM", "auto")
+    if env == "native":
+        return False
+    if env == "device":
+        return True
+    if env != "auto":
+        raise ValueError(f"CRESCENT_PROVE_MSM={env!r}: expected auto, device or native")
+    return device.type == "cuda"
 
 
 @contextmanager
@@ -151,6 +176,26 @@ class ProvingKey:
     b_g2_query: list     # B_i(tau)*G2, len num_vars
     h_query: list        # tau^i Z(tau)/delta * G1, len domain_size-1
     l_query: list        # (beta A_i + alpha B_i + C_i)/delta * G1 (witness)
+    _dev: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def device_table(self, name: str, msm_obj: MSM, device):
+        """The Montgomery-form device planes (x, y, valid) of an SRS table,
+        cached per table and device."""
+        key = (name, ntt._device_key(device))
+        if key not in self._dev:
+            pts = getattr(self, name)
+            P = msm_obj.ctx.points_to_device(pts, device)
+            valid = torch.from_numpy(points_valid(pts)).to(device)
+            self._dev[key] = (P.x, P.y, valid)
+        return self._dev[key]
+
+    def native_g2_table(self) -> np.ndarray:
+        """The (n, 16) u64 layout of b_g2_query for the native G2 MSM,
+        cached."""
+        key = "b_g2_query:u64"
+        if key not in self._dev:
+            self._dev[key] = nb.g2_to_u64(self.b_g2_query)
+        return self._dev[key]
 
 
 @dataclass
@@ -331,19 +376,28 @@ def _matvec_evals_u64(r1cs: R1CS, zu: np.ndarray, dom: ntt.NTTDomain):
     return outs
 
 
-def _compute_h_device(r1cs: R1CS, zu: np.ndarray, dom: ntt.NTTDomain, device,
-                      timings: Optional[dict] = None) -> np.ndarray:
+def _h_device_words(r1cs: R1CS, zu: np.ndarray, dom: ntt.NTTDomain, device,
+                    timings: Optional[dict] = None) -> torch.Tensor:
     """Native u64 matvec -> h(x) pipeline on `device`.  Returns the
-    full-length (dom.n, 16) uint16 standard-form h (callers slice
-    [: dom.n - 1]), as the reference's function of this name does."""
+    full-length (dom.n, 8) standard-form word plane of h, still on the
+    device; its last row must be zero (the degree bound), which is checked
+    here and is the one wait for the device."""
     with _phase("prove::matvec Az/Bz/Cz", timings, "matvec"):
         a, b, c = _matvec_evals_u64(r1cs, zu, dom)
     with _phase(f"prove::NTT h(x) (domain 2^{dom.logn}, {device})", timings, "h"):
         run = _h_pipeline(dom, device)
         h = run(*(limb.u64_to_words(v, device) for v in (a, b, c)))
-        h16 = limb.u64_to_limbs(limb.words_to_u64(h))  # waits for the device
-        assert not h16[-1].any(), "h degree bound violated (unsatisfied R1CS?)"
-    return h16
+        assert not h[-1].cpu().any(), "h degree bound violated (unsatisfied R1CS?)"
+    return h
+
+
+def _compute_h_device(r1cs: R1CS, zu: np.ndarray, dom: ntt.NTTDomain,
+                      device="cuda", timings: Optional[dict] = None) -> np.ndarray:
+    """`_h_device_words`, downloaded: the full-length (dom.n, 16) uint16
+    standard-form h (callers slice [: dom.n - 1]), as the reference's
+    function of this name returns it."""
+    h = _h_device_words(r1cs, zu, dom, torch.device(device), timings)
+    return limb.u64_to_limbs(limb.words_to_u64(h))
 
 
 def prove(
@@ -354,34 +408,88 @@ def prove(
     r: Optional[int] = None,
     s: Optional[int] = None,
     *,
-    device,
+    device="cuda",
     timings: Optional[dict] = None,
 ) -> Proof:
     """Groth16 prove (forks/groth16/src/prover.rs): h(x) on `device`, the
-    MSMs on the native backend, the proof assembled on the host.
+    four G1 MSMs there or on the native backend (CRESCENT_PROVE_MSM, see the
+    module's docstring), the G2 MSM on the native backend, the proof
+    assembled on the host.
 
     z: full assignment, a list of ints or an (nv, 4) u64 standard-form
-    array.  timings: if given, filled with wall seconds per phase
-    ("matvec", "h", "msm", "assemble")."""
+    array.  device: where the device work runs; the default is the card,
+    and without one the call raises.  timings: if given, filled with wall
+    seconds per phase ("matvec", "h", "msm", "msm_g1", "msm_g2",
+    "assemble"; "msm" spans both MSM phases, which overlap on a device)."""
     _require_native()
+    device = torch.device(device)
     r = rng.randrange(R) if r is None else r
     s = rng.randrange(R) if s is None else s
     if isinstance(z, np.ndarray):
         zu = np.ascontiguousarray(z, dtype="<u8")
-        zr = nb.u64_to_ints(zu)
     else:
-        zr = [x % R for x in z]
-        zu = nb.ints_to_u64(zr)
+        zu = nb.ints_to_u64([x % R for x in z])
     dom = _domain_for(r1cs)
-    h16 = _compute_h_device(r1cs, zu, dom, torch.device(device), timings)
+    hw = _h_device_words(r1cs, zu, dom, device, timings)
+    ni = r1cs.num_instance
 
-    with _phase(f"prove::MSMs native ({r1cs.num_vars} vars)", timings, "msm"):
-        h = limb.limbs_to_ints(h16[: dom.n - 1])
-        az = nb.msm("bn254_g1", zr, pk.a_query)
-        bz1 = nb.msm("bn254_g1", zr, pk.b_g1_query)
-        hq = nb.msm("bn254_g1", h, pk.h_query)
-        lw = nb.msm("bn254_g1", zr[r1cs.num_instance :], pk.l_query)
-        bz2 = nb.msm_g2(zr, pk.b_g2_query)
+    if _device_msm_prove(device):
+        msm_g1 = get_msm(G1)
+        with _phase(f"prove::MSMs G1 {device} ({r1cs.num_vars} vars)", timings, "msm"):
+            g2_out: dict = {}
+
+            def g2_worker():
+                t0 = time.perf_counter()
+                try:
+                    g2_out["bz2"] = nb.msm_g2_raw(zu, pk.native_g2_table())
+                except BaseException as e:  # re-raised on the main thread
+                    g2_out["error"] = e
+                g2_out["seconds"] = time.perf_counter() - t0
+
+            # the G2 MSM runs on the host beside the fold: the ctypes call
+            # releases the GIL while this thread enqueues the launches
+            worker = threading.Thread(target=g2_worker, name="prove-msm-g2")
+            worker.start()
+            try:
+                t0 = time.perf_counter()
+                # one z plane, shared by a, b1 and (sliced) l; h stays on
+                # the device
+                zsc = limb.u64_to_words(zu, device)
+                nh = dom.n - 1
+                ta, tb, th, tl = (
+                    pk.device_table(name, msm_g1, device)
+                    for name in ("a_query", "b_g1_query", "h_query", "l_query"))
+                fold = msm_g1.run_device_fold([
+                    (*ta, zsc),
+                    (*tb, zsc),
+                    (th[0][:nh], th[1][:nh], th[2][:nh], hw[:nh]),
+                    (*tl, zsc[ni:]),
+                ])
+                az, bz1, hq, lw = msm_g1.ctx.points_to_host(
+                    JPoints(*(torch.stack(c) for c in zip(*fold))))
+                g1_seconds = time.perf_counter() - t0
+            finally:
+                worker.join()
+            if "error" in g2_out:
+                raise g2_out["error"]
+            bz2 = g2_out["bz2"]
+            if timings is not None:
+                timings["msm_g1"] = timings.get("msm_g1", 0.0) + g1_seconds
+                timings["msm_g2"] = timings.get("msm_g2", 0.0) + g2_out["seconds"]
+    else:
+        with _phase(f"prove::MSMs native ({r1cs.num_vars} vars)", timings, "msm"):
+            t0 = time.perf_counter()
+            zr = nb.u64_to_ints(zu)
+            h = nb.u64_to_ints(limb.words_to_u64(hw[: dom.n - 1]))
+            az = nb.msm("bn254_g1", zr, pk.a_query)
+            bz1 = nb.msm("bn254_g1", zr, pk.b_g1_query)
+            hq = nb.msm("bn254_g1", h, pk.h_query)
+            lw = nb.msm("bn254_g1", zr[ni:], pk.l_query)
+            t1 = time.perf_counter()
+            bz2 = nb.msm_g2(zr, pk.b_g2_query)
+            if timings is not None:
+                timings["msm_g1"] = timings.get("msm_g1", 0.0) + t1 - t0
+                timings["msm_g2"] = timings.get("msm_g2", 0.0) + time.perf_counter() - t1
 
     with _phase("prove::assemble", timings, "assemble"):
         vk = pk.vk

@@ -36,8 +36,16 @@ _ll = ctypes.c_longlong
 _int = ctypes.c_int
 SIGNATURES = {
     "ntt": {
-        "crescent_mul": [_u32p, _vp, _vp, _vp, _ll, _int, _vp],
+        "crescent_mul": [_u32p, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _vp],
         "crescent_butterfly": [_u32p, _vp, _vp, _vp, _ll, _int, _vp],
+    },
+    "ec": {
+        "crescent_inv": [_u32p, _vp, _vp, _ll, _vp],
+        "crescent_affine_denom": [_u32p] + [_vp] * 7 + [_ll, _vp],
+        "crescent_affine_add": [_u32p] + [_vp] * 10 + [_ll, _vp],
+        "crescent_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],
+        "crescent_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
+        "crescent_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
     },
 }
 

@@ -1,5 +1,7 @@
-"""Field kernels for one modulus: the port's counterpart of the two
-``PallasEC`` ops on the prove path (``crescent_tpu/ops/pallas_ec.py``).
+"""Field and point kernels for one prime-field curve: the port's counterpart
+of ``PallasEC`` (``crescent_tpu/ops/pallas_ec.py``).
+
+Field ops (``csrc/ntt.cu``):
 
 * ``mul(x, y)``: the Montgomery product x*y*2^-256 mod p
   (``PallasEC.mul`` / ``_mul_kernel``).
@@ -7,13 +9,26 @@
   (``PallasEC.butterfly`` / ``_bfly_kernel``), and ``butterfly_stage_``,
   one radix-2 NTT stage of the same kernel in place on an (n, 8) plane.
 
-Tensors are (N, 8) int32 word rows (``ops/limb.py``), canonical, Montgomery
-form where the op needs it.  A tensor on the CPU takes the plain PyTorch
-version (``mul_plain``, ``butterfly_plain``, ported from ``_F.mont_mul``,
-``_F.add`` and ``_F.sub``); a CUDA tensor launches the kernel of
-``csrc/ntt.cu`` or raises.  ``mul_launches`` and ``butterfly_launches``
-count kernel launches and nothing else.  The modulus is a kernel argument,
-so one build serves every field.
+Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
+
+* ``inv(x)``: x^(p-2), 0 -> 0 (``PallasEC.inv`` / ``_inv_kernel``).
+* ``affine_denom(lx, ly, lv, rx, ry, rv)``: the denominator of the affine
+  sum L + R (``_adenom_kernel``).
+* ``affine_add(lx, ly, lv, rx, ry, rv, inv)``: affine L + R from
+  1/denominator -> (x3, y3, valid3) (``_aadd_kernel``).
+* ``jadd(x1, y1, z1, x2, y2, z2)``: complete Jacobian addition
+  (``_jadd_kernel``).
+* ``jdbl_n(x, y, z, count)`` and ``jdbl(x, y, z)``: chained and single
+  Jacobian doubling (``_dbln_kernel``, ``_dbl_kernel``).
+
+Tensors are packed (N, 8) int32 word rows (``ops/limb.py``), canonical,
+Montgomery form where the op needs it; validity flags are (N,) int32.  A
+tensor on the CPU takes the plain PyTorch version (``<op>_plain``: one
+transcription of the reference's formula bodies over ``ModCtx``, as
+``crescent_tpu/ops/xla_pec.py`` is for the reference); a CUDA tensor launches
+the kernel or raises.  ``<op>_launches`` count kernel launches and nothing
+else.  The modulus and the curve's ``a`` are kernel arguments, so one build
+serves every field and curve with p < 2^255.
 """
 
 from __future__ import annotations
@@ -27,37 +42,82 @@ from . import _build
 from .limb import NWORD, get_ctx
 
 
-def _check_rows(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_strided(name: str, t: torch.Tensor, device: torch.device) -> int:
+    """An (N, 8) int32 tensor whose rows are packed and 16-byte aligned but
+    may lie any multiple of 16 bytes apart; returns that distance in 16-byte
+    units (2 for a packed plane)."""
     if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != NWORD:
         raise ValueError(f"{name}: expected an (N, 8) int32 tensor, got "
                          f"{tuple(t.shape)} {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    row = t.stride(0) if t.shape[0] > 1 else NWORD
+    if t.stride(1) != 1 or row % 4 or row < 0 or t.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be packed and 16-byte aligned")
+    return row // 4
+
+
+def _check_rows(name: str, t: torch.Tensor, device: torch.device) -> None:
+    """A packed (N, 8) int32 plane."""
+    if _check_strided(name, t, device) != 2:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_flags(name: str, t: torch.Tensor, n: int, device: torch.device) -> None:
+    if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous ({n},) int32 tensor, "
+                         f"got {tuple(t.shape)} {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-class CudaEC:
-    """`mul` and `butterfly` over one prime field."""
+def _words32(x: int) -> list[int]:
+    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(NWORD)]
 
-    def __init__(self, modulus: int):
+
+KERNELS = ("mul", "butterfly", "inv", "affine_denom", "affine_add", "jadd",
+           "jdbl_n", "jdbl")
+
+
+class CudaEC:
+    """The field and point kernels over one prime field and curve
+    coefficient `a` (0 where only the field ops are used)."""
+
+    def __init__(self, modulus: int, a_host: int = 0):
         self.modulus = modulus
         self.ctx = get_ctx(modulus)
-        words = [(modulus >> (32 * i)) & 0xFFFFFFFF for i in range(NWORD)]
+        self.a_host = a_host % modulus
+        self.a_is_zero = self.a_host == 0
+        self.a_mont = self.a_host * self.ctx.R % modulus
         ninv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
-        self._mod9 = (ctypes.c_uint32 * 9)(*words, ninv32)
-        self.mul_launches = 0
-        self.butterfly_launches = 0
+        self._mod9 = (ctypes.c_uint32 * 9)(*_words32(modulus), ninv32)
+        self._curve26 = (ctypes.c_uint32 * 26)(
+            *_words32(modulus), ninv32, *_words32(self.ctx.r_mod_n),
+            *_words32(self.a_mont), int(self.a_is_zero))
+        self.reset_launches()
+
+    def reset_launches(self) -> None:
+        for k in KERNELS:
+            setattr(self, f"{k}_launches", 0)
+
+    def launches(self) -> dict[str, int]:
+        return {k: getattr(self, f"{k}_launches") for k in KERNELS}
 
     @staticmethod
     def _device(t: torch.Tensor) -> str:
         if t.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no kernel for device {t.device}")
         return t.device.type
+
+    def _launched(self, kernel: str, rc: int) -> None:
+        """Count one launch of `kernel`, whose entry point returned rc."""
+        if rc:
+            raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+        setattr(self, f"{kernel}_launches", getattr(self, f"{kernel}_launches") + 1)
 
     # -- plain versions -----------------------------------------------------
     def mul_plain(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -67,36 +127,141 @@ class CudaEC:
         t = self.ctx.mont_mul(b, tw)
         return self.ctx.add_mod(a, t), self.ctx.sub_mod(a, t)
 
+    def inv_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ctx.inv_mod(x)
+
+    def jdbl_plain(self, X1, Y1, Z1):
+        """dbl-2007-bl, plus a*ZZ^2 when a != 0 (``pallas_ec._double``)."""
+        f = self.ctx
+        XX = f.mont_sqr(X1)
+        YY = f.mont_sqr(Y1)
+        YYYY = f.mont_sqr(YY)
+        ZZ = f.mont_sqr(Z1)
+        S = f.mont_sqr(f.add_mod(X1, YY))
+        S = f.sub_mod(f.sub_mod(S, XX), YYYY)
+        S = f.add_mod(S, S)
+        M = f.add_mod(f.add_mod(XX, XX), XX)
+        if not self.a_is_zero:
+            a = f.const_words(self.a_mont, X1.device)
+            M = f.add_mod(M, f.mont_mul(a, f.mont_sqr(ZZ)))
+        T = f.sub_mod(f.mont_sqr(M), f.add_mod(S, S))
+        e8 = f.add_mod(YYYY, YYYY)
+        e8 = f.add_mod(e8, e8)
+        e8 = f.add_mod(e8, e8)
+        Y3 = f.sub_mod(f.mont_mul(M, f.sub_mod(S, T)), e8)
+        Z3 = f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Y1, Z1)), YY), ZZ)
+        return T, Y3, Z3
+
+    def jdbl_n_plain(self, x, y, z, count: int):
+        for _ in range(count):
+            x, y, z = self.jdbl_plain(x, y, z)
+        return x, y, z
+
+    def jadd_plain(self, X1, Y1, Z1, X2, Y2, Z2):
+        """Complete Jacobian addition (``pallas_ec._jadd_body``)."""
+        f = self.ctx
+        Z1Z1 = f.mont_sqr(Z1)
+        Z2Z2 = f.mont_sqr(Z2)
+        U1 = f.mont_mul(X1, Z2Z2)
+        U2 = f.mont_mul(X2, Z1Z1)
+        S1 = f.mont_mul(f.mont_mul(Y1, Z2), Z2Z2)
+        S2 = f.mont_mul(f.mont_mul(Y2, Z1), Z1Z1)
+        H = f.sub_mod(U2, U1)
+        r = f.sub_mod(S2, S1)
+
+        h_zero = f.is_zero(H)
+        r_zero = f.is_zero(r)
+        p_inf = f.is_zero(Z1)
+        q_inf = f.is_zero(Z2)
+
+        I = f.mont_sqr(f.add_mod(H, H))
+        J = f.mont_mul(H, I)
+        rr = f.add_mod(r, r)
+        V = f.mont_mul(U1, I)
+        X3 = f.sub_mod(f.sub_mod(f.mont_sqr(rr), J), f.add_mod(V, V))
+        SJ = f.mont_mul(S1, J)
+        Y3 = f.sub_mod(f.mont_mul(rr, f.sub_mod(V, X3)), f.add_mod(SJ, SJ))
+        Z3 = f.mont_mul(
+            f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Z1, Z2)), Z1Z1), Z2Z2), H)
+
+        dX, dY, dZ = self.jdbl_plain(X1, Y1, Z1)
+
+        same = h_zero & r_zero & ~p_inf & ~q_inf
+        negs = h_zero & ~r_zero & ~p_inf & ~q_inf
+
+        sel = f.select
+        x = sel(p_inf, X2, sel(q_inf, X1, sel(same, dX, X3)))
+        y = sel(p_inf, Y2, sel(q_inf, Y1, sel(same, dY, Y3)))
+        z = sel(p_inf, Z2, sel(q_inf, Z1, sel(same, dZ, Z3)))
+        z = sel(negs, torch.zeros_like(z), z)
+        return x, y, z
+
+    def affine_denom_plain(self, lx, ly, lv, rx, ry, rv):
+        """``pallas_ec._affine_denom_body``: 2*ly when L == R, 1 when a side
+        is invalid or L == -R, else rx - lx."""
+        f = self.ctx
+        both = (lv != 0) & (rv != 0)
+        dx = f.sub_mod(rx, lx)
+        same_x = f.is_zero(dx)
+        same_y = f.is_zero(f.sub_mod(ry, ly))
+        d = f.select(same_x & same_y, f.add_mod(ly, ly), dx)
+        one = f.one_mont(lx.device).expand_as(lx)
+        return f.select(both & ~(same_x & ~same_y), d, one)
+
+    def affine_add_plain(self, lx, ly, lv, rx, ry, rv, inv):
+        """``pallas_ec._affine_add_body``: (x3, y3, valid3)."""
+        f = self.ctx
+        lv = lv != 0
+        rv = rv != 0
+        both = lv & rv
+        same_x = f.is_zero(f.sub_mod(rx, lx))
+        same_y = f.is_zero(f.sub_mod(ry, ly))
+        dbl_case = same_x & same_y
+        inf_case = same_x & ~same_y
+
+        xx = f.mont_sqr(lx)
+        num_dbl = f.add_mod(f.add_mod(xx, xx), xx)
+        if not self.a_is_zero:
+            num_dbl = f.add_mod(num_dbl, f.const_words(self.a_mont, lx.device))
+        num = f.select(dbl_case, num_dbl, f.sub_mod(ry, ly))
+        lam = f.mont_mul(num, inv)
+        x3 = f.sub_mod(f.sub_mod(f.mont_sqr(lam), lx), rx)
+        y3 = f.sub_mod(f.mont_mul(lam, f.sub_mod(lx, x3)), ly)
+
+        x = f.select(both, x3, f.select(lv, lx, rx))
+        y = f.select(both, y3, f.select(lv, ly, ry))
+        v = (lv | rv) & ~(both & inf_case)
+        return x, y, v.to(torch.int32)
+
     # -- ops ----------------------------------------------------------------
     def mul(self, x: torch.Tensor, y: torch.Tensor, out=None) -> torch.Tensor:
-        """x (N, 8) times y (N, 8), or y (1, 8) broadcast; `out` may be x."""
+        """x (N, 8) times y (N, 8), or y (1, 8) broadcast; `out` may be x.
+        x, y and out may be strided views whose rows are packed (every
+        second row of a plane, say)."""
         if self._device(x) == "cpu":
             r = self.mul_plain(x, y)
             return r if out is None else out.copy_(r)
         n = x.shape[0]
-        _check_rows("x", x, x.device)
-        _check_rows("y", y, x.device)
+        xs = _check_strided("x", x, x.device)
+        ys = _check_strided("y", y, x.device)
         if y.shape[0] not in (1, n):
             raise ValueError(f"y has {y.shape[0]} rows, x has {n}")
-        out = torch.empty_like(x) if out is None else out
-        _check_rows("out", out, x.device)
-        rc = _build.library("ntt").crescent_mul(
+        if y.shape[0] == 1 and n != 1:
+            ys = 0
+        if out is None:
+            out = torch.empty((n, NWORD), dtype=torch.int32, device=x.device)
+        if out.shape[0] != n:
+            raise ValueError(f"out has {out.shape[0]} rows, x has {n}")
+        os_ = _check_strided("out", out, x.device)
+        self._launched("mul", _build.library("ntt").crescent_mul(
             self._mod9, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
-            int(y.shape[0] == 1 and n != 1), _stream(x.device),
-        )
-        if rc:
-            raise RuntimeError(f"mul kernel launch failed: cudaError {rc}")
-        self.mul_launches += 1
+            xs, ys, os_, _stream(x.device)))
         return out
 
     def _butterfly_launch(self, a, b, tw, npairs: int, log_half: int) -> None:
-        rc = _build.library("ntt").crescent_butterfly(
+        self._launched("butterfly", _build.library("ntt").crescent_butterfly(
             self._mod9, a.data_ptr(), b.data_ptr(), tw.data_ptr(), npairs,
-            log_half, _stream(a.device),
-        )
-        if rc:
-            raise RuntimeError(f"butterfly kernel launch failed: cudaError {rc}")
-        self.butterfly_launches += 1
+            log_half, _stream(a.device)))
 
     def butterfly(self, a, b, tw):
         """(a + b*tw, a - b*tw) on (N, 8) planes, as new tensors."""
@@ -130,7 +295,100 @@ class CudaEC:
         self._butterfly_launch(x, x[half:], tw, n // 2, half.bit_length() - 1)
         return x
 
+    # -- point ops -----------------------------------------------------------
+    def _planes(self, names: str, tensors, flags=()) -> tuple[int, torch.device]:
+        """Check (N, 8) coordinate planes and (N,) flag vectors of one op."""
+        dev = tensors[0].device
+        n = tensors[0].shape[0]
+        for name, t in zip(names.split(), tensors):
+            _check_rows(name, t, dev)
+            if t.shape[0] != n:
+                raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
+        for name, t in flags:
+            _check_flags(name, t, n, dev)
+        return n, dev
+
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Fermat inverse of every row (Montgomery form); 0 -> 0."""
+        if self._device(x) == "cpu":
+            return self.inv_plain(x)
+        n, dev = self._planes("x", [x])
+        out = torch.empty_like(x)
+        self._launched("inv", _build.library("ec").crescent_inv(
+            self._curve26, x.data_ptr(), out.data_ptr(), n, _stream(dev)))
+        return out
+
+    def affine_denom(self, lx, ly, lv, rx, ry, rv) -> torch.Tensor:
+        """Pair denominators for a batched affine addition; invalid and
+        infinity pairs get 1, so a batch inversion stays defined."""
+        if self._device(lx) == "cpu":
+            return self.affine_denom_plain(lx, ly, lv, rx, ry, rv)
+        n, dev = self._planes("lx ly rx ry", [lx, ly, rx, ry],
+                              (("lv", lv), ("rv", rv)))
+        out = torch.empty_like(lx)
+        self._launched("affine_denom", _build.library("ec").crescent_affine_denom(
+            self._curve26, lx.data_ptr(), ly.data_ptr(), lv.data_ptr(),
+            rx.data_ptr(), ry.data_ptr(), rv.data_ptr(), out.data_ptr(), n,
+            _stream(dev)))
+        return out
+
+    def affine_add(self, lx, ly, lv, rx, ry, rv, inv):
+        """Affine pair addition with the inverse denominators given.
+        Returns (x3, y3, valid3), valid3 an (N,) int32 vector."""
+        if self._device(lx) == "cpu":
+            return self.affine_add_plain(lx, ly, lv, rx, ry, rv, inv)
+        n, dev = self._planes("lx ly rx ry inv", [lx, ly, rx, ry, inv],
+                              (("lv", lv), ("rv", rv)))
+        ox, oy = torch.empty_like(lx), torch.empty_like(lx)
+        ov = torch.empty(n, dtype=torch.int32, device=dev)
+        self._launched("affine_add", _build.library("ec").crescent_affine_add(
+            self._curve26, lx.data_ptr(), ly.data_ptr(), lv.data_ptr(),
+            rx.data_ptr(), ry.data_ptr(), rv.data_ptr(), inv.data_ptr(),
+            ox.data_ptr(), oy.data_ptr(), ov.data_ptr(), n, _stream(dev)))
+        return ox, oy, ov
+
+    def jadd(self, x1, y1, z1, x2, y2, z2):
+        """Complete Jacobian addition on (N, 8) planes (identity: Z == 0)."""
+        if self._device(x1) == "cpu":
+            return self.jadd_plain(x1, y1, z1, x2, y2, z2)
+        ins = [x1, y1, z1, x2, y2, z2]
+        n, dev = self._planes("x1 y1 z1 x2 y2 z2", ins)
+        outs = [torch.empty_like(x1) for _ in range(3)]
+        self._launched("jadd", _build.library("ec").crescent_jadd(
+            self._curve26, *(t.data_ptr() for t in ins + outs), n, _stream(dev)))
+        return tuple(outs)
+
+    def jdbl_n(self, x, y, z, count: int):
+        """`count` chained Jacobian doublings in one launch."""
+        if count < 0:
+            raise ValueError(f"count must be >= 0, got {count}")
+        if self._device(x) == "cpu":
+            return self.jdbl_n_plain(x, y, z, count)
+        ins = [x, y, z]
+        n, dev = self._planes("x y z", ins)
+        outs = [torch.empty_like(x) for _ in range(3)]
+        self._launched("jdbl_n", _build.library("ec").crescent_jdbl_n(
+            self._curve26, *(t.data_ptr() for t in ins + outs), n, int(count),
+            _stream(dev)))
+        return tuple(outs)
+
+    def jdbl(self, x, y, z):
+        """One Jacobian doubling."""
+        if self._device(x) == "cpu":
+            return self.jdbl_plain(x, y, z)
+        ins = [x, y, z]
+        n, dev = self._planes("x y z", ins)
+        outs = [torch.empty_like(x) for _ in range(3)]
+        self._launched("jdbl", _build.library("ec").crescent_jdbl(
+            self._curve26, *(t.data_ptr() for t in ins + outs), n, _stream(dev)))
+        return tuple(outs)
+
 
 @functools.lru_cache(maxsize=None)
-def get_cuda_ec(modulus: int) -> CudaEC:
-    return CudaEC(modulus)
+def _get_cuda_ec(modulus: int, a: int) -> CudaEC:
+    return CudaEC(modulus, a)
+
+
+def get_cuda_ec(modulus: int, a: int = 0) -> CudaEC:
+    """One instance (and one set of launch counts) per field and `a`."""
+    return _get_cuda_ec(modulus, a % modulus)

@@ -11,11 +11,14 @@ u64 words, so every boundary is a byte view (``u64_to_words``,
 kept at the port's public functions; CUDA kernels (``ops/cuda_ec.py``) read
 the words directly.  Montgomery form uses R = 2^256, as in the reference.
 
-The plain ops of ``ModCtx`` (``mont_mul``, ``add_mod``, ``sub_mod``) split the
-words into sixteen 16-bit limbs carried in int64: torch's ``uint32`` has no
-``add`` and no ``>>`` on the CPU, and int64 holds a column sum of sixteen
-16x16-bit products (< 2^36) exactly.  Inputs must be canonical (< p); results
-are canonical, so they equal the reference's bit for bit.
+The plain ops of ``ModCtx`` (``mont_mul``, ``add_mod``, ``sub_mod``, ...) carry
+limbs in int64: torch's ``uint32`` has no ``add`` and no ``>>`` on the CPU.
+Sums and differences work on the eight 32-bit words; products split them into
+sixteen 16-bit limbs, since int64 holds a column sum of sixteen 16x16-bit
+products (< 2^36) exactly.  They are written for few tensor ops (whole-width
+products, carries resolved for all limbs at once), because at test sizes the
+time is the per-op overhead.  Inputs must be canonical (< p); results are
+canonical, so they equal the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -106,32 +109,81 @@ def words_to_limbs(w: torch.Tensor) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Plain arithmetic on 16-bit limbs carried in int64
+# Plain arithmetic on limbs carried in int64
 # ---------------------------------------------------------------------------
 
+_MUL_ROWS = 1 << 18  # rows per pass of the plain product
+WORD_BITS = 32
+WORD_MASK = (1 << WORD_BITS) - 1
+
+
 def _split(w: torch.Tensor) -> torch.Tensor:
-    """(..., 8) int32 words -> (..., 16) int64 limbs < 2^16."""
-    u = w.to(torch.int64) & 0xFFFFFFFF
-    return torch.stack([u & LIMB_MASK, u >> LIMB_BITS], dim=-1).flatten(-2)
+    """(..., 8) int32 words -> (..., 16) int64 limbs < 2^16 (the words'
+    bytes read as little-endian 16-bit halves)."""
+    if w.stride(-1) != 1:
+        w = w.contiguous()
+    return w.view(torch.int16).to(torch.int64) & LIMB_MASK
 
 
 def _join(limbs: torch.Tensor) -> torch.Tensor:
-    """(..., 16) int64 limbs < 2^16 -> (..., 8) int32 words (bit patterns)."""
-    pairs = limbs.unflatten(-1, (NWORD, 2))
-    u = pairs[..., 0] | (pairs[..., 1] << LIMB_BITS)
-    return (u - ((u >> 31) << 32)).to(torch.int32)
+    """(..., 16) int64 limbs < 2^16 -> (..., 8) int32 words (bit patterns;
+    the narrowing cast keeps the low 16 bits)."""
+    return limbs.to(torch.int16).contiguous().view(torch.int32)
 
 
-def _normalize(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Ripple the carries (or borrows) of (..., k) int64 limbs.  Returns the
-    (..., k) limbs < 2^16 and the signed carry out of the top limb."""
-    out = []
-    c = torch.zeros_like(t[..., 0])
-    for v in t.unbind(-1):
-        v = v + c
-        out.append(v & LIMB_MASK)
-        c = v >> LIMB_BITS  # arithmetic shift: -1 on a borrow
-    return torch.stack(out, dim=-1), c
+def _wide(w: torch.Tensor) -> torch.Tensor:
+    """(..., 8) int32 words -> (..., 8) int64 limbs < 2^32."""
+    return w.to(torch.int64) & WORD_MASK
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_tables(k: int, device: str):
+    """(arange(k), 2^arange(k), 2^(arange(k) + 1)) as int64 on `device`."""
+    bit = torch.arange(k, dtype=torch.int64, device=device)
+    pow2 = torch.ones_like(bit) << bit
+    return bit, pow2, pow2 << 1
+
+
+def _pass(t: torch.Tensor) -> torch.Tensor:
+    """One local carry pass over (..., k) non-negative 16-bit-radix limbs:
+    every limb keeps its low 16 bits and takes what the limb below hands
+    up.  What the top limb hands up is dropped (arithmetic mod 2^(16k))."""
+    return (t & LIMB_MASK) + torch.nn.functional.pad(t >> LIMB_BITS, (1, -1))
+
+
+def _resolve(t: torch.Tensor, bits: int, carry_in: int = 0):
+    """Propagate the carries of (..., k) limbs of radix 2^bits, each in
+    [0, 2^(bits+1) - 2] (a sum of two reduced limbs, say): returns the
+    (..., k) reduced limbs and the (...) carry out of the top limb (0 or 1).
+
+    A limb then hands up at most 1, and only a limb equal to 2^bits - 1
+    hands an incoming carry on, so the ripple is resolved for all limbs at
+    once as one integer addition on the limbs' generate and propagate bits
+    (k + 1 <= 62 bits in an int64).  `carry_in` (0 or 1) enters limb 0."""
+    k = t.shape[-1]
+    mask = (1 << bits) - 1
+    bit, pow2, pow2x2 = _bit_tables(k, str(t.device))
+    low = t & mask
+    gen2 = ((t >> bits) * pow2x2).sum(-1)
+    prop = ((low == mask) * pow2).sum(-1)
+    cin = (gen2 + prop + carry_in) ^ prop  # bit i: a carry enters limb i
+    return (low + ((cin[..., None] >> bit) & 1)) & mask, cin >> k
+
+
+def _toeplitz(b: torch.Tensor) -> torch.Tensor:
+    """(..., 16) limbs -> the (..., 32, 16) view U with U[k, j] = b[k+j-15]
+    (0 outside b), so that column k of the schoolbook product a * b is
+    sum_j a[15-j] * U[k, j]."""
+    padded = torch.nn.functional.pad(b, (NLIMB - 1, NLIMB + 1))
+    return padded.unfold(-1, NLIMB, 1)[..., : 2 * NLIMB, :]
+
+
+def _columns(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """(..., 16) limbs a and a (..., rows, 16) table u -> (..., rows):
+    column k is sum_i a[i] * u[k, i].  With u[k, i] = b[k - i] these are the
+    column sums of the schoolbook product a * b (< 2^36 for limbs < 2^16),
+    its low columns where the table has fewer rows."""
+    return (u * a[..., None, :]).sum(-1)
 
 
 class ModCtx:
@@ -145,14 +197,27 @@ class ModCtx:
         self.R = 1 << 256
         self.r_mod_n = self.R % modulus  # Montgomery 1
         self.r2 = self.R * self.R % modulus
-        self._p16 = [(modulus >> (LIMB_BITS * i)) & LIMB_MASK for i in range(NLIMB)]
-        self._ninv16 = (-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
         self._consts: dict = {}
 
-    def _p(self, device) -> torch.Tensor:
-        key = str(device)
+    def _limbs(self, name: str, device, bits: int = LIMB_BITS) -> torch.Tensor:
+        """int64 limbs of radix 2^bits of a constant: 'p', 'ninv'
+        (-p^-1 mod 2^256) or 'comp' (2^256 - p)."""
+        key = (name, bits, str(device))
         if key not in self._consts:
-            self._consts[key] = torch.tensor(self._p16, dtype=torch.int64, device=device)
+            value = {"p": self.modulus,
+                     "ninv": (-pow(self.modulus, -1, self.R)) % self.R,
+                     "comp": self.R - self.modulus}[name]
+            self._consts[key] = torch.tensor(
+                [(value >> (bits * i)) & ((1 << bits) - 1) for i in range(256 // bits)],
+                dtype=torch.int64, device=device)
+        return self._consts[key]
+
+    def _table(self, name: str, rows: int, device) -> torch.Tensor:
+        """The (rows, 16) table u of the constant c = `name` with
+        u[k, i] = c[k - i], for ``_columns``; cached."""
+        key = (name, "table", rows, str(device))
+        if key not in self._consts:
+            self._consts[key] = _toeplitz(self._limbs(name, device))[:rows].flip(-1).contiguous()
         return self._consts[key]
 
     # -- host conversions ---------------------------------------------------
@@ -169,37 +234,103 @@ class ModCtx:
         return limbs_to_words(ints_to_limbs(xs), device)
 
     # -- plain device ops ---------------------------------------------------
-    def _cond_sub(self, t: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
-        """Value t + top*2^256 < 2p (t: (..., 16) limbs) -> mod p, as words."""
-        d, br = _normalize(t - self._p(t.device))
-        keep_t = (top + br) < 0  # t < p: the subtraction borrowed past top
-        return _join(torch.where(keep_t[..., None], t, d))
+    # (p < 2^255, so a sum of two elements and a value below 2p fit 256 bits)
+    def _cond_sub(self, x: torch.Tensor, bits: int) -> torch.Tensor:
+        """Reduced limbs x of radix 2^bits, value < 2p -> the limbs of
+        x mod p."""
+        d, ge_p = _resolve(x + self._limbs("comp", x.device, bits), bits)  # x - p + 2^256
+        return torch.where(ge_p[..., None] != 0, d, x)
 
     def mont_mul(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """x * y * 2^-256 mod p (limb-serial REDC; the same value as
+        """x * y * 2^-256 mod p (REDC; the same value as
         pallas_ec._F.mont_mul)."""
-        a, b = torch.broadcast_tensors(_split(x), _split(y))
-        p16 = self._p(a.device)
-        t = torch.zeros(a.shape[:-1] + (2 * NLIMB + 1,), dtype=torch.int64,
-                        device=a.device)
-        for i in range(NLIMB):
-            t[..., i : i + NLIMB] += a[..., i : i + 1] * b
-        t, _ = _normalize(t)
-        for i in range(NLIMB):
-            m = (t[..., i] * self._ninv16) & LIMB_MASK
-            t[..., i : i + NLIMB] += m[..., None] * p16
-            t[..., i + 1] += t[..., i] >> LIMB_BITS
-        u, _ = _normalize(t[..., NLIMB:])  # 17 limbs, value < 2p
-        return self._cond_sub(u[..., :NLIMB], u[..., NLIMB])
+        a = _split(x)
+        b = a if y is x else _split(y)
+        if a.shape != b.shape:
+            a, b = torch.broadcast_tensors(a, b)
+        rows = a.shape[:-1].numel()
+        if rows > _MUL_ROWS:
+            # bound the (rows, 32, 16) int64 product: 4 KiB per row
+            shape = a.shape[:-1]
+            a, b = a.reshape(rows, NLIMB), b.reshape(rows, NLIMB)
+            out = torch.cat([
+                self._mont_mul_limbs(a[i : i + _MUL_ROWS], b[i : i + _MUL_ROWS])
+                for i in range(0, rows, _MUL_ROWS)])
+            return out.reshape(shape + (NWORD,))
+        return self._mont_mul_limbs(a, b)
+
+    def _mont_mul_limbs(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """mont_mul on (..., 16) int64 limbs of one shape -> words."""
+        dev = a.device
+        t = _columns(a.flip(-1), _toeplitz(b))  # 32 columns < 2^36, carries not propagated
+        # m = (t mod 2^256) * (-p^-1) mod 2^256: columns < 2^56.  Three
+        # passes leave limbs < 2^16 + 2^9 (not reduced: m stands for a value
+        # below 1.01 * 2^256 that is right mod 2^256, which is what makes
+        # the low half of t + m*p cancel)
+        m = _pass(_pass(_pass(_columns(t[..., :NLIMB], self._table("ninv", NLIMB, dev)))))
+        u = t + _columns(m, self._table("p", 2 * NLIMB, dev))  # columns < 2^38
+        # two passes leave limbs < 2^16 + 2^7; the low 16 limbs cancel and
+        # the high 16 are (t + m*p) / 2^256 < p * (p / 2^256 + 1.01) < 2p
+        x, _ = _resolve(_pass(_pass(u)), LIMB_BITS)
+        return _join(self._cond_sub(x[..., NLIMB:], LIMB_BITS))
 
     def add_mod(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        s, top = _normalize(_split(x) + _split(y))
-        return self._cond_sub(s, top)
+        s, _ = _resolve(_wide(x) + _wide(y), WORD_BITS)
+        return self._cond_sub(s, WORD_BITS).to(torch.int32)
 
     def sub_mod(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        d, br = _normalize(_split(x) - _split(y))
-        plus, _ = _normalize(d + self._p(d.device) * (br < 0)[..., None])
-        return _join(plus)
+        # x - y + 2^256 as x + ~y + 1; no carry out means it borrowed
+        d, no_borrow = _resolve(_wide(x) + (WORD_MASK - _wide(y)), WORD_BITS, carry_in=1)
+        plus, _ = _resolve(d + self._limbs("p", d.device, WORD_BITS), WORD_BITS)
+        return torch.where(no_borrow[..., None] != 0, d, plus).to(torch.int32)
+
+    def mont_sqr(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(x, x)
+
+    def neg_mod(self, x: torch.Tensor) -> torch.Tensor:
+        """0 - x (0 stays 0)."""
+        return self.sub_mod(torch.zeros_like(x), x)
+
+    def const_words(self, value: int, device) -> torch.Tensor:
+        """The (1, 8) word row of `value` (as given) on `device`, cached."""
+        key = (value, str(device))
+        if key not in self._consts:
+            self._consts[key] = self.words([value], device)
+        return self._consts[key]
+
+    def one_mont(self, device) -> torch.Tensor:
+        """Montgomery 1 as a (1, 8) row."""
+        return self.const_words(self.r_mod_n, device)
+
+    def to_mont(self, x: torch.Tensor) -> torch.Tensor:
+        """Standard form -> Montgomery form: a product by R^2."""
+        return self.mont_mul(x, self.const_words(self.r2, x.device))
+
+    def from_mont(self, x: torch.Tensor) -> torch.Tensor:
+        """Montgomery form -> standard form: a product by 1."""
+        return self.mont_mul(x, self.const_words(1, x.device))
+
+    @staticmethod
+    def is_zero(x: torch.Tensor) -> torch.Tensor:
+        """(..., 8) -> (...) bool."""
+        return (x == 0).all(dim=-1)
+
+    @staticmethod
+    def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Per element: mask (...) nonzero ? a : b."""
+        return torch.where(mask.to(torch.bool)[..., None], a, b)
+
+    def inv_mod(self, x: torch.Tensor) -> torch.Tensor:
+        """x^(p-2) by square-and-multiply over the 256 exponent bits, MSB
+        first (the chain of the reference's ``_inv_core``); 0 -> 0.  The
+        product for a zero bit is skipped: it would be discarded."""
+        e = self.modulus - 2
+        acc = self.one_mont(x.device).expand_as(x)
+        for i in range(255, -1, -1):
+            acc = self.mont_sqr(acc)
+            if (e >> i) & 1:
+                acc = self.mont_mul(acc, x)
+        return acc
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,7 +24,8 @@ import functools
 import numpy as np
 import torch
 
-from .._host import fields, nb
+from ..core import fields
+from ..native import backend as nb
 from . import limb
 from .cuda_ec import CudaEC, get_cuda_ec
 

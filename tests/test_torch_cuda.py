@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (crescent_tpu_torch/csrc/ntt.cu) against their
-plain PyTorch versions on a card, bit for bit.
+"""The port's CUDA kernels (crescent_tpu_torch/csrc/ntt.cu, ec.cu) against
+their plain PyTorch versions on a card, bit for bit.
 
 Needs a CUDA card and imports nothing of JAX, so it runs on a machine
 without JAX; the repo's conftest imports jax, so there run it with
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from crescent_tpu_torch._host import fields
+from crescent_tpu_torch.core import fields
 from crescent_tpu_torch.ops import limb
 from crescent_tpu_torch.ops.cuda_ec import get_cuda_ec
 
@@ -58,3 +58,84 @@ def test_cuda_kernels_match_plain(cuda, name):
         r0, r1 = ec.butterfly_plain(v[:, 0], v[:, 1], tw)
         assert torch.equal(got, torch.stack([r0, r1], 1).view(-1, 8))
     assert (ec.mul_launches, ec.butterfly_launches) == (launches[0] + 2, launches[1] + 4)
+
+
+def _planted_points(ec, n: int, seed: int, device):
+    """Jacobian batches P, Q with lanes 0..5: P == Q, P == Q through another
+    representative, P == -Q, P at infinity, Q at infinity, both."""
+    p = ec.modulus
+    x1, y1, z1, x2, y2, z2 = (_elems(p, n, seed + 2 * k, device)[16:].contiguous()
+                              for k in range(6))
+    f = ec.ctx
+    x2[0], y2[0], z2[0] = x1[0], y1[0], z1[0]
+    lam = x2[1:2].clone()
+    l2 = f.mont_sqr(lam)
+    x2[1:2] = f.mont_mul(x1[1:2], l2)
+    y2[1:2] = f.mont_mul(y1[1:2], f.mont_mul(l2, lam))
+    z2[1:2] = f.mont_mul(z1[1:2], lam)
+    x2[2], y2[2], z2[2] = x1[2], f.neg_mod(y1[2:3])[0], z1[2]
+    z1[3] = 0
+    z2[4] = 0
+    z1[5] = 0
+    z2[5] = 0
+    return x1, y1, z1, x2, y2, z2
+
+
+def _planted_pairs(ec, n: int, seed: int, device):
+    """Affine pairs with lanes 0..4: L == R, L == -R, left only, right only,
+    neither; seeded validity elsewhere."""
+    p = ec.modulus
+    lx, ly, rx, ry = (_elems(p, n, seed + 2 * k, device)[16:].contiguous() for k in range(4))
+    rng = np.random.default_rng(seed)
+    lv = torch.from_numpy(rng.integers(0, 2, size=lx.shape[0]).astype(np.int32)).to(device)
+    rv = torch.from_numpy(rng.integers(0, 2, size=lx.shape[0]).astype(np.int32)).to(device)
+    rx[0], ry[0] = lx[0], ly[0]
+    rx[1], ry[1] = lx[1], ec.ctx.neg_mod(ly[1:2])[0]
+    for lane, (l, r) in enumerate([(1, 1), (1, 1), (1, 0), (0, 1), (0, 0)]):
+        lv[lane], rv[lane] = l, r
+    return lx, ly, lv, rx, ry, rv
+
+
+def _equal(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [0, 0x1234567], ids=["a0", "a_nonzero"])
+def test_cuda_point_kernels_match_plain(cuda, a):
+    """inv, affine_denom, affine_add, jadd, jdbl_n and jdbl over BN254 Fq,
+    on the curve's a = 0 and on an arbitrary a != 0; 3100 lanes (no multiple
+    of the block size: the bounds check)."""
+    from crescent_tpu_torch.ops.msm_affine import batch_inv
+
+    ec = get_cuda_ec(fields.BN254_FQ, a)
+    n = 3100 + 16
+    before = ec.launches()
+    x = _elems(ec.modulus, 512, 9, cuda)  # rows 0..15: 0, 1, p-1, Montgomery 1
+    assert _equal(ec.inv(x), ec.inv_plain(x))
+    pair = _planted_pairs(ec, n, 11, cuda)
+    d = ec.affine_denom(*pair)
+    assert _equal(d, ec.affine_denom_plain(*pair))
+    inv = ec.inv(d)
+    assert _equal(ec.affine_add(*pair, inv), ec.affine_add_plain(*pair, inv))
+    assert ec.affine_add(*pair, inv)[2][:5].tolist() == [1, 0, 1, 1, 0]
+    # the product tree on strided views: 3072 lanes down to a root of 12
+    d3 = d[:3072].contiguous()
+    tree = batch_inv(ec, d3, inv_floor=16)
+    assert torch.equal(ec.mul(d3, tree), ec.ctx.one_mont(cuda).expand_as(d3))
+    pq = _planted_points(ec, n, 13, cuda)
+    assert _equal(ec.jadd(*pq), ec.jadd_plain(*pq))
+    assert _equal(ec.jdbl(*pq[:3]), ec.jdbl_plain(*pq[:3]))
+    p16 = tuple(t[:16].contiguous() for t in pq[:3])
+    for count in (0, 1, 11):
+        assert _equal(ec.jdbl_n(*p16, count), ec.jdbl_n_plain(*p16, count))
+    after = ec.launches()
+    grew = {k: after[k] - before[k] for k in after}
+    assert grew["inv"] == 3 and grew["affine_denom"] == 1 and grew["affine_add"] == 2
+    assert grew["jadd"] == 1 and grew["jdbl"] == 1 and grew["jdbl_n"] == 3
+    with pytest.raises(ValueError):
+        ec.jadd(*pq[:5], pq[5][1:])          # a plane of another length
+    with pytest.raises(ValueError):
+        ec.jdbl(pq[0][:, :4], pq[1], pq[2])  # not (N, 8) rows

@@ -3,7 +3,11 @@ on identical inputs, on the CPU (plain versions of the kernels).
 
 The reference runs as its own tests run it here: `prove` in its CPU
 configuration (XLA h(x), native MSMs), `_compute_h_device` through the
-Pallas kernels in interpret mode.  Exact comparisons (tolerance 0).
+Pallas kernels in interpret mode.  The port's `prove` runs in both of its
+MSM configurations (CRESCENT_PROVE_MSM=native and =device, the latter through
+the plain versions of the MSM kernels at a small window width).  Exact
+comparisons (tolerance 0); proofs are compared as tuples of ints, since the
+two packages define their own field classes.
 """
 
 import os
@@ -14,13 +18,26 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from crescent_tpu.models import groth16 as ref
 from crescent_tpu_torch.convert import proving_key_from_reference
 from crescent_tpu_torch.models import groth16 as port
+from crescent_tpu_torch.ops import msm as port_msm
+from crescent_tpu_torch.ops import msm_affine as port_affine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOG = 6  # dummy_circuit(6): 62 constraints, domain 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; threads inside
+    torch's ops on top of that make the workers wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -31,6 +48,11 @@ def bundle():
     zu = ref.nb.ints_to_u64([x % ref.R for x in z])
     h_ref = np.asarray(jax.device_get(ref._compute_h_device(r1cs, zu, dom)))
     return r1cs, z, pk, zu, h_ref
+
+
+def _proof_ints(proof) -> tuple:
+    b = proof.b
+    return (tuple(proof.a), (b[0].c0, b[0].c1, b[1].c0, b[1].c1), tuple(proof.c))
 
 
 def test_dummy_circuit_matches_reference(bundle):
@@ -71,8 +93,8 @@ def test_prove_matches_reference(bundle, witness):
     timings = {}
     got = port.prove(ppk, pr1cs, z if witness == "ints" else zu, random.Random(0),
                      r=r, s=s, device="cpu", timings=timings)
-    assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
-    assert set(timings) == {"matvec", "h", "msm", "assemble"}
+    assert _proof_ints(got) == _proof_ints(want)
+    assert set(timings) == {"matvec", "h", "msm", "msm_g1", "msm_g2", "assemble"}
     pubs = z[1 : r1cs.num_instance]
     assert ref.verify(pk.vk.prepare(), ref.Proof(got.a, got.b, got.c), pubs)
     pvk = ppk.vk.prepare()
@@ -80,16 +102,104 @@ def test_prove_matches_reference(bundle, witness):
     assert not port.verify(pvk, got, [(pubs[0] + 1) % port.R])
 
 
+def test_prove_device_msm_matches_reference_and_native(bundle, monkeypatch):
+    """CRESCENT_PROVE_MSM=device on the CPU: the fold of sorted-segment
+    affine MSMs through the plain versions.  The MSM is made with a window
+    width of 5 and floors of 16 lanes (the prove path's 11 and 512 take
+    minutes through the plain versions); the proof does not depend on them."""
+    r1cs, z, pk, zu, _ = bundle
+    r, s = 0x2468ACE, 0xECA8642
+    want = _proof_ints(ref.prove(pk, r1cs, z, random.Random(0), r=r, s=s))
+    pr1cs, _ = port.dummy_circuit(LOG, random.Random(11))
+    ppk = proving_key_from_reference(pk)
+
+    def small_msm(curve):
+        m = port_msm.MSM(curve, affine_c=5, max_chunk=64)
+        m._affine = port_affine.AffineMSM(m.ctx, m.ctx.ec, c=5, min_bucket=16,
+                                          inv_floor=16)
+        return m
+
+    monkeypatch.setattr(port, "get_msm", small_msm)
+    proofs = {}
+    for mode in ("device", "native"):
+        monkeypatch.setenv("CRESCENT_PROVE_MSM", mode)
+        timings = {}
+        proofs[mode] = _proof_ints(port.prove(ppk, pr1cs, zu, random.Random(0), r=r, s=s,
+                                              device="cpu", timings=timings))
+        assert timings["msm_g1"] > 0 and timings["msm_g2"] > 0
+    assert proofs["device"] == proofs["native"] == want
+    assert set(ppk._dev) == {("a_query", "cpu"), ("b_g1_query", "cpu"),
+                             ("h_query", "cpu"), ("l_query", "cpu"), "b_g2_query:u64"}
+    monkeypatch.setenv("CRESCENT_PROVE_MSM", "host")
+    with pytest.raises(ValueError):
+        port.prove(ppk, pr1cs, zu, random.Random(0), device="cpu")
+
+
+def test_device_table_matches_reference(bundle):
+    """ProvingKey.device_table: the port's planes equal the reference's,
+    carried over by convert.device_table_from_reference."""
+    from crescent_tpu.ops.msm import get_msm as ref_get_msm
+    from crescent_tpu_torch.convert import device_table_from_reference
+
+    _, _, pk, _, _ = bundle
+    ppk = proving_key_from_reference(pk)
+    msm_g1 = port_msm.get_msm(port.G1)
+    for name in ("a_query", "h_query"):
+        want = device_table_from_reference(pk.device_table(name, ref_get_msm(ref.G1)))
+        got = ppk.device_table(name, msm_g1, "cpu")
+        assert got is ppk.device_table(name, msm_g1, torch.device("cpu"))  # cached
+        keep = want[2].bool()  # an identity's x, y are free
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[0][keep], want[0][keep])
+        assert torch.equal(got[1][keep], want[1][keep])
+    assert ppk.native_g2_table() is ppk.native_g2_table()
+    np.testing.assert_array_equal(ppk.native_g2_table(), pk.native_g2_table())
+
+
+def test_prove_runs_on_the_card_unless_asked_for_the_cpu(bundle, monkeypatch):
+    """`device` defaults to the card; without one the call raises, whatever
+    the MSM configuration: nothing picks the CPU because it found no card."""
+    import inspect
+
+    for fn in (port.prove, port._compute_h_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    r1cs, z, pk, zu, _ = bundle
+    pr1cs, _ = port.dummy_circuit(LOG, random.Random(11))
+    ppk = proving_key_from_reference(pk)
+    for mode in ("auto", "native", "device"):
+        monkeypatch.setenv("CRESCENT_PROVE_MSM", mode)
+        with pytest.raises((RuntimeError, AssertionError)):
+            port.prove(ppk, pr1cs, z, random.Random(0))
+    with pytest.raises((RuntimeError, AssertionError)):
+        port._compute_h_device(pr1cs, zu, port._domain_for(pr1cs))
+
+
+def test_msm_configuration_switch(monkeypatch):
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    monkeypatch.delenv("CRESCENT_PROVE_MSM", raising=False)
+    assert not port._device_msm_prove(cpu) and port._device_msm_prove(cuda)
+    monkeypatch.setenv("CRESCENT_PROVE_MSM", "native")
+    assert not port._device_msm_prove(cpu) and not port._device_msm_prove(cuda)
+    monkeypatch.setenv("CRESCENT_PROVE_MSM", "device")
+    assert port._device_msm_prove(cpu) and port._device_msm_prove(cuda)
+
+
 _NO_JAX = """
 import random, sys
 sys.modules["jax"] = None
+sys.modules["crescent_tpu"] = None
 from crescent_tpu_torch.models import groth16 as g
 r1cs, z = g.dummy_circuit(5, random.Random(3))
 pk = g.setup(r1cs, random.Random(4))
 proof = g.prove(pk, r1cs, z, random.Random(5), device="cpu")
 assert g.verify(pk.vk.prepare(), proof, z[1:r1cs.num_instance])
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-assert leaked == ["jax"] and sys.modules["jax"] is None, leaked
+import crescent_tpu_torch.convert, crescent_tpu_torch.ops.msm
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "crescent_tpu"))
+assert leaked == ["crescent_tpu", "jax"], leaked
+assert sys.modules["jax"] is None and sys.modules["crescent_tpu"] is None
 print("no-jax prove ok")
 """
 

@@ -1,0 +1,345 @@
+"""The port's MSM layers (crescent_tpu_torch/ops/msm.py, msm_affine.py,
+ec.py) on the CPU, through the plain versions of the kernels, against the
+reference's functions over its XLA adapter and against the native host MSM.
+
+The same seeded inputs go through both packages; comparisons are exact
+(tolerance 0) and include the lanes that hold no valid entry.  Reference
+planes are (16, N) limb-major u32, the port's (N, 8) int32 word rows.
+
+The reference's functions (``batch_inv``, ``_round1``, ``_round``,
+``_scatter_dense``, ``_aggregate_dense``) run as they are, over the XLA
+adapter's ops.  XLA compiles every op anew for every lane count, and a round
+has a dozen of them, so the adapter is wrapped (``_PaddedPEC``): each op pads
+its planes to one fixed lane count with zeros, runs (``mul``, ``inv``,
+``affine_denom`` and ``affine_add`` each jitted by itself; ``jadd`` and
+``jdbl`` op by op, which is quicker than their compile) and cuts the result
+back.  The ops are lane-wise, so the values are the adapter's own.  Its
+``jdbl_n`` (a compiled loop for every count) is its ``jdbl`` applied count
+times, which has the same body.  ``_aggregate_dense`` is held on a table of
+three windows.
+"""
+
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from crescent_tpu.core.curves import BN254_G1 as REF_G1
+from crescent_tpu.ops import ec as ref_ec
+from crescent_tpu.ops import msm as ref_msm
+from crescent_tpu.ops import msm_affine as ref_affine
+from crescent_tpu.ops.xla_pec import XlaPEC
+from crescent_tpu_torch.core.curves import BN254_G1
+from crescent_tpu_torch.native import backend as nb
+from crescent_tpu_torch.ops import limb
+from crescent_tpu_torch.ops import msm as port_msm
+from crescent_tpu_torch.ops import msm_affine as port_affine
+from crescent_tpu_torch.ops.ec import JPoints, get_curve_ctx, points_valid
+from crescent_tpu_torch.utils.pointvec import ArrayPointVec
+
+P = BN254_G1.p
+C = 5            # window width of the small MSMs: W = 53 windows of B = 17 buckets
+FLOOR = 16       # min_bucket and inv_floor of the small MSMs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; threads inside
+    torch's ops on top of that make the workers wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _ints(seed: int, n: int, mod: int) -> list[int]:
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    return [int("".join(f"{int(x):08x}" for x in r), 16) % mod for r in w]
+
+
+def _problem(seed: int, n: int):
+    """n seeded affine points and scalars with the cases planted: an
+    identity, a zero scalar, -1, the same point twice (L == R in its
+    bucket) and a point with its negative (L == -R)."""
+    pts = nb.fixed_base("bn254_g1", BN254_G1.generator,
+                        [k or 1 for k in _ints(seed, n, BN254_G1.n)])
+    ks = _ints(seed + 1, n, BN254_G1.n)
+    pts[1] = None
+    ks[2] = 0
+    ks[3] = BN254_G1.n - 1
+    pts[5], ks[5] = pts[4], ks[4]
+    pts[7], ks[7] = BN254_G1.neg(pts[6]), ks[6]
+    return pts, ks
+
+
+def _to_ref(t: torch.Tensor):
+    """(N, 8) words -> (16, N) u32 plane; (N,) ints -> (N,) u32."""
+    if t.dim() == 2:
+        return jnp.asarray(limb.words_to_limbs(t).T.copy())
+    return jnp.asarray(t.numpy().astype(np.uint32))
+
+
+def _same(got: torch.Tensor, want) -> None:
+    want = np.asarray(jax.device_get(want))
+    if got.dim() == 2:
+        np.testing.assert_array_equal(limb.words_to_limbs(got), want.T)
+    else:
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+class _PaddedPEC(XlaPEC):
+    """The XLA adapter with every op run at one fixed lane count."""
+
+    def __init__(self, lanes: int, inv_lanes: int, jit: bool):
+        super().__init__(P, 0)
+        self.lanes, self.inv_lanes = lanes, inv_lanes
+        wrap = jax.jit if jit else (lambda f: f)
+        base = XlaPEC
+        self._ops = {name: wrap(getattr(base, name).__get__(self))
+                     for name in ("mul", "inv", "affine_denom", "affine_add", "jadd", "jdbl")}
+
+    def _call(self, name: str, args, lanes=None):
+        lanes = lanes or self.lanes
+        n = args[0].shape[-1]
+        assert n <= lanes, (name, n, lanes)
+        padded = [jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, lanes - n)]) for a in args]
+        outs = self._ops[name](*padded)
+        if isinstance(outs, (tuple, list)):
+            return tuple(o[..., :n] for o in outs)
+        return outs[..., :n]
+
+    def mul(self, x, y):
+        return self._call("mul", (x, y))
+
+    def inv(self, x):
+        return self._call("inv", (x,), self.inv_lanes)
+
+    def affine_denom(self, *a):
+        return self._call("affine_denom", a)
+
+    def affine_add(self, *a):
+        return self._call("affine_add", a)
+
+    def jadd(self, *a):
+        return self._call("jadd", a)
+
+    def jdbl(self, *a):
+        return self._call("jdbl", a)
+
+    def jdbl_n(self, x1, y1, z1, count: int):
+        for _ in range(count):
+            x1, y1, z1 = self.jdbl(x1, y1, z1)
+        return x1, y1, z1
+
+
+N1 = 32          # points of the round tests: 32 * 53 = 1696 sorted entries
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The port's and the reference's AffineMSM at the small parameters."""
+    ctx = get_curve_ctx(BN254_G1)
+    port = port_affine.AffineMSM(ctx, ctx.ec, c=C, min_bucket=FLOOR, inv_floor=FLOOR)
+    lanes = 2 * port._round_schedule(N1)[0]  # the widest pair level
+    ref = ref_affine.AffineMSM(ref_ec.get_curve_ctx(REF_G1),
+                               _PaddedPEC(lanes, FLOOR, jit=True), c=C,
+                               min_bucket=FLOOR, inv_floor=FLOOR)
+    return port, ref
+
+
+@pytest.fixture(scope="module")
+def sorted_entries(pair):
+    """A 32-point problem up to the sort, in the port's tensors:
+    (spk, spay, tx, ty, n)."""
+    port, _ = pair
+    n = N1
+    pts, ks = _problem(21, n)
+    ctx = port.ctx
+    Pd = ctx.points_to_device(pts, "cpu")
+    valid = torch.from_numpy(points_valid(pts))
+    digits, signs = port_msm.scalar_digits_signed(ctx.fctx.words(ks), C)
+    ok = (digits != 0) & (valid[:, None] != 0)
+    keys = torch.where(ok, torch.arange(port.W)[None, :] * port.B + digits,
+                       torch.full_like(digits, port.sentinel))
+    pk = (keys * 2 + ok.to(torch.int64)).reshape(-1)
+    pay = ((torch.arange(n)[:, None] << 1) | signs).reshape(-1)
+    spk, order = torch.sort(pk, stable=True)
+    tx = torch.cat([Pd.x, Pd.x])
+    ty = torch.cat([Pd.y, ctx.fctx.neg_mod(Pd.y)])
+    return spk, pay[order], tx, ty, n
+
+
+@pytest.mark.parametrize("c", [5, 8, 11, 16])
+def test_scalar_digits_signed_matches_reference(c):
+    ks = _ints(31 + c, 24, BN254_G1.n)
+    ks[:3] = [0, BN254_G1.n - 1, (1 << 256) - 1]  # full width: the carry window
+    digs, signs = port_msm.scalar_digits_signed(limb.get_ctx(P).words(ks), c)
+    rd, rs = ref_msm.digits_signed_jit(jnp.asarray(limb.ints_to_limbs(ks)), c)
+    np.testing.assert_array_equal(digs.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(signs.numpy(), np.asarray(rs))
+    half = 1 << (c - 1)
+    for k, d, s in zip(ks, digs.tolist(), signs.tolist()):
+        assert all(0 <= x <= half for x in d)
+        assert sum((-x if sg else x) << (c * w) for w, (x, sg) in enumerate(zip(d, s))) == k
+
+
+def test_quantize_and_round_schedule_match_reference(pair):
+    for floor in (16, 512):
+        for n in list(range(1, 70)) + [511, 512, 513, 1000, 4097, 1 << 17, 3276800, 838483]:
+            assert port_affine.quantize(n, floor) == ref_affine.quantize(n, floor)
+    port, ref = pair
+    assert (port.W, port.B, port.sentinel) == (ref.W, ref.B, ref.sentinel)
+    for n in (16, 32, 48, 512, 1 << 17):
+        assert port._round_schedule(n) == ref._round_schedule(n)
+    ctx = port.ctx
+    big = port_affine.AffineMSM(ctx, ctx.ec)  # the prove path's parameters
+    assert (big.c, big.W, big.B, big.min_bucket, big.inv_floor) == (11, 25, 1025, 512, 512)
+    assert big._round_schedule(1 << 17)[0] == 1 << 20
+
+
+def test_batch_inv_matches_reference(pair):
+    port, ref = pair
+    ctx = port.ctx
+    vals = [v or 1 for v in _ints(41, 96, P)]  # 96 -> 48 -> 24 -> 12 lanes
+    d = limb.limbs_to_words(ctx.fctx.to_mont_host(vals))
+    got = port_affine.batch_inv(ctx.ec, d, inv_floor=FLOOR)
+    _same(got, ref_affine.batch_inv(ref.pec, _to_ref(d), FLOOR))
+    assert ctx.fctx.from_mont_host(limb.words_to_limbs(got)) == [pow(v, -1, P) for v in vals]
+
+
+def test_round1_and_round_match_reference(pair, sorted_entries):
+    port, ref = pair
+    spk, spay, tx, ty, n = sorted_entries
+    m1, m2 = port._round_schedule(n)[:2]
+    pk1, x1, y1 = port._round1(spk, spay, tx, ty, m1, n)
+    txy = jnp.concatenate([_to_ref(tx), _to_ref(ty)], axis=0)
+    rpk1, rx1, ry1 = ref._round1(_to_ref(spk), _to_ref(spay), txy, m1, n)
+    _same(pk1, rpk1), _same(x1, rx1), _same(y1, ry1)
+    pk2, x2, y2 = port._round(pk1, x1, y1, m2)
+    rpk2, rx2, ry2 = ref._round(rpk1, rx1, ry1, m2)
+    _same(pk2, rpk2), _same(x2, rx2), _same(y2, ry2)
+    assert int((pk2 & 1).sum()) < int((pk1 & 1).sum()) < int((spk & 1).sum())
+
+
+def test_aggregate_dense_matches_reference():
+    """Scatter and aggregate of a three-window table (c = 3, five buckets a
+    window), seeded survivors in some buckets and none in others."""
+    ctx = get_curve_ctx(BN254_G1)
+    port = port_affine.AffineMSM(ctx, ctx.ec, c=3)
+    ref = ref_affine.AffineMSM(ref_ec.get_curve_ctx(REF_G1),
+                               _PaddedPEC(15, 15, jit=False), c=3)
+    port.W = ref.W = 3
+    port.sentinel = ref.sentinel = 3 * port.B
+    pts = nb.fixed_base("bn254_g1", BN254_G1.generator, [3, 5, 7, 11, 13, 17, 19, 23])
+    Pd = ctx.points_to_device(pts, "cpu")
+    # survivors: key << 1 | valid; two lanes hold nothing
+    keys = [1, 2, 4, 6, 8, 9, 13, 15]
+    pk = torch.tensor([k * 2 + 1 for k in keys[:6]] + [2 * port.sentinel] * 2)
+    dense = port._scatter_dense(pk, Pd.x, Pd.y)
+    rdense = ref._scatter_dense(_to_ref(pk), _to_ref(Pd.x), _to_ref(Pd.y))
+    for got, want in zip(dense, rdense):
+        _same(got, want)
+    got = port._aggregate_dense(*dense)
+    want = ref._aggregate_dense(*rdense)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(limb.words_to_limbs(g[None])[0], np.asarray(w))
+    # sum over windows w and buckets b of b * 2^(3w) * S[w, b]
+    host = None
+    for k, p in zip(keys[:6], pts):
+        w, b = divmod(k, port.B)
+        host = BN254_G1.add(host, BN254_G1.mul(b << (3 * w), p))
+    assert ctx.points_to_host(JPoints(*(a[None] for a in got)))[0] == host
+
+
+def test_fused_aggregate_is_not_ported(pair, monkeypatch):
+    port, _ = pair
+    monkeypatch.setenv("CRESCENT_MSM_FUSED_AGG", "1")
+    with pytest.raises(NotImplementedError):
+        port._aggregate(None, None, None)
+
+
+def test_affine_msm_run_matches_native(pair):
+    """One whole AffineMSM.run, reached as a user reaches it: run_host ->
+    run_device (40 points padded to 64, one chunk) -> AffineMSM.run."""
+    port, _ = pair
+    m = port_msm.MSM(BN254_G1, affine_c=C, small_cutoff=8, max_chunk=64)
+    m._affine = port                     # the small floors, for the CPU
+    pts, ks = _problem(51, 40)
+    got = m.run_host(ks, pts, device="cpu")
+    assert got == nb.msm("bn254_g1", ks, pts) == BN254_G1.msm(ks, pts)
+    ec = m.ctx.ec
+    assert ec.launches() == dict.fromkeys(ec.launches(), 0)  # CPU: no kernel
+
+
+def test_run_device_adds_up_its_chunks():
+    """run_device above max_chunk: the problem is padded to a power of two,
+    cut into chunks, and the chunks' Jacobian results are added up by a tree
+    of jadd (four chunks, and three, where one is carried over a level).
+    The chunk MSM here is a stand-in that answers from the native host MSM,
+    so that what is tested is the cutting and the adding."""
+    ctx = get_curve_ctx(BN254_G1)
+
+    class HostChunk:
+        """AffineMSM.run answered by the native host MSM."""
+
+        calls = 0
+
+        def run(self, px, py, pvalid, sc):
+            HostChunk.calls += 1
+            z = torch.where(pvalid[:, None] != 0, ctx.fctx.one_mont("cpu"),
+                            torch.zeros((), dtype=torch.int32))
+            pts = ctx.points_to_host(JPoints(px, py, z))
+            ks = ctx.fctx.from_mont_host(limb.words_to_limbs(ctx.fctx.to_mont(sc)))
+            res = nb.msm("bn254_g1", ks, pts)
+            return JPoints(*(a[0] for a in ctx.points_to_device([res], "cpu")))
+
+    for n, chunk, want_calls in ((12, 4, 4), (9, 4, 4), (12, 6, 3)):
+        pts, ks = _problem(81 + n, n)
+        m = port_msm.MSM(BN254_G1, small_cutoff=2, max_chunk=chunk)
+        m._affine = HostChunk()
+        HostChunk.calls = 0
+        assert m.run_host(ks, pts, device="cpu") == nb.msm("bn254_g1", ks, pts)
+        assert HostChunk.calls == want_calls
+
+
+def test_run_device_fold_of_three_chunks_matches_native(pair, monkeypatch):
+    """One problem of three chunks, the last one padded; the table goes up
+    through the array path of points_to_device."""
+    port, _ = pair
+    monkeypatch.setenv("CRESCENT_MSM_CHUNK", "32")
+    m = port_msm.MSM(BN254_G1, affine_c=C, small_cutoff=8)
+    assert m.max_chunk == 32
+    m._affine = port                     # the small floors, for the CPU
+    n = 72
+    pts, ks = _problem(61, n)
+    ctx = m.ctx
+    vec = ArrayPointVec.from_points(pts)  # the array path of points_to_device
+    Pd = ctx.points_to_device(vec, "cpu")
+    keep = torch.from_numpy(points_valid(vec)).bool()  # an identity's x, y are free
+    for a, b in zip(Pd, ctx.points_to_device(pts, "cpu")):
+        assert torch.equal(a[keep], b[keep])
+    assert not Pd.z[~keep].any() and not keep[1]
+    valid = torch.from_numpy(points_valid(vec))
+    sc = ctx.fctx.words(ks)
+    fold = m.run_device_fold([(Pd.x, Pd.y, valid, sc)])
+    got = ctx.points_to_host(JPoints(*(torch.stack(c) for c in zip(*fold))))
+    assert got == [nb.msm("bn254_g1", ks, pts)]
+    with pytest.raises(NotImplementedError):
+        m.run_device(Pd.x[:8], Pd.y[:8], valid[:8], sc[:8])
+
+
+def test_points_round_trip_and_identity():
+    ctx = get_curve_ctx(BN254_G1)
+    pts, _ = _problem(71, 8)
+    Pd = ctx.points_to_device(pts, "cpu")
+    assert ctx.points_to_host(Pd) == pts
+    ident = ctx.identity((3,))
+    assert ctx.points_to_host(ident) == [None] * 3
+    want = ref_ec.get_curve_ctx(REF_G1).identity((3,))
+    for g, w in zip(ident, want):
+        np.testing.assert_array_equal(limb.words_to_limbs(g), np.asarray(w))
+    rP = ref_ec.get_curve_ctx(REF_G1).points_to_device(pts)
+    for g, w in zip(Pd, rP):
+        np.testing.assert_array_equal(limb.words_to_limbs(g), np.asarray(w))
