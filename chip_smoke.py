@@ -7,29 +7,37 @@
 2. Builds the port's CUDA kernels from crescent_tpu_torch/csrc with nvcc
    (one nvcc per source, started together, into build/kernels/) and prints
    the build time and each kernel's registers and spills.
-3. Kernel phase: holds each of the eight kernels against its plain PyTorch
-   version on the card at the prove path's shapes, with the edge cases
-   planted (field: 0, 1, p-1, Montgomery 1; points: L == R, L == -R, one
-   side only, neither; P + P, P + (-P), the identity on either side and on
-   both), and once over a curve with a != 0.  Tolerance: none, the results
-   must be bit-identical (exact integer arithmetic).  Prints the kernel's
-   and the plain version's times (CUDA events) and the least time the card
-   could take (`bound_ms`: bytes over 3.35 TB/s against 32-bit
-   multiply-adds over 16.75e12/s, whichever is larger).
+3. Kernel phase: holds each of the twelve kernels against its plain PyTorch
+   version on the card at its path's shapes, with the edge cases planted
+   (field: 0, 1, p-1, Montgomery 1, and u over Fq2; points: L == R,
+   L == -R, one side only, neither; P + P, P + (-P), the identity on either
+   side and on both; for madd also valid == 0 and sign == 1), and once over
+   a curve with a != 0.  Tolerance: none, the results must be bit-identical
+   (exact integer arithmetic).  Prints the kernel's and the plain version's
+   times (CUDA events) and the least time the card could take (`bound_ms`:
+   bytes over 3.35 TB/s against 32-bit multiply-adds over 16.75e12/s,
+   whichever is larger, counted for this run's data).
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
    same through the plain versions on the CPU, (x, y, z) bit-equal.
-5. Main path: Groth16 on dummy_circuit(21) (the reference's proof-benchmark
-   circuit, domain 2^21) with random keys from a fixed seed: port `setup`
-   on the host, `prove(..., device="cuda")` in its default configuration
-   (h(x) and the four G1 MSMs on the card, the G2 MSM on the host beside
-   them) with launch counts reset just before it, and `verify`, which must
-   accept the proof and reject it against a wrong public input.  The same
-   witness and blinding under CRESCENT_PROVE_MSM=native must give the same
-   proof.  A small circuit is proved on the card in both configurations
-   and on the CPU; h and the proofs must be equal.
-6. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+5. Fixed-base phase: one FixedBaseMSM run per group (G1, and G2 over Fq2)
+   of 2^17 scalars (two chunks of 2^16) on the card; 4,096 sampled rows,
+   0, 1, n-1 and (n+1)/2 among them, equal the native fixed base.
+6. Setup cross-check: dummy_circuit(14) set up through the device branch
+   and through the native branch from one seed gives equal keys, table
+   for table; a small circuit is proved on the card in both MSM
+   configurations and on the CPU, and h and the proofs must be equal.
+7. Main path: Groth16 on dummy_circuit(21) (the reference's proof-benchmark
+   circuit, domain 2^21) with random keys from a fixed seed: `setup` on the
+   card (the device branch: both SRS fixed-base batches through madd and
+   the Fq2 kernels), then `prove(..., device="cuda")` in its default
+   configuration (h(x) and the four G1 MSMs on the card, the G2 MSM on the
+   host beside them) on that key, each with launch counts reset just
+   before it and read just after, and `verify`, which must accept the proof
+   and reject it against a wrong public input.  The same witness and
+   blinding under CRESCENT_PROVE_MSM=native must give the same proof.
+8. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
 """
@@ -45,6 +53,8 @@ import time
 
 LOG_SIZE = 21      # dummy_circuit(21): domain 2^21
 SMALL_LOG = 8      # cross-check circuit, card vs CPU
+SETUP_LOG = 14     # setup cross-check circuit, device branch vs native
+FB_CHUNK_LOG = 16  # scalars per chunk of the fixed base (the reference's)
 SEED = 20261016
 REPS = 50
 CHUNK_LOG = 17     # points per chunk MSM on the prove path
@@ -110,6 +120,18 @@ def _bound(nbytes: float, mads: float) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = mads / IMAD_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _record(out: dict, name: str, label: str, shape: str, err: int, ms: float,
+            plain_ms: float, nbytes: float, mads: float) -> None:
+    """Print one kernel's check and times, fail if it differs from its plain
+    version, and keep its row for the kernels line."""
+    bound_ms, bound_by = _bound(nbytes, mads)
+    say(f"kernel {name} [{label}] {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    if err:
+        fail(f"{name} [{label}] at {shape} differs from its plain version")
+    out.setdefault(name, []).append((shape, err, ms, plain_ms, bound_ms, bound_by))
 
 
 def _errs(torch, got, want) -> int:
@@ -241,13 +263,8 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     nb_lanes = ((256 + AFFINE_C - 1) // AFFINE_C + 1) * ((1 << (AFFINE_C - 1)) + 1)  # W * B
     nck = 1 << CHUNK_LOG
 
-    def record(name, shape, err, ms, plain_ms, nbytes, mads):
-        bound_ms, bound_by = _bound(nbytes, mads)
-        say(f"kernel {name} [BN254 Fq] {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}")
-        if err:
-            fail(f"{name} at {shape} differs from its plain version")
-        out.setdefault(name, []).append((shape, err, ms, plain_ms, bound_ms, bound_by))
+    def record(name, *row):
+        _record(out, name, "BN254 Fq", *row)
 
     # -- inv: 512 lanes, the root of every batch_inv --------------------------
     x = _rand_elems(torch, 512, p, SEED + 20)
@@ -370,6 +387,204 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     return out
 
 
+def _madd_inputs(torch, f, elems, n: int, seed: int):
+    """Jacobian P, affine Q and flags for madd, n lanes, seeded, with the
+    cases planted in lanes 0..6: P == Q, P == -Q, P the identity,
+    valid == 0, sign with -Q == P (the doubling), sign with -Q == -P (the
+    identity), sign generic; elsewhere valid is 0 for about one lane in 64
+    and sign is seeded.  `elems(seed)` gives (n, W) canonical elements."""
+    import numpy as np
+
+    x1, y1, z1, qx, qy = (elems(seed + k) for k in range(5))
+    for lane, neg in ((0, False), (1, True), (4, True), (5, False)):
+        z = z1[lane : lane + 1]
+        z2 = f.mont_sqr(z)
+        x1[lane : lane + 1] = f.mont_mul(qx[lane : lane + 1], z2)
+        y = f.mont_mul(qy[lane : lane + 1], f.mont_mul(z2, z))
+        y1[lane : lane + 1] = f.neg_mod(y) if neg else y
+    z1[2] = 0
+    rng = np.random.default_rng(seed + 9)
+    valid = torch.from_numpy((rng.integers(0, 64, size=n) != 0).astype(np.int32)).cuda()
+    sign = torch.from_numpy(rng.integers(0, 2, size=n).astype(np.int32)).cuda()
+    valid[:7] = torch.tensor([1, 1, 1, 0, 1, 1, 1], dtype=torch.int32)
+    sign[:7] = torch.tensor([0, 0, 0, 0, 1, 1, 1], dtype=torch.int32)
+    return x1, y1, z1, qx, qy, valid, sign
+
+
+def _madd_products(torch, f, args, sqr: int, mul: int, a_terms: int) -> int:
+    """Base-field products this run's madd inputs need, lane by lane: none
+    where valid == 0; the first square and three products (Z1^2, U2, S2)
+    where P is the identity; those and the doubling's six squares and one
+    product (plus `a_terms` for a != 0) where P == (+-)Q; else those and the
+    addition's three squares and four products.  `sqr` and `mul` count base
+    products per field square and product (1 and 1 over Fq; 2 and 3 over
+    Fq2)."""
+    x1, y1, z1, qx, qy, valid, sign = args
+    qy = f.select(sign != 0, f.neg_mod(qy), qy)
+    zz = f.mont_sqr(z1)
+    h = f.is_zero(f.sub_mod(f.mont_mul(qx, zz), x1))
+    r = f.is_zero(f.sub_mod(f.mont_mul(f.mont_mul(qy, z1), zz), y1))
+    inf = f.is_zero(z1)
+    v = valid != 0
+    first = sqr + 3 * mul
+    n_inf = int((v & inf).sum().item())
+    n_dbl = int((v & ~inf & h & r).sum().item())
+    n_add = int(v.sum().item()) - n_inf - n_dbl
+    return (n_inf * first + n_dbl * (first + 6 * sqr + mul + a_terms)
+            + n_add * (first + 3 * sqr + 4 * mul))
+
+
+def setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv) -> dict:
+    """The four kernels of setup's fixed base against their plain versions:
+    madd over Fq (a = 0 and a != 0) at 2^16 lanes, and over Fq2 mul at
+    2^22 lanes, inv at 512 lanes, madd at 2^16 lanes."""
+    p = fields.BN254_FQ
+    out = {}
+    nm = 1 << FB_CHUNK_LOG
+
+    def check_madd(name, label, ec, args, width, sqr, mul, a_terms, time_it):
+        # Q as the halves of gathered [x | y] rows, as the fixed base passes it
+        q = torch.cat([args[3], args[4]], dim=1)
+        strided = args[:3] + (q[:, :width], q[:, width:]) + args[5:]
+        got = ec.madd(*strided)
+        torch.cuda.synchronize()
+        want = ec.madd_plain(*args)
+        err = _errs(torch, got, want)
+        z = got[2]
+        if z[1].any().item() or z[5].any().item() or not z[4].any().item():
+            fail(f"{name} [{label}]: P + (-P) is not the identity or P + P is")
+        if not torch.equal(got[0][3], args[0][3]):
+            fail(f"{name} [{label}]: a lane with valid == 0 does not pass P through")
+        if not time_it:
+            say(f"kernel {name} [{label}] 2^{FB_CHUNK_LOG} lanes: max_abs_err={err}")
+            if err:
+                fail(f"{name} [{label}] differs from its plain version")
+            return
+        mads = _madd_products(torch, ec.ctx, args, sqr, mul, a_terms) * MONT_MUL_MADS
+        _record(out, name, label, f"2^{FB_CHUNK_LOG} lanes", err,
+               _time_ms(torch, lambda: ec.madd(*strided), REPS),
+               _time_ms(torch, lambda: ec.madd_plain(*args), 2),
+               (5 * 4 * width + 8 + 3 * 4 * width) * nm, mads)
+
+    # -- madd over Fq: the G1 fixed base's accumulation ---------------------
+    for a in (0, 0x1234567):
+        ec = get_cuda_ec(p, a)
+        args = _madd_inputs(torch, ec.ctx, lambda sd: _rand_elems(torch, nm, p, sd),
+                            nm, SEED + 90)
+        check_madd("madd", "BN254 Fq" + (f", a = {a:#x}" if a else ""), ec, args, 8,
+                   1, 1, 2, time_it=a == 0)
+
+    # -- Fq2: mul at 2^22 lanes, inv at 512, madd at 2^16 --------------------
+    ec2 = get_cuda_quad_ec(p)
+    f2 = ec2.ctx
+    label = "BN254 Fq2"
+
+    def elems2(n, seed):
+        return torch.cat([_rand_elems(torch, n, p, seed), _rand_elems(torch, n, p, seed + 1000)],
+                         dim=1)
+
+    def edges2(first: bool):
+        vals = [fields.Fq2(0, 0), fields.Fq2(1, 0), fields.Fq2(p - 1, 0), fields.Fq2(0, 1)]
+        return f2.words([vals[i // 4] if first else vals[i % 4] for i in range(16)], "cuda")
+
+    nq = 1 << (LOG_SIZE + 1)
+    x, y = elems2(nq, SEED + 100), elems2(nq, SEED + 101)
+    x[:16], y[:16] = edges2(True), edges2(False)
+    got = ec2.mul(x, y)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, got, ec2.mul_plain(x, y))
+    # the product tree's strided rows
+    half = torch.empty((nq // 2, 16), dtype=torch.int32, device="cuda")
+    ec2.mul(x[0::2], x[1::2], out=half)
+    err = max(err, _max_abs_err(torch, half, ec2.mul_plain(x[0::2], x[1::2])))
+    _record(out, "fq2_mul", label, f"2^{LOG_SIZE + 1} lanes", err,
+           _time_ms(torch, lambda: ec2.mul(x, y, out=got), REPS),
+           _time_ms(torch, lambda: ec2.mul_plain(x, y), 1),
+           192 * nq, 3 * MONT_MUL_MADS * nq)
+    del x, y, got, half
+
+    z = elems2(512, SEED + 110)
+    z[:4] = f2.words([fields.Fq2(0, 0), fields.Fq2(1, 0), fields.Fq2(p - 1, 0),
+                      fields.Fq2(0, 1)], "cuda")
+    got = ec2.inv(z)
+    torch.cuda.synchronize()
+    err = _errs(torch, got, ec2.inv_plain(z))
+    if got[0].any().item() or not (ec2.mul(z[1:], got[1:]) == f2.one_mont("cuda")).all().item():
+        fail("fq2_inv: x * inv(x) is not Montgomery 1 (or inv(0) is not 0)")
+    e = p - 2
+    _record(out, "fq2_inv", label, "512 lanes", err, _time_ms(torch, lambda: ec2.inv(z), 20),
+           _time_ms(torch, lambda: ec2.inv_plain(z), 1), 128 * 512,
+           512 * (256 + bin(e).count("1") + 4) * MONT_MUL_MADS)
+    d = elems2(1 << 14, SEED + 111)
+    if not (ec2.mul(d, batch_inv(ec2, d)) == f2.one_mont("cuda")).all().item():
+        fail("batch_inv over Fq2: d * inv(d) is not Montgomery 1")
+
+    args = _madd_inputs(torch, f2, lambda sd: elems2(nm, sd), nm, SEED + 120)
+    check_madd("fq2_madd", label, ec2, args, 16, 2, 3, 0, time_it=True)
+    return out
+
+
+def fixed_base_phase(torch, curves, nb) -> None:
+    """One FixedBaseMSM run per group at the reference's chunk width
+    (2^17 scalars, two chunks of 2^16) on the card; 4,096 sampled rows
+    against the native fixed base on the same scalars."""
+    from crescent_tpu_torch.ops import limb
+    from crescent_tpu_torch.ops.ec import get_curve_ctx, get_g2_ctx
+    from crescent_tpu_torch.ops.fixed_base import FixedBaseMSM
+
+    n = 2 << FB_CHUNK_LOG
+    for label, ctx, base, native in (
+            ("G1", get_curve_ctx(curves.BN254_G1), curves.BN254_G1.generator,
+             lambda b, ks: nb.fixed_base("bn254_g1", b, ks)),
+            ("G2", get_g2_ctx(), curves.BN254G2.generator(), nb.fixed_base_g2)):
+        rng = random.Random(SEED + 130)
+        ks = [rng.randrange(ctx.n) for _ in range(n)]
+        ks[:4] = [0, 1, ctx.n - 1, (ctx.n + 1) // 2]
+        fb = FixedBaseMSM(ctx, chunk=1 << FB_CHUNK_LOG)
+        table = native(base, fb.table_scalars())
+        limbs = limb.ints_to_limbs(ks)
+        fb.run(table, limbs[: 1 << FB_CHUNK_LOG], "cuda")  # warm: allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fb.run(table, limbs, "cuda")
+        run_s = time.perf_counter() - t0
+        rows = sorted(set(range(4)) | set(rng.sample(range(n), 4092)))
+        want = native(base, [ks[i] for i in rows])
+        if [res[i] for i in rows] != want or not res.inf[0] or res.inf[1:].any():
+            fail(f"FixedBaseMSM {label} of 2^{FB_CHUNK_LOG + 1} scalars differs from the "
+                 "native fixed base")
+        say(f"fixed base {label}: 2^{FB_CHUNK_LOG + 1} scalars on the card in {run_s:.3f} s "
+            f"(upload, 64 madd launches, affine conversion, download); {len(rows)} "
+            "sampled rows equal the native fixed base")
+
+
+def setup_crosscheck(torch, groth16) -> None:
+    """dummy_circuit(SETUP_LOG): the device branch's key equals the native
+    branch's, table for table, from one seed."""
+    r1cs, _ = groth16.dummy_circuit(SETUP_LOG, random.Random(SEED + 140))
+    t0 = time.perf_counter()
+    pk_dev = groth16.setup(r1cs, random.Random(SEED + 141), device="cuda")
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pk_nat = _with_env("CRESCENT_SETUP_TPU", "0",
+                       lambda: groth16.setup(r1cs, random.Random(SEED + 141), device="cuda"))
+    nat_s = time.perf_counter() - t0
+    from crescent_tpu_torch.utils.pointvec import ArrayPointVec
+
+    if not isinstance(pk_dev.a_query, ArrayPointVec):
+        fail("setup of dummy_circuit(14) on the card did not take the device branch")
+    for f in ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query"):
+        if getattr(pk_dev, f) != getattr(pk_nat, f):
+            fail(f"setup cross-check: {f} of the device branch differs from the native one")
+    for f in ("alpha_g1", "beta_g2", "gamma_g2", "delta_g1", "delta_g2", "gamma_abc_g1"):
+        if getattr(pk_dev.vk, f) != getattr(pk_nat.vk, f):
+            fail(f"setup cross-check: vk.{f} of the device branch differs from the native one")
+    if (pk_dev.beta_g1, pk_dev.delta_g1) != (pk_nat.beta_g1, pk_nat.delta_g1):
+        fail("setup cross-check: beta_g1 / delta_g1 differ")
+    say(f"setup cross-check dummy_circuit({SETUP_LOG}) ({r1cs.num_vars} vars): device branch "
+        f"{dev_s:.3f} s, native branch {nat_s:.3f} s, keys equal table for table")
+
+
 def msm_phase(torch, curves, nb) -> dict:
     """One chunk-sized MSM on the card against the native host MSM, and a
     small one on the card against the plain versions on the CPU."""
@@ -465,7 +680,9 @@ def small_crosscheck(torch, groth16) -> None:
     from crescent_tpu_torch.ops import limb, msm
 
     r1cs, z = groth16.dummy_circuit(SMALL_LOG, random.Random(SEED))
-    pk = groth16.setup(r1cs, random.Random(SEED + 1))
+    # below CRESCENT_SETUP_TPU_MIN: the reference's routing takes the native
+    # branch on any device
+    pk = groth16.setup(r1cs, random.Random(SEED + 1), device="cuda")
     dom = groth16._domain_for(r1cs)
     zu = groth16.nb.ints_to_u64(z)
     h_gpu = groth16._compute_h_device(r1cs, zu, dom, "cuda")
@@ -523,7 +740,8 @@ def main() -> None:
     from crescent_tpu_torch.models import groth16
     from crescent_tpu_torch.native import backend as nb
     from crescent_tpu_torch.ops import _build, ntt
-    from crescent_tpu_torch.ops.cuda_ec import KERNELS, get_cuda_ec
+    from crescent_tpu_torch.ops.cuda_ec import (KERNELS, QUAD_KERNELS, get_cuda_ec,
+                                                get_cuda_quad_ec)
     from crescent_tpu_torch.ops.msm_affine import batch_inv
 
     t0 = time.perf_counter()
@@ -543,20 +761,55 @@ def main() -> None:
 
     kres = kernel_phase(torch, fields, ntt, get_cuda_ec)
     kres.update(ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv))
+    kres.update(setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv))
     mres = msm_phase(torch, curves, nb)
+    fixed_base_phase(torch, curves, nb)
+    setup_crosscheck(torch, groth16)
     small_crosscheck(torch, groth16)
 
     # -- main path --------------------------------------------------------
+    ecs = (get_cuda_ec(fields.BN254_FR), get_cuda_ec(fields.BN254_FQ))
+    ec2 = get_cuda_quad_ec(fields.BN254_FQ)
+    names = list(KERNELS) + [f"fq2_{k}" for k in QUAD_KERNELS]
+
+    def reset():
+        torch.cuda.synchronize()
+        for ec in ecs + (ec2,):
+            ec.reset_launches()
+
+    def counts() -> dict:
+        c = {k: sum(ec.launches()[k] for ec in ecs) for k in KERNELS}
+        c.update({f"fq2_{k}": v for k, v in ec2.launches().items()})
+        return c
+
     t0 = time.perf_counter()
     r1cs, z = groth16.dummy_circuit(LOG_SIZE, random.Random(SEED))
     circuit_s = time.perf_counter() - t0
     say(f"circuit: dummy_circuit({LOG_SIZE}) {len(r1cs.constraints)} constraints, "
         f"{r1cs.num_vars} vars, {circuit_s:.3f} s")
-    t0 = time.perf_counter()
-    pk = groth16.setup(r1cs, random.Random(SEED + 1))
-    say(f"setup (host, native backend): {time.perf_counter() - t0:.3f} s")
 
-    ecs = (get_cuda_ec(fields.BN254_FR), get_cuda_ec(fields.BN254_FQ))
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    setup_t: dict = {}
+    t0 = time.perf_counter()
+    pk = groth16.setup(r1cs, random.Random(SEED + 1), device="cuda", timings=setup_t)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = counts()
+    say(f"setup (device branch): total {setup_s:.3f} s; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in setup_t.items()))
+    say(f"launches during that setup: {setup_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    for k in ("madd", "fq2_mul", "fq2_inv", "fq2_madd", "mul", "inv"):
+        if setup_launches[k] == 0:
+            fail(f"the {k} kernel was not launched during setup")
+    nv = r1cs.num_vars
+    dom_n = groth16._domain_for(r1cs).n
+    ck = 1 << FB_CHUNK_LOG
+    want = {"madd": 32 * -(-(3 * nv + dom_n + 2) // ck), "fq2_madd": 32 * -(-(nv + 3) // ck)}
+    if any(setup_launches[k] != v for k, v in want.items()):
+        fail(f"setup's madd launches {setup_launches} differ from 32 a chunk: {want}")
+
     rs = random.Random(SEED + 2)
     r_blind, s_blind = rs.randrange(groth16.R), rs.randrange(groth16.R)
 
@@ -571,16 +824,14 @@ def main() -> None:
             + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
         return proof, total, timings
 
-    torch.cuda.synchronize()
-    for ec in ecs:
-        ec.reset_launches()
+    reset()
     torch.cuda.reset_peak_memory_stats()
     proof, _, _ = timed_prove("fold on the card, first: uploads the four tables")
-    launches = {k: sum(ec.launches()[k] for ec in ecs) for k in KERNELS}
-    say(f"launches during that prove: {launches}; peak device memory "
+    prove_launches = counts()
+    say(f"launches during that prove: {prove_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    for k, v in launches.items():
-        if v == 0 and k != "jdbl":  # jdbl has no caller on the path
+    for k in KERNELS:
+        if prove_launches[k] == 0 and k not in ("jdbl", "madd"):  # no caller in prove
             fail(f"the {k} kernel was not launched during prove")
 
     # warm second prove: tables and twiddles on the card
@@ -604,22 +855,28 @@ def main() -> None:
         f"{mres['enqueue_ms']:.3f} ms to enqueue")
 
     pallas = "crescent_tpu/ops/pallas_ec.py"
+    # the TPU kernel each replaces: the kernel function (PallasEC), or for
+    # the Fq2 ops of QuadPallasEC the `_F2` body or override that makes them
     replaces = {"mul": 513, "butterfly": 517, "inv": 527, "affine_denom": 560,
-                "affine_add": 566, "jadd": 505, "jdbl_n": 550, "jdbl": 545}
+                "affine_add": 566, "jadd": 505, "jdbl_n": 550, "jdbl": 545,
+                "madd": 495, "fq2_mul": 362, "fq2_inv": 858, "fq2_madd": 831}
+    source = {"mul": "ntt.cu", "butterfly": "ntt.cu", "fq2_mul": "ec2.cu",
+              "fq2_inv": "ec2.cu", "fq2_madd": "ec2.cu"}
     kernels = []
-    for name in KERNELS:
+    for name in names:
         rows = kres[name]
-        # the row of the prove path's main shape: Fr for the two field
-        # kernels of h(x), the widest shape for the point kernels
+        # the row of the path's main shape: Fr for the two field kernels of
+        # h(x), the widest shape for the point kernels
         label, _, ms, plain_ms, bound_ms, bound_by = rows[0]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "crescent_tpu_torch/csrc/"
-                      + ("ntt.cu" if name in ("mul", "butterfly") else "ec.cu"),
+            "source": "crescent_tpu_torch/csrc/" + source.get(name, "ec.cu"),
             "replaces": f"{pallas}:{replaces[name]}",
             "shape": label,
-            "launches": launches[name],
+            "launches": setup_launches[name] + prove_launches[name],
+            "launches_setup": setup_launches[name],
+            "launches_prove": prove_launches[name],
             "max_abs_err": max(r[1] for r in rows),
             "bit_exact": all(r[1] == 0 for r in rows),
             "ms": ms,

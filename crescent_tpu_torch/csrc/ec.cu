@@ -1,4 +1,5 @@
-// Short-Weierstrass point kernels for Hopper (sm_90a): the G1 MSM's six.
+// Short-Weierstrass point kernels over Fq for Hopper (sm_90a): the G1 MSM's
+// six, and the fixed base's mixed addition.
 //
 // Each replaces one Pallas TPU kernel of crescent_tpu/ops/pallas_ec.py:
 //   * `inv`          -> PallasEC._inv_kernel    (:527, core :533; op :698)
@@ -7,6 +8,7 @@
 //   * `jadd`         -> PallasEC._jadd_kernel   (:505, body :300; op :670)
 //   * `jdbl_n`       -> PallasEC._dbln_kernel   (:550, body :243; op :744)
 //   * `jdbl`         -> PallasEC._dbl_kernel    (:545, body :243; op :735)
+//   * `madd`         -> PallasEC._madd_kernel   (:495, body :261; op :657)
 // Coordinates are packed (N, 8) planes of 32-byte rows (field.cuh), one
 // plane per coordinate, where the TPU kept limb-major (16, N) u32 planes;
 // validity flags are (N,) int32.  Every result is canonical, so it is
@@ -28,7 +30,9 @@
 // (512 lanes x ~380 products; at most 16 lanes x 176 doublings): they are
 // bound by latency, so they launch small blocks that spread the lanes over
 // many SMs, and `inv` skips the product for a zero exponent bit (uniform
-// over the grid).
+// over the grid).  `madd` (5 rows in, 3 out, eleven products) is bound by
+// operations; it is the template of point.cuh, which ec2.cu builds over
+// Fq2, with `jadd`'s branch for the doubling.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -37,9 +41,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstring>
 
 #include "field.cuh"
+#include "point.cuh"
 
 using crescent::Curve;
 using crescent::Fe;
@@ -56,82 +60,22 @@ using crescent::fe_sub;
 
 namespace {
 
-constexpr int kThreads = 128;      // wide kernels
-constexpr int kChainThreads = 32;  // latency-bound chains: one warp a block
+using crescent::PtT;
+using crescent::grid_for;
+using crescent::kChainThreads;
+using crescent::kThreads;
+using crescent::lane;
+using crescent::make_curve;
+using crescent::pt_double;
+using crescent::pt_load;
+using crescent::pt_store;
+using Pt = PtT<Fe>;
 
-struct Pt {
-  Fe x, y, z;
-};
-
-// dbl-2007-bl, plus a*ZZ^2 in M when a != 0 (pallas_ec._double).
-__device__ __forceinline__ Pt pt_double(const Curve& C, const Pt& P) {
-  const Mod& M = C.M;
-  const Fe XX = fe_sqr(P.x, M);
-  const Fe YY = fe_sqr(P.y, M);
-  const Fe YYYY = fe_sqr(YY, M);
-  const Fe ZZ = fe_sqr(P.z, M);
-  Fe S = fe_sqr(fe_add(P.x, YY, M), M);
-  S = fe_sub(fe_sub(S, XX, M), YYYY, M);
-  S = fe_add(S, S, M);
-  Fe Mm = fe_add(fe_add(XX, XX, M), XX, M);
-  if (!C.a_is_zero) {
-    Mm = fe_add(Mm, fe_mont_mul(crescent::fe_from(C.a), fe_sqr(ZZ, M), M), M);
-  }
-  Pt R;
-  R.x = fe_sub(fe_sqr(Mm, M), fe_add(S, S, M), M);
-  const Fe e8 = fe_dbl(fe_dbl(fe_dbl(YYYY, M), M), M);
-  R.y = fe_sub(fe_mont_mul(Mm, fe_sub(S, R.x, M), M), e8, M);
-  R.z = fe_sub(fe_sub(fe_sqr(fe_add(P.y, P.z, M), M), YY, M), ZZ, M);
-  return R;
-}
-
-__device__ __forceinline__ Pt pt_load(const uint4* x, const uint4* y,
-                                      const uint4* z, long long i) {
-  Pt P;
-  P.x = fe_load(x + 2 * i);
-  P.y = fe_load(y + 2 * i);
-  P.z = fe_load(z + 2 * i);
-  return P;
-}
-
-__device__ __forceinline__ void pt_store(uint4* x, uint4* y, uint4* z,
-                                         long long i, const Pt& P) {
-  fe_store(x + 2 * i, P.x);
-  fe_store(y + 2 * i, P.y);
-  fe_store(z + 2 * i, P.z);
-}
-
-__device__ __forceinline__ long long lane() {
-  return (long long)blockIdx.x * blockDim.x + threadIdx.x;
-}
-
-// out = x^(p-2): 256 squarings MSB first, a product where the bit is set.
-// 0 -> 0.
+// out = x^(p-2) (field.cuh fe_inv); 0 -> 0.
 __global__ void inv_kernel(Curve C, const uint4* x, uint4* out, long long n) {
   const long long i = lane();
   if (i >= n) return;
-  const Mod& M = C.M;
-  // e = p - 2 (p is odd and > 2)
-  uint32_t e[8];
-  uint64_t br = 2;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint64_t s = (uint64_t)M.p[j] - br;
-    e[j] = (uint32_t)s;
-    br = s >> 63;
-  }
-  const Fe v = fe_load(x + 2 * i);
-  Fe acc = crescent::fe_from(C.one);
-#pragma unroll 1
-  for (int w = 7; w >= 0; --w) {
-    const uint32_t word = e[w];
-#pragma unroll 1
-    for (int b = 31; b >= 0; --b) {
-      acc = fe_sqr(acc, M);
-      if ((word >> b) & 1u) acc = fe_mont_mul(acc, v, M);
-    }
-  }
-  fe_store(out + 2 * i, acc);
+  fe_store(out + 2 * i, crescent::fe_inv(fe_load(x + 2 * i), C.one, C.M));
 }
 
 // Denominator of the affine sum L + R: 2*ly if L == R; 1 if a side is
@@ -194,8 +138,8 @@ __global__ void jadd_kernel(Curve C, const uint4* x1, const uint4* y1,
   const long long i = lane();
   if (i >= n) return;
   const Mod& M = C.M;
-  const Pt P = pt_load(x1, y1, z1, i);
-  const Pt Q = pt_load(x2, y2, z2, i);
+  const Pt P = pt_load<Fe>(x1, y1, z1, i);
+  const Pt Q = pt_load<Fe>(x2, y2, z2, i);
   const Fe Z1Z1 = fe_sqr(P.z, M);
   const Fe Z2Z2 = fe_sqr(Q.z, M);
   const Fe U1 = fe_mont_mul(P.x, Z2Z2, M);
@@ -232,7 +176,7 @@ __global__ void jadd_kernel(Curve C, const uint4* x1, const uint4* y1,
   R.z = fe_select(p_inf, Q.z, fe_select(q_inf, P.z, R.z));
   // P == -Q: the identity (Z == 0; x and y stay what the formula gave)
   R.z = fe_select(finite && h_zero && !r_zero, crescent::fe_zero(), R.z);
-  pt_store(ox, oy, oz, i, R);
+  pt_store<Fe>(ox, oy, oz, i, R);
 }
 
 // `count` chained doublings.
@@ -241,10 +185,10 @@ __global__ void jdbl_n_kernel(Curve C, const uint4* x, const uint4* y,
                               long long n, int count) {
   const long long i = lane();
   if (i >= n) return;
-  Pt P = pt_load(x, y, z, i);
+  Pt P = pt_load<Fe>(x, y, z, i);
 #pragma unroll 1
   for (int k = 0; k < count; ++k) P = pt_double(C, P);
-  pt_store(ox, oy, oz, i, P);
+  pt_store<Fe>(ox, oy, oz, i, P);
 }
 
 // One doubling.
@@ -253,23 +197,7 @@ __global__ void jdbl_kernel(Curve C, const uint4* x, const uint4* y,
                             long long n) {
   const long long i = lane();
   if (i >= n) return;
-  pt_store(ox, oy, oz, i, pt_double(C, pt_load(x, y, z, i)));
-}
-
-// curve26: host array of 26 u32: modulus words, -p^-1 mod 2^32, Montgomery
-// 1, Montgomery a, a_is_zero.
-Curve make_curve(const uint32_t* c) {
-  Curve C;
-  std::memcpy(C.M.p, c, sizeof(C.M.p));
-  C.M.inv = c[8];
-  std::memcpy(C.one, c + 9, sizeof(C.one));
-  std::memcpy(C.a, c + 17, sizeof(C.a));
-  C.a_is_zero = c[25];
-  return C;
-}
-
-unsigned grid_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
+  pt_store<Fe>(ox, oy, oz, i, pt_double(C, pt_load<Fe>(x, y, z, i)));
 }
 
 typedef const uint4* In;
@@ -346,6 +274,20 @@ extern "C" int crescent_jdbl(const uint32_t* curve26, const void* x,
   if (n > 0) {
     jdbl_kernel<<<grid_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
         make_curve(curve26), (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crescent_madd(const uint32_t* curve26, const void* x1,
+                             const void* y1, const void* z1, const void* qx,
+                             const void* qy, long long qxs, long long qys,
+                             const void* valid, const void* sign, void* ox,
+                             void* oy, void* oz, long long n, void* stream) {
+  if (n > 0) {
+    crescent::madd_kernel<Fe><<<grid_for(n, kThreads), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+        make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)qx, (In)qy, qxs, qys,
+        (const int*)valid, (const int*)sign, (Out)ox, (Out)oy, (Out)oz, n);
   }
   return (int)cudaGetLastError();
 }

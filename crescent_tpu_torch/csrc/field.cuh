@@ -1,4 +1,5 @@
-// 256-bit prime-field arithmetic for Hopper kernels.
+// 256-bit prime-field arithmetic for Hopper kernels, and its quadratic
+// extension Fq2 (below `Fe2`).
 //
 // An element is eight little-endian 32-bit words (32 bytes, the same bytes
 // as the JAX package's sixteen 16-bit limbs and the native backend's four
@@ -187,5 +188,141 @@ __device__ __forceinline__ Fe fe_dbl(const Fe& a, const Mod& M) {
 __device__ __forceinline__ Fe fe_neg(const Fe& a, const Mod& M) {
   return fe_sub(fe_zero(), a, M);
 }
+
+// a^(p-2) = 1/a (0 -> 0), Montgomery form: 256 squarings MSB first and a
+// product where the bit of p - 2 is set (a zero bit is skipped: the branch
+// is uniform over the grid).  `one` is Montgomery 1.
+__device__ __forceinline__ Fe fe_inv(const Fe& v, const uint32_t* one,
+                                     const Mod& M) {
+  // e = p - 2 (p is odd and > 2)
+  uint32_t e[8];
+  uint64_t br = 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint64_t s = (uint64_t)M.p[j] - br;
+    e[j] = (uint32_t)s;
+    br = s >> 63;
+  }
+  Fe acc = fe_from(one);
+#pragma unroll 1
+  for (int w = 7; w >= 0; --w) {
+    const uint32_t word = e[w];
+#pragma unroll 1
+    for (int b = 31; b >= 0; --b) {
+      acc = fe_sqr(acc, M);
+      if ((word >> b) & 1u) acc = fe_mont_mul(acc, v, M);
+    }
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Fq2 = Fq[u]/(u^2 + 1): two base elements (c0 + c1 u), both Montgomery
+// form.  In memory a 64-byte row: c0's eight words, then c1's (the bytes of
+// the reference's (n, 2, 16) limbs and of ArrayPointVec(g2=True) rows).
+// The overloads below mirror the reference's `_F2`
+// (crescent_tpu/ops/pallas_ec.py:337-401), so a point formula written as a
+// template over the field type compiles for Fq and Fq2 alike, as `_F2`
+// duck-types `_F` there.  Canonical in, canonical out.
+// ---------------------------------------------------------------------------
+
+struct Fe2 {
+  Fe c0, c1;
+};
+
+__device__ __forceinline__ Fe2 fe2_make(const Fe& c0, const Fe& c1) {
+  Fe2 r;
+  r.c0 = c0;
+  r.c1 = c1;
+  return r;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const Fe2& a) {
+  return fe_is_zero(a.c0) && fe_is_zero(a.c1);
+}
+
+__device__ __forceinline__ Fe2 fe_select(bool c, const Fe2& a, const Fe2& b) {
+  return fe2_make(fe_select(c, a.c0, b.c0), fe_select(c, a.c1, b.c1));
+}
+
+__device__ __forceinline__ Fe2 fe_add(const Fe2& a, const Fe2& b, const Mod& M) {
+  return fe2_make(fe_add(a.c0, b.c0, M), fe_add(a.c1, b.c1, M));
+}
+
+__device__ __forceinline__ Fe2 fe_sub(const Fe2& a, const Fe2& b, const Mod& M) {
+  return fe2_make(fe_sub(a.c0, b.c0, M), fe_sub(a.c1, b.c1, M));
+}
+
+__device__ __forceinline__ Fe2 fe_dbl(const Fe2& a, const Mod& M) {
+  return fe_add(a, a, M);
+}
+
+__device__ __forceinline__ Fe2 fe_neg(const Fe2& a, const Mod& M) {
+  return fe2_make(fe_neg(a.c0, M), fe_neg(a.c1, M));
+}
+
+// Karatsuba with the nonresidue -1: three base products.
+// c0 = x0 y0 - x1 y1, c1 = (x0 + x1)(y0 + y1) - x0 y0 - x1 y1.
+__device__ __forceinline__ Fe2 fe_mont_mul(const Fe2& x, const Fe2& y,
+                                           const Mod& M) {
+  const Fe t0 = fe_mont_mul(x.c0, y.c0, M);
+  const Fe t1 = fe_mont_mul(x.c1, y.c1, M);
+  const Fe t2 = fe_mont_mul(fe_add(x.c0, x.c1, M), fe_add(y.c0, y.c1, M), M);
+  return fe2_make(fe_sub(t0, t1, M), fe_sub(fe_sub(t2, t0, M), t1, M));
+}
+
+// (x0 + x1 u)^2 = (x0 + x1)(x0 - x1) + 2 x0 x1 u: two base products.
+__device__ __forceinline__ Fe2 fe_sqr(const Fe2& x, const Mod& M) {
+  const Fe c0 = fe_mont_mul(fe_add(x.c0, x.c1, M), fe_sub(x.c0, x.c1, M), M);
+  const Fe t = fe_mont_mul(x.c0, x.c1, M);
+  return fe2_make(c0, fe_add(t, t, M));
+}
+
+// 1/(x0 + x1 u) = (x0 - x1 u) / (x0^2 + x1^2): the norm, one base Fermat
+// chain and two products (QuadPallasEC._inv_core).  0 -> 0.
+__device__ __forceinline__ Fe2 fe_inv(const Fe2& x, const uint32_t* one,
+                                      const Mod& M) {
+  const Fe nrm = fe_add(fe_sqr(x.c0, M), fe_sqr(x.c1, M), M);
+  const Fe ninv = fe_inv(nrm, one, M);
+  return fe2_make(fe_mont_mul(x.c0, ninv, M),
+                  fe_mont_mul(fe_neg(x.c1, M), ninv, M));
+}
+
+// Row access by field type: an element is kVec<F> 16-byte vectors, and
+// packed row i starts at vector kVec<F> * i.
+template <class F>
+struct FieldRow;
+
+template <>
+struct FieldRow<Fe> {
+  static constexpr int kVec = 2;
+  static __device__ __forceinline__ Fe load(const uint4* p) { return fe_load(p); }
+  static __device__ __forceinline__ void store(uint4* p, const Fe& a) {
+    fe_store(p, a);
+  }
+  static __device__ __forceinline__ Fe from_base(const uint32_t* w) {
+    return fe_from(w);
+  }
+  static __device__ __forceinline__ Fe zero() { return fe_zero(); }
+};
+
+template <>
+struct FieldRow<Fe2> {
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ Fe2 load(const uint4* p) {
+    return fe2_make(fe_load(p), fe_load(p + 2));
+  }
+  static __device__ __forceinline__ void store(uint4* p, const Fe2& a) {
+    fe_store(p, a.c0);
+    fe_store(p + 2, a.c1);
+  }
+  // a base-field constant w as w + 0u
+  static __device__ __forceinline__ Fe2 from_base(const uint32_t* w) {
+    return fe2_make(fe_from(w), fe_zero());
+  }
+  static __device__ __forceinline__ Fe2 zero() {
+    return fe2_make(fe_zero(), fe_zero());
+  }
+};
 
 }  // namespace crescent

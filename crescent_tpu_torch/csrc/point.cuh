@@ -1,0 +1,150 @@
+// Jacobian point formulas over a field type F (Fe for Fq, Fe2 for Fq2),
+// shared by ec.cu (Fq) and ec2.cu (Fq2).
+//
+// The reference writes each formula once and runs it over `_F` or `_F2`
+// (crescent_tpu/ops/pallas_ec.py: `_double` :243, `_madd_body` :261); here
+// each is a template over F, built on field.cuh's overloads, so one body
+// compiles into the Fq and the Fq2 kernels.  Every result is canonical and
+// equals the reference's value, hence its bits.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "field.cuh"
+
+namespace crescent {
+
+template <class F>
+struct PtT {
+  F x, y, z;
+};
+
+__device__ __forceinline__ long long lane() {
+  return (long long)blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+template <class F>
+__device__ __forceinline__ PtT<F> pt_load(const uint4* x, const uint4* y,
+                                          const uint4* z, long long i) {
+  constexpr int V = FieldRow<F>::kVec;
+  PtT<F> P;
+  P.x = FieldRow<F>::load(x + V * i);
+  P.y = FieldRow<F>::load(y + V * i);
+  P.z = FieldRow<F>::load(z + V * i);
+  return P;
+}
+
+template <class F>
+__device__ __forceinline__ void pt_store(uint4* x, uint4* y, uint4* z,
+                                         long long i, const PtT<F>& P) {
+  constexpr int V = FieldRow<F>::kVec;
+  FieldRow<F>::store(x + V * i, P.x);
+  FieldRow<F>::store(y + V * i, P.y);
+  FieldRow<F>::store(z + V * i, P.z);
+}
+
+// dbl-2007-bl, plus a*ZZ^2 in M when a != 0 (pallas_ec._double).  For Fq2
+// the curve's a is a base-field constant (a + 0u); BN254 G2 has a = 0.
+template <class F>
+__device__ __forceinline__ PtT<F> pt_double(const Curve& C, const PtT<F>& P) {
+  const Mod& M = C.M;
+  const F XX = fe_sqr(P.x, M);
+  const F YY = fe_sqr(P.y, M);
+  const F YYYY = fe_sqr(YY, M);
+  const F ZZ = fe_sqr(P.z, M);
+  F S = fe_sqr(fe_add(P.x, YY, M), M);
+  S = fe_sub(fe_sub(S, XX, M), YYYY, M);
+  S = fe_add(S, S, M);
+  F Mm = fe_add(fe_add(XX, XX, M), XX, M);
+  if (!C.a_is_zero) {
+    Mm = fe_add(Mm, fe_mont_mul(FieldRow<F>::from_base(C.a), fe_sqr(ZZ, M), M), M);
+  }
+  PtT<F> R;
+  R.x = fe_sub(fe_sqr(Mm, M), fe_add(S, S, M), M);
+  const F e8 = fe_dbl(fe_dbl(fe_dbl(YYYY, M), M), M);
+  R.y = fe_sub(fe_mont_mul(Mm, fe_sub(S, R.x, M), M), e8, M);
+  R.z = fe_sub(fe_sub(fe_sqr(fe_add(P.y, P.z, M), M), YY, M), ZZ, M);
+  return R;
+}
+
+// Mixed addition P + (sign ? -Q : Q), Q affine (pallas_ec._madd_body):
+// madd-2007-bl with its edge cases.  Q when P is the identity (Z = 1),
+// the doubling when P == Q, Z = 0 when P == -Q (x and y are then what the
+// addition formula gives, as in the reference).  Eleven products; the
+// doubling is a branch taken only by lanes with P == Q.
+template <class F>
+__device__ __forceinline__ PtT<F> pt_madd(const Curve& C, const PtT<F>& P,
+                                          const F& qx, F qy, bool sign) {
+  const Mod& M = C.M;
+  if (sign) qy = fe_neg(qy, M);
+  const F Z1Z1 = fe_sqr(P.z, M);
+  const F U2 = fe_mont_mul(qx, Z1Z1, M);
+  const F S2 = fe_mont_mul(fe_mont_mul(qy, P.z, M), Z1Z1, M);
+  const F H = fe_sub(U2, P.x, M);
+  const F r = fe_sub(S2, P.y, M);
+  const bool h_zero = fe_is_zero(H);
+  const bool r_zero = fe_is_zero(r);
+  PtT<F> R;
+  if (fe_is_zero(P.z)) {
+    R.x = qx;
+    R.y = qy;
+    R.z = FieldRow<F>::from_base(C.one);
+  } else if (h_zero && r_zero) {
+    R = pt_double(C, P);
+  } else {
+    const F HH = fe_sqr(H, M);
+    const F I = fe_dbl(fe_dbl(HH, M), M);
+    const F J = fe_mont_mul(H, I, M);
+    const F rr = fe_add(r, r, M);
+    const F V = fe_mont_mul(P.x, I, M);
+    R.x = fe_sub(fe_sub(fe_sqr(rr, M), J, M), fe_add(V, V, M), M);
+    const F YJ = fe_mont_mul(P.y, J, M);
+    R.y = fe_sub(fe_mont_mul(rr, fe_sub(V, R.x, M), M), fe_add(YJ, YJ, M), M);
+    // P == -Q: (Z1 + 0)^2 - Z1Z1 - 0 is already 0; kept explicit
+    R.z = h_zero ? FieldRow<F>::zero()
+                 : fe_sub(fe_sub(fe_sqr(fe_add(P.z, H, M), M), Z1Z1, M), HH, M);
+  }
+  return R;
+}
+
+// One mixed addition per lane: (ox, oy, oz) = valid ? P + (+-Q) : P.  P's
+// planes are packed; Q's rows lie qxs / qys 16-byte vectors apart (the x
+// and y halves of one gathered table row, say).  Outputs may alias P.
+template <class F>
+__global__ void madd_kernel(Curve C, const uint4* x1, const uint4* y1,
+                            const uint4* z1, const uint4* qx, const uint4* qy,
+                            long long qxs, long long qys, const int* valid,
+                            const int* sign, uint4* ox, uint4* oy, uint4* oz,
+                            long long n) {
+  const long long i = lane();
+  if (i >= n) return;
+  PtT<F> P = pt_load<F>(x1, y1, z1, i);
+  if (valid[i] != 0) {
+    P = pt_madd<F>(C, P, FieldRow<F>::load(qx + qxs * i),
+                   FieldRow<F>::load(qy + qys * i), sign[i] != 0);
+  }
+  pt_store<F>(ox, oy, oz, i, P);
+}
+
+// curve26: host array of 26 u32: modulus words, -p^-1 mod 2^32, Montgomery
+// 1, Montgomery a, a_is_zero.
+inline Curve make_curve(const uint32_t* c) {
+  Curve C;
+  for (int j = 0; j < 8; ++j) C.M.p[j] = c[j];
+  C.M.inv = c[8];
+  for (int j = 0; j < 8; ++j) C.one[j] = c[9 + j];
+  for (int j = 0; j < 8; ++j) C.a[j] = c[17 + j];
+  C.a_is_zero = c[25];
+  return C;
+}
+
+inline unsigned grid_for(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+constexpr int kThreads = 128;      // wide kernels
+constexpr int kChainThreads = 32;  // latency-bound chains: one warp a block
+
+}  // namespace crescent

@@ -12,10 +12,19 @@ device runs their plain PyTorch versions) and then, by the reference's switch
 * ``native``: all five MSMs on the native host backend (groth16.py:868-875);
 * ``auto`` (the default): ``device`` on a CUDA device, ``native`` on the CPU.
 
-``setup`` is the reference's host-native branch (groth16.py:605-642): the
-same order of rng draws, gamma == 1, QAP evaluations at tau and fixed-base
-muls on the native backend.  Keys and proofs hold host affine points, so
-they compare equal to the reference's on the same inputs.
+``setup`` draws the same randomness in the same order as the reference
+(gamma == 1) and then, by the reference's switch ``CRESCENT_SETUP_TPU``,
+builds the SRS in one of its two branches (groth16.py:576-642):
+
+* the device branch: both fixed-base batches (G1 and G2) on the device
+  (``ops/fixed_base.py``: byte-window ``madd`` accumulation and an affine
+  conversion through ``batch_inv``), scalar prep with the Fr ``mul``
+  kernel; the tables come back as ``ArrayPointVec``s, which ``prove``
+  uploads without Python ints;
+* the native branch: QAP evaluations, scalar prep and fixed-base muls on
+  the native host backend; tables are lists of host affine points.
+
+Both give the reference's key, table for table.
 
 The native backend is required: every entry point raises without it.
 """
@@ -38,7 +47,9 @@ from ..core import pairing as pr
 from ..native import backend as nb
 from ..utils import trace
 from ..ops import limb, ntt
-from ..ops.ec import JPoints, points_valid
+from ..ops.cuda_ec import get_cuda_ec
+from ..ops.ec import JPoints, get_curve_ctx, get_g2_ctx, points_valid
+from ..ops.fixed_base import FixedBaseMSM
 from ..ops.msm import MSM, get_msm
 
 G1 = curves.BN254_G1
@@ -51,6 +62,21 @@ def _require_native() -> None:
     if not nb.available():
         raise RuntimeError("the native host backend (crescent_tpu_torch/native) "
                            "is required and did not build")
+
+
+def _setup_device_enabled(device: torch.device) -> bool:
+    """Whether `setup` builds the SRS on `device` (else on the native host
+    backend), by CRESCENT_SETUP_TPU (the reference's switch): auto / 1 on a
+    CUDA device, 0 never, force on any device (the CPU tests run the plain
+    versions of the kernels this way)."""
+    env = os.environ.get("CRESCENT_SETUP_TPU", "auto")
+    if env == "0":
+        return False
+    if env == "force":
+        return True
+    if env not in ("auto", "1"):
+        raise ValueError(f"CRESCENT_SETUP_TPU={env!r}: expected auto, 1, 0 or force")
+    return device.type == "cuda"
 
 
 def _device_msm_prove(device: torch.device) -> bool:
@@ -276,9 +302,95 @@ def _qap_evals_at_t(r1cs: R1CS, dom: ntt.NTTDomain, t: int):
 # Setup / Prove / Verify
 # ---------------------------------------------------------------------------
 
-def setup(r1cs: R1CS, rng: random.Random) -> ProvingKey:
-    """Per-circuit SRS on the native backend (forks/groth16/src/generator.rs)."""
+def _qap_evals_at_t_u64(r1cs: R1CS, dom: ntt.NTTDomain, t: int):
+    """`_qap_evals_at_t` as (nv, 4) u64 standard-form arrays, for the device
+    branch (reference groth16.py:459-478)."""
+    nv = r1cs.num_vars
+    nc = len(r1cs.constraints)
+    zt = (pow(t, dom.n, R) - 1) % R
+    factor = zt * pow(dom.n, -1, R) % R
+    L = nb.lagrange_at(R, dom.w, t, factor, dom.n)
+    A, B, C = (nb.coo_matvec(R, cols, rows, coeffs, L, nv)
+               for rows, cols, coeffs in _r1cs_coo(r1cs))
+    ninst = r1cs.num_instance
+    Ai = nb.u64_to_ints(A[:ninst])
+    Lt = nb.u64_to_ints(L[nc : nc + ninst])
+    A[:ninst] = nb.ints_to_u64([(a + l) % R for a, l in zip(Ai, Lt)])
+    return A, B, C
+
+
+def _setup_scalar_planes(A, B, C, ninst: int, alpha: int, beta: int, d_inv: int,
+                         device) -> tuple[np.ndarray, np.ndarray]:
+    """beta*A + alpha*B + C over all variables on `device` (Fr ``mul``
+    kernel for the products by Montgomery constants, which leave standard
+    form; ``ModCtx.add_mod`` for the sums), and its delta^-1-scaled witness
+    tail (reference groth16.py:481-509).  Returns (gamma_abc (ninst, 16),
+    l (nv - ninst, 16)) standard-form u16 limbs."""
+    fr = get_cuda_ec(R)
+    ctx = fr.ctx
+    Au, Bu, Cu = (limb.u64_to_words(v, device) for v in (A, B, C))
+    cb, ca, cd = (ctx.const_words(x * ctx.R % R, device) for x in (beta, alpha, d_inv))
+    lc = ctx.add_mod(ctx.add_mod(fr.mul(Au, cb), fr.mul(Bu, ca)), Cu)
+    lw = fr.mul(lc[ninst:], cd)
+    return (limb.u64_to_limbs(limb.words_to_u64(lc[:ninst])),
+            limb.u64_to_limbs(limb.words_to_u64(lw)))
+
+
+def _setup_fixed_base_device(r1cs: R1CS, dom: ntt.NTTDomain, alpha: int, beta: int,
+                             delta: int, t: int, device, timings: Optional[dict]):
+    """Both SRS fixed-base batches on `device` (reference groth16.py:512-557).
+    Returns (g1_all, g2_all) ``ArrayPointVec``s in the order of the native
+    branch's concatenated scalar lists."""
+    ninst = r1cs.num_instance
+    nv = r1cs.num_vars
+    zt = (pow(t, dom.n, R) - 1) % R
+    d_inv = pow(delta, -1, R)
+    with _phase("Groth16::setup qap_evals_at_t (native, arrays)", timings, "qap_evals"):
+        A, B, C = _qap_evals_at_t_u64(r1cs, dom, t)
+    with _phase(f"Groth16::setup scalar prep ({device})", timings, "scalar_prep"):
+        abc16, l16 = _setup_scalar_planes(A, B, C, ninst, alpha, beta, d_inv, device)
+        h16 = limb.u64_to_limbs(nb.powers(R, t, zt * d_inv % R, dom.n - 1))
+        A16, B16 = limb.u64_to_limbs(A), limb.u64_to_limbs(B)
+        tail = limb.ints_to_limbs([alpha, beta, delta]).astype(np.uint16)
+        sc_g1 = np.concatenate([A16, B16, h16, l16, abc16, tail], axis=0)
+        sc_g2 = np.concatenate(
+            [B16, limb.ints_to_limbs([beta, 1, delta]).astype(np.uint16)], axis=0)
+    fb1 = FixedBaseMSM(get_curve_ctx(G1))
+    fb2 = FixedBaseMSM(get_g2_ctx())
+    # both groups are enqueued before either is fetched: G2's table build
+    # and upload overlap G1's device work, G1's download G2's
+    with _phase(f"Groth16::setup fixed-base G1 dispatch ({sc_g1.shape[0]} pts)",
+                timings, "g1_dispatch"):
+        t1 = nb.fixed_base("bn254_g1", G1.generator, fb1.table_scalars())
+        h1 = fb1.dispatch(t1, sc_g1, device)
+    with _phase(f"Groth16::setup fixed-base G2 dispatch ({sc_g2.shape[0]} pts)",
+                timings, "g2_dispatch"):
+        t2 = nb.fixed_base_g2(G2.generator(), fb2.table_scalars())
+        h2 = fb2.dispatch(t2, sc_g2, device)
+    with _phase("Groth16::setup fixed-base G1 fetch", timings, "g1_fetch"):
+        g1_all = fb1.fetch(h1)
+    with _phase("Groth16::setup fixed-base G2 fetch", timings, "g2_fetch"):
+        g2_all = fb2.fetch(h2)
+    assert len(g1_all) == 3 * nv + (dom.n - 1) + 3 and len(g2_all) == nv + 3
+    return g1_all, g2_all
+
+
+def setup(r1cs: R1CS, rng: random.Random, *, device="cuda",
+          timings: Optional[dict] = None) -> ProvingKey:
+    """Per-circuit SRS (forks/groth16/src/generator.rs).
+
+    The device branch runs where CRESCENT_SETUP_TPU selects it for `device`
+    (see ``_setup_device_enabled``; the default is the card) and the
+    circuit holds at least CRESCENT_SETUP_TPU_MIN (default 2^14) G1 points,
+    3 * num_vars + domain size.  Smaller circuits take the native branch on
+    any device: that threshold is the reference's own routing (groth16.py:
+    576-580), not a fallback; no failure of the device branch is caught.
+    timings: if given, filled with wall seconds per phase of the device
+    branch ("qap_evals", "scalar_prep", "g1_dispatch", "g2_dispatch",
+    "g1_fetch", "g2_fetch", "assemble"); dispatches only enqueue, so the
+    device work shows in the fetches."""
     _require_native()
+    device = torch.device(device)
     # gamma = 1 exactly as the reference generator (generator.rs:28): the
     # show protocol's committed-input algebra relies on it
     alpha, beta, delta, t = (rng.randrange(1, R) for _ in range(4))
@@ -287,6 +399,25 @@ def setup(r1cs: R1CS, rng: random.Random) -> ProvingKey:
         dom = _domain_for(r1cs)
     ninst = r1cs.num_instance
     nv = r1cs.num_vars
+    if (_setup_device_enabled(device)
+            and 3 * nv + dom.n >= int(os.environ.get("CRESCENT_SETUP_TPU_MIN", str(1 << 14)))):
+        g1_all, g2_all = _setup_fixed_base_device(r1cs, dom, alpha, beta, delta, t,
+                                                  device, timings)
+        with _phase("Groth16::setup key assembly", timings, "assemble"):
+            nh = dom.n - 1
+            a_query = g1_all[:nv]
+            b_g1_query = g1_all[nv : 2 * nv]
+            h_query = g1_all[2 * nv : 2 * nv + nh]
+            l_query = g1_all[2 * nv + nh : 2 * nv + nh + (nv - ninst)]
+            gamma_abc_g1 = g1_all[2 * nv + nh + (nv - ninst) : -3].to_list()
+            alpha_g1, beta_g1, delta_g1 = (g1_all[i] for i in range(-3, 0))
+            b_g2_query = g2_all[:nv]
+            beta_g2, gamma_g2, delta_g2 = (g2_all[i] for i in range(-3, 0))
+            vk = VerifyingKey(alpha_g1, beta_g2, gamma_g2, delta_g1, delta_g2,
+                              gamma_abc_g1)
+        return ProvingKey(vk, beta_g1, delta_g1, a_query, b_g1_query, b_g2_query,
+                          h_query, l_query)
+
     with trace.timed("Groth16::setup qap_evals_at_t"):
         A, B, C = _qap_evals_at_t(r1cs, dom, t)
     zt = (pow(t, dom.n, R) - 1) % R

@@ -46,6 +46,12 @@ SIGNATURES = {
         "crescent_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],
         "crescent_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
         "crescent_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
+        "crescent_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
+    },
+    "ec2": {
+        "crescent_fq2_mul": [_u32p, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _vp],
+        "crescent_fq2_inv": [_u32p, _vp, _vp, _ll, _vp],
+        "crescent_fq2_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
     },
 }
 

@@ -20,15 +20,23 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
   (``_jadd_kernel``).
 * ``jdbl_n(x, y, z, count)`` and ``jdbl(x, y, z)``: chained and single
   Jacobian doubling (``_dbln_kernel``, ``_dbl_kernel``).
+* ``madd(x1, y1, z1, qx, qy, valid, sign)``: mixed Jacobian + affine
+  addition P + (sign ? -Q : Q), P passed through where valid == 0
+  (``_madd_kernel``).
 
-Tensors are packed (N, 8) int32 word rows (``ops/limb.py``), canonical,
-Montgomery form where the op needs it; validity flags are (N,) int32.  A
-tensor on the CPU takes the plain PyTorch version (``<op>_plain``: one
-transcription of the reference's formula bodies over ``ModCtx``, as
-``crescent_tpu/ops/xla_pec.py`` is for the reference); a CUDA tensor launches
-the kernel or raises.  ``<op>_launches`` count kernel launches and nothing
-else.  The modulus and the curve's ``a`` are kernel arguments, so one build
-serves every field and curve with p < 2^255.
+``CudaQuadEC`` is the counterpart of ``QuadPallasEC``: ``mul``, ``inv`` and
+``madd`` over Fq2 (``csrc/ec2.cu``; ``ops/quadratic.py`` for the layout), the
+three that setup's G2 fixed base runs.
+
+Tensors are packed (N, 8) int32 word rows (``ops/limb.py``), (N, 16) over
+Fq2, canonical, Montgomery form where the op needs it; validity flags are
+(N,) int32.  A tensor on the CPU takes the plain PyTorch version
+(``<op>_plain``: one transcription of the reference's formula bodies over
+``ModCtx`` or ``QuadCtx``, as ``crescent_tpu/ops/xla_pec.py`` is for the
+reference); a CUDA tensor launches the kernel or raises.  ``<op>_launches``
+count kernel launches and nothing else.  The modulus and the curve's ``a``
+are kernel arguments, so one build serves every field and curve with
+p < 2^255.
 """
 
 from __future__ import annotations
@@ -40,26 +48,29 @@ import torch
 
 from . import _build
 from .limb import NWORD, get_ctx
+from .quadratic import QWORD, get_quad_ctx
 
 
-def _check_strided(name: str, t: torch.Tensor, device: torch.device) -> int:
-    """An (N, 8) int32 tensor whose rows are packed and 16-byte aligned but
-    may lie any multiple of 16 bytes apart; returns that distance in 16-byte
-    units (2 for a packed plane)."""
-    if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != NWORD:
-        raise ValueError(f"{name}: expected an (N, 8) int32 tensor, got "
+def _check_strided(name: str, t: torch.Tensor, device: torch.device,
+                   width: int = NWORD) -> int:
+    """An (N, width) int32 tensor whose rows are packed and 16-byte aligned
+    but may lie any multiple of 16 bytes apart; returns that distance in
+    16-byte units (width / 4 for a packed plane)."""
+    if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != width:
+        raise ValueError(f"{name}: expected an (N, {width}) int32 tensor, got "
                          f"{tuple(t.shape)} {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    row = t.stride(0) if t.shape[0] > 1 else NWORD
+    row = t.stride(0) if t.shape[0] > 1 else width
     if t.stride(1) != 1 or row % 4 or row < 0 or t.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be packed and 16-byte aligned")
     return row // 4
 
 
-def _check_rows(name: str, t: torch.Tensor, device: torch.device) -> None:
-    """A packed (N, 8) int32 plane."""
-    if _check_strided(name, t, device) != 2:
+def _check_rows(name: str, t: torch.Tensor, device: torch.device,
+                width: int = NWORD) -> None:
+    """A packed (N, width) int32 plane."""
+    if _check_strided(name, t, device, width) != width // 4:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
@@ -80,32 +91,85 @@ def _words32(x: int) -> list[int]:
 
 
 KERNELS = ("mul", "butterfly", "inv", "affine_denom", "affine_add", "jadd",
-           "jdbl_n", "jdbl")
+           "jdbl_n", "jdbl", "madd")
+QUAD_KERNELS = ("mul", "inv", "madd")
 
 
-class CudaEC:
-    """The field and point kernels over one prime field and curve
-    coefficient `a` (0 where only the field ops are used)."""
+# -- formula bodies shared by the prime-field and Fq2 plain versions ---------
+# `f` is a ``ModCtx`` or a ``QuadCtx``; `a` is the curve's a as a Montgomery
+# row of f, or None where a == 0.
 
-    def __init__(self, modulus: int, a_host: int = 0):
-        self.modulus = modulus
-        self.ctx = get_ctx(modulus)
-        self.a_host = a_host % modulus
-        self.a_is_zero = self.a_host == 0
-        self.a_mont = self.a_host * self.ctx.R % modulus
-        ninv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
-        self._mod9 = (ctypes.c_uint32 * 9)(*_words32(modulus), ninv32)
-        self._curve26 = (ctypes.c_uint32 * 26)(
-            *_words32(modulus), ninv32, *_words32(self.ctx.r_mod_n),
-            *_words32(self.a_mont), int(self.a_is_zero))
-        self.reset_launches()
+def double_plain(f, a, X1, Y1, Z1):
+    """dbl-2007-bl, plus a*ZZ^2 when a != 0 (``pallas_ec._double``)."""
+    XX = f.mont_sqr(X1)
+    YY = f.mont_sqr(Y1)
+    YYYY = f.mont_sqr(YY)
+    ZZ = f.mont_sqr(Z1)
+    S = f.mont_sqr(f.add_mod(X1, YY))
+    S = f.sub_mod(f.sub_mod(S, XX), YYYY)
+    S = f.add_mod(S, S)
+    M = f.add_mod(f.add_mod(XX, XX), XX)
+    if a is not None:
+        M = f.add_mod(M, f.mont_mul(a, f.mont_sqr(ZZ)))
+    T = f.sub_mod(f.mont_sqr(M), f.add_mod(S, S))
+    e8 = f.add_mod(YYYY, YYYY)
+    e8 = f.add_mod(e8, e8)
+    e8 = f.add_mod(e8, e8)
+    Y3 = f.sub_mod(f.mont_mul(M, f.sub_mod(S, T)), e8)
+    Z3 = f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Y1, Z1)), YY), ZZ)
+    return T, Y3, Z3
+
+
+def madd_plain(f, a, X1, Y1, Z1, qx, qy, valid, sign):
+    """Mixed addition P + (sign ? -Q : Q), P where valid == 0
+    (``pallas_ec._madd_body``): Q with Z = 1 when P is the identity, the
+    doubling when P == Q, Z = 0 when P == -Q."""
+    qy = f.select(sign != 0, f.neg_mod(qy), qy)
+    Z1Z1 = f.mont_sqr(Z1)
+    U2 = f.mont_mul(qx, Z1Z1)
+    S2 = f.mont_mul(f.mont_mul(qy, Z1), Z1Z1)
+    H = f.sub_mod(U2, X1)
+    r = f.sub_mod(S2, Y1)
+
+    h_zero = f.is_zero(H)
+    r_zero = f.is_zero(r)
+    p_inf = f.is_zero(Z1)
+
+    HH = f.mont_sqr(H)
+    I = f.add_mod(f.add_mod(HH, HH), f.add_mod(HH, HH))
+    J = f.mont_mul(H, I)
+    rr = f.add_mod(r, r)
+    V = f.mont_mul(X1, I)
+    X3 = f.sub_mod(f.sub_mod(f.mont_sqr(rr), J), f.add_mod(V, V))
+    YJ = f.mont_mul(Y1, J)
+    Y3 = f.sub_mod(f.mont_mul(rr, f.sub_mod(V, X3)), f.add_mod(YJ, YJ))
+    Z3 = f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Z1, H)), Z1Z1), HH)
+
+    dX, dY, dZ = double_plain(f, a, X1, Y1, Z1)
+
+    same = h_zero & r_zero & ~p_inf
+    negs = h_zero & ~r_zero & ~p_inf
+    one = f.one_mont(Z1.device).expand_as(Z1)
+    sel = f.select
+    x = sel(p_inf, qx, sel(same, dX, X3))
+    y = sel(p_inf, qy, sel(same, dY, Y3))
+    z = sel(p_inf, one, sel(same, dZ, Z3))
+    z = sel(negs, torch.zeros_like(z), z)
+    keep = valid == 0
+    return sel(keep, X1, x), sel(keep, Y1, y), sel(keep, Z1, z)
+
+
+class _Kernels:
+    """Launch counts and the device rule shared by the kernel sets."""
+
+    KERNELS: tuple = ()
 
     def reset_launches(self) -> None:
-        for k in KERNELS:
+        for k in self.KERNELS:
             setattr(self, f"{k}_launches", 0)
 
     def launches(self) -> dict[str, int]:
-        return {k: getattr(self, f"{k}_launches") for k in KERNELS}
+        return {k: getattr(self, f"{k}_launches") for k in self.KERNELS}
 
     @staticmethod
     def _device(t: torch.Tensor) -> str:
@@ -118,6 +182,77 @@ class CudaEC:
         if rc:
             raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
         setattr(self, f"{kernel}_launches", getattr(self, f"{kernel}_launches") + 1)
+
+    def _mul_args(self, x, y, out, width: int):
+        """Checks of a strided product: (n, x stride, y stride (0: y is one
+        broadcast row), out stride, out), in 16-byte units."""
+        n = x.shape[0]
+        xs = _check_strided("x", x, x.device, width)
+        ys = _check_strided("y", y, x.device, width)
+        if y.shape[0] not in (1, n):
+            raise ValueError(f"y has {y.shape[0]} rows, x has {n}")
+        if y.shape[0] == 1 and n != 1:
+            ys = 0
+        if out is None:
+            out = torch.empty((n, width), dtype=torch.int32, device=x.device)
+        if out.shape[0] != n:
+            raise ValueError(f"out has {out.shape[0]} rows, x has {n}")
+        return n, xs, ys, _check_strided("out", out, x.device, width), out
+
+    def _madd_launch(self, lib: str, fn: str, width: int, x1, y1, z1, qx, qy,
+                     valid, sign):
+        """Checks and launch of a madd kernel: x1, y1, z1 packed (N, width)
+        planes, qx, qy (N, width) rows at any 16-byte stride, flags (N,)
+        int32.  Returns new (x, y, z) planes."""
+        dev, n = x1.device, x1.shape[0]
+        for name, t in (("x1", x1), ("y1", y1), ("z1", z1)):
+            _check_rows(name, t, dev, width)
+            if t.shape[0] != n:
+                raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
+        qs = []
+        for name, t in (("qx", qx), ("qy", qy)):
+            qs.append(_check_strided(name, t, dev, width))
+            if t.shape[0] != n:
+                raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
+        _check_flags("valid", valid, n, dev)
+        _check_flags("sign", sign, n, dev)
+        outs = [torch.empty_like(x1) for _ in range(3)]
+        self._launched("madd", getattr(_build.library(lib), fn)(
+            self._curve26, x1.data_ptr(), y1.data_ptr(), z1.data_ptr(),
+            qx.data_ptr(), qy.data_ptr(), qs[0], qs[1], valid.data_ptr(),
+            sign.data_ptr(), *(t.data_ptr() for t in outs), n, _stream(dev)))
+        return tuple(outs)
+
+
+def _curve26(modulus: int, one_mont: int, a_mont: int):
+    """The kernels' curve constants: modulus words, -p^-1 mod 2^32,
+    Montgomery 1, Montgomery a, a_is_zero."""
+    ninv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
+    return (ctypes.c_uint32 * 26)(
+        *_words32(modulus), ninv32, *_words32(one_mont), *_words32(a_mont),
+        int(a_mont == 0))
+
+
+class CudaEC(_Kernels):
+    """The field and point kernels over one prime field and curve
+    coefficient `a` (0 where only the field ops are used)."""
+
+    KERNELS = KERNELS
+
+    def __init__(self, modulus: int, a_host: int = 0):
+        self.modulus = modulus
+        self.ctx = get_ctx(modulus)
+        self.a_host = a_host % modulus
+        self.a_is_zero = self.a_host == 0
+        self.a_mont = self.a_host * self.ctx.R % modulus
+        ninv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
+        self._mod9 = (ctypes.c_uint32 * 9)(*_words32(modulus), ninv32)
+        self._curve26 = _curve26(modulus, self.ctx.r_mod_n, self.a_mont)
+        self.reset_launches()
+
+    def _a(self, device):
+        """a as a Montgomery row for the plain versions, None when 0."""
+        return None if self.a_is_zero else self.ctx.const_words(self.a_mont, device)
 
     # -- plain versions -----------------------------------------------------
     def mul_plain(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -132,25 +267,11 @@ class CudaEC:
 
     def jdbl_plain(self, X1, Y1, Z1):
         """dbl-2007-bl, plus a*ZZ^2 when a != 0 (``pallas_ec._double``)."""
-        f = self.ctx
-        XX = f.mont_sqr(X1)
-        YY = f.mont_sqr(Y1)
-        YYYY = f.mont_sqr(YY)
-        ZZ = f.mont_sqr(Z1)
-        S = f.mont_sqr(f.add_mod(X1, YY))
-        S = f.sub_mod(f.sub_mod(S, XX), YYYY)
-        S = f.add_mod(S, S)
-        M = f.add_mod(f.add_mod(XX, XX), XX)
-        if not self.a_is_zero:
-            a = f.const_words(self.a_mont, X1.device)
-            M = f.add_mod(M, f.mont_mul(a, f.mont_sqr(ZZ)))
-        T = f.sub_mod(f.mont_sqr(M), f.add_mod(S, S))
-        e8 = f.add_mod(YYYY, YYYY)
-        e8 = f.add_mod(e8, e8)
-        e8 = f.add_mod(e8, e8)
-        Y3 = f.sub_mod(f.mont_mul(M, f.sub_mod(S, T)), e8)
-        Z3 = f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Y1, Z1)), YY), ZZ)
-        return T, Y3, Z3
+        return double_plain(self.ctx, self._a(X1.device), X1, Y1, Z1)
+
+    def madd_plain(self, x1, y1, z1, qx, qy, valid, sign):
+        return madd_plain(self.ctx, self._a(x1.device), x1, y1, z1, qx, qy,
+                          valid, sign)
 
     def jdbl_n_plain(self, x, y, z, count: int):
         for _ in range(count):
@@ -241,18 +362,7 @@ class CudaEC:
         if self._device(x) == "cpu":
             r = self.mul_plain(x, y)
             return r if out is None else out.copy_(r)
-        n = x.shape[0]
-        xs = _check_strided("x", x, x.device)
-        ys = _check_strided("y", y, x.device)
-        if y.shape[0] not in (1, n):
-            raise ValueError(f"y has {y.shape[0]} rows, x has {n}")
-        if y.shape[0] == 1 and n != 1:
-            ys = 0
-        if out is None:
-            out = torch.empty((n, NWORD), dtype=torch.int32, device=x.device)
-        if out.shape[0] != n:
-            raise ValueError(f"out has {out.shape[0]} rows, x has {n}")
-        os_ = _check_strided("out", out, x.device)
+        n, xs, ys, os_, out = self._mul_args(x, y, out, NWORD)
         self._launched("mul", _build.library("ntt").crescent_mul(
             self._mod9, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
             xs, ys, os_, _stream(x.device)))
@@ -384,6 +494,73 @@ class CudaEC:
         return tuple(outs)
 
 
+    def madd(self, x1, y1, z1, qx, qy, valid, sign):
+        """P + (sign ? -Q : Q) where valid != 0, else P: P Jacobian (N, 8)
+        planes, Q affine (N, 8) rows (views at any 16-byte row stride, such
+        as the halves of one gathered (N, 16) table row), flags (N,) int32.
+        Returns new (x, y, z) planes."""
+        if self._device(x1) == "cpu":
+            return self.madd_plain(x1, y1, z1, qx, qy, valid, sign)
+        return self._madd_launch("ec", "crescent_madd", NWORD, x1, y1, z1, qx,
+                                 qy, valid, sign)
+
+
+class CudaQuadEC(_Kernels):
+    """``mul``, ``inv`` and ``madd`` over Fq2 = Fq[u]/(u^2 + 1) on (N, 16)
+    int32 rows (``QuadPallasEC``); the curve's a is 0, as
+    ``QuadPallasEC.__init__`` requires."""
+
+    KERNELS = QUAD_KERNELS
+    a_is_zero = True
+
+    def __init__(self, modulus: int):
+        self.modulus = modulus
+        self.ctx = get_quad_ctx(modulus)
+        self._curve26 = _curve26(modulus, self.ctx.base.r_mod_n, 0)
+        self.reset_launches()
+
+    # -- plain versions -----------------------------------------------------
+    def mul_plain(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.ctx.mont_mul(x, y)
+
+    def inv_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ctx.inv_mod(x)
+
+    def madd_plain(self, x1, y1, z1, qx, qy, valid, sign):
+        return madd_plain(self.ctx, None, x1, y1, z1, qx, qy, valid, sign)
+
+    # -- ops ----------------------------------------------------------------
+    def mul(self, x: torch.Tensor, y: torch.Tensor, out=None) -> torch.Tensor:
+        """x (N, 16) times y (N, 16), or y (1, 16) broadcast; strided row
+        views and `out` as for ``CudaEC.mul``."""
+        if self._device(x) == "cpu":
+            r = self.mul_plain(x, y)
+            return r if out is None else out.copy_(r)
+        n, xs, ys, os_, out = self._mul_args(x, y, out, QWORD)
+        self._launched("mul", _build.library("ec2").crescent_fq2_mul(
+            self._curve26, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+            xs, ys, os_, _stream(x.device)))
+        return out
+
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Norm-map inverse of every row (Montgomery form); 0 -> 0."""
+        if self._device(x) == "cpu":
+            return self.inv_plain(x)
+        _check_rows("x", x, x.device, QWORD)
+        out = torch.empty_like(x)
+        self._launched("inv", _build.library("ec2").crescent_fq2_inv(
+            self._curve26, x.data_ptr(), out.data_ptr(), x.shape[0],
+            _stream(x.device)))
+        return out
+
+    def madd(self, x1, y1, z1, qx, qy, valid, sign):
+        """``CudaEC.madd`` over Fq2."""
+        if self._device(x1) == "cpu":
+            return self.madd_plain(x1, y1, z1, qx, qy, valid, sign)
+        return self._madd_launch("ec2", "crescent_fq2_madd", QWORD, x1, y1, z1,
+                                 qx, qy, valid, sign)
+
+
 @functools.lru_cache(maxsize=None)
 def _get_cuda_ec(modulus: int, a: int) -> CudaEC:
     return CudaEC(modulus, a)
@@ -392,3 +569,9 @@ def _get_cuda_ec(modulus: int, a: int) -> CudaEC:
 def get_cuda_ec(modulus: int, a: int = 0) -> CudaEC:
     """One instance (and one set of launch counts) per field and `a`."""
     return _get_cuda_ec(modulus, a % modulus)
+
+
+@functools.lru_cache(maxsize=None)
+def get_cuda_quad_ec(modulus: int) -> CudaQuadEC:
+    """One instance (and one set of launch counts) per base field."""
+    return CudaQuadEC(modulus)

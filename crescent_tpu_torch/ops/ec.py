@@ -1,13 +1,14 @@
 """Batches of short-Weierstrass points on a device (Jacobian coordinates).
 
-Counterpart of ``crescent_tpu/ops/ec.py`` for prime-field curves.  A batch is
-a ``JPoints(x, y, z)`` of (..., 8) int32 word tensors in Montgomery form
-(``ops/limb.py``); the identity is Z == 0.  ``CurveCtx`` carries the curve's
-field context, its kernels (``ops/cuda_ec.py``) and the conversions between
-host points and device batches.
+Counterpart of ``crescent_tpu/ops/ec.py``.  A batch is a ``JPoints(x, y, z)``
+of (..., W) int32 word tensors in Montgomery form, W = 8 over a prime field
+(``ops/limb.py``) and 16 over Fq2 (``ops/quadratic.py``); the identity is
+Z == 0.  ``CurveCtx`` carries the curve's field context, its kernels
+(``ops/cuda_ec.py``: ``CudaEC`` or ``CudaQuadEC``) and the conversions
+between host points and device batches.
 
 The group law itself (``double``, ``add``, ``add_mixed``, ``scalar_mul``) is
-not here yet: the MSM path calls the point kernels directly.
+not here yet: the MSM and fixed-base paths call the point kernels directly.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.curves import Curve
+from ..core.curves import BN254G2, Curve
+from ..core.fields import BN254_FQ, BN254_FR
 from ..utils.pointvec import ArrayPointVec
 from . import limb
-from .cuda_ec import get_cuda_ec
+from .cuda_ec import get_cuda_ec, get_cuda_quad_ec
+from .quadratic import get_fq2_ctx
 
 
 class JPoints(NamedTuple):
@@ -40,69 +43,95 @@ def points_valid(pts) -> np.ndarray:
 
 
 class CurveCtx:
-    """One curve y^2 = x^3 + a*x + b over a prime field p < 2^255."""
+    """One curve y^2 = x^3 + a*x + b over a prime field p < 2^255 or its
+    quadratic extension: `fctx` is the field's ``ModCtx`` or ``QuadCtx``,
+    `ec` its kernels, `a_host` the coefficient a (an int; 0 over Fq2)."""
 
-    def __init__(self, modulus: int, a_host: int, order: int, name: str):
-        self.fctx = limb.get_ctx(modulus)
-        self.ec = get_cuda_ec(modulus, a_host)
+    def __init__(self, fctx, ec, a_host: int, order: int, name: str):
+        self.fctx = fctx
+        self.ec = ec
         self.name = name
         self.n = order
         self.a_host = a_host
-        self.a_is_zero = a_host % modulus == 0
+        self.a_is_zero = a_host % fctx.modulus == 0
+        self.quad = fctx.nword != limb.NWORD
+        base = getattr(fctx, "base", fctx)
+        # the base field's mul converts every component to Montgomery form
+        self.base_ec = get_cuda_ec(base.modulus)
 
     # -- host conversion ----------------------------------------------------
     def points_to_device(self, pts, device) -> JPoints:
         """Affine host points ([(x, y) | None, ...] or an ``ArrayPointVec``)
         -> a Jacobian batch on `device`: standard-form limbs go up, the
-        conversion to Montgomery form is a ``mul`` by R^2 there, and Z is
-        Montgomery 1 or 0 by the validity mask."""
+        conversion to Montgomery form is a base-field ``mul`` by R^2 per
+        component there, and Z is Montgomery 1 or 0 by the validity mask."""
         f = self.fctx
+        base = self.base_ec.ctx
+        w = f.nword
         if isinstance(pts, ArrayPointVec):
             xs, ys = pts.xs, pts.ys
+        elif self.quad:
+            xs = limb.ints_to_limbs([c for p in pts for c in
+                                     ((0, 0) if p is None else (p[0].c0, p[0].c1))])
+            ys = limb.ints_to_limbs([c for p in pts for c in
+                                     ((1, 0) if p is None else (p[1].c0, p[1].c1))])
         else:
             xs = limb.ints_to_limbs([0 if p is None else p[0] for p in pts])
             ys = limb.ints_to_limbs([1 if p is None else p[1] for p in pts])
-        r2 = f.const_words(f.r2, device)
-        dx = limb.limbs_to_words(xs, device)
-        dy = limb.limbs_to_words(ys, device)
-        if len(pts):
-            self.ec.mul(dx, r2, out=dx)
-            self.ec.mul(dy, r2, out=dy)
+        n = len(pts)
+        r2 = base.const_words(base.r2, device)
+        # (n, 16 * w / 8) limbs -> one base element per row, then (n, w)
+        dx = limb.limbs_to_words(np.asarray(xs).reshape(-1, limb.NLIMB), device)
+        dy = limb.limbs_to_words(np.asarray(ys).reshape(-1, limb.NLIMB), device)
+        if n:
+            self.base_ec.mul(dx, r2, out=dx)
+            self.base_ec.mul(dy, r2, out=dy)
         v = torch.from_numpy(points_valid(pts)).to(device)
         dz = torch.where(v[:, None] != 0, f.one_mont(device),
                          torch.zeros((), dtype=torch.int32, device=device))
-        return JPoints(dx, dy, dz)
+        return JPoints(dx.reshape(n, w), dy.reshape(n, w), dz)
 
     def points_to_host(self, P: JPoints) -> list:
         """A Jacobian batch -> affine host points (None for the identity).
         Waits for the device."""
         f = self.fctx
-        p = f.modulus
+        w = f.nword
         xs, ys, zs = (
             f.from_mont_host(limb.words_to_limbs(c.reshape(-1, limb.NWORD)))
             for c in P
         )
         out = []
         for x, y, z in zip(xs, ys, zs):
-            if z == 0:
+            if z == f.host_zero:
                 out.append(None)
             else:
-                zi = pow(z, -1, p)
-                zi2 = zi * zi % p
-                out.append((x * zi2 % p, y * zi2 * zi % p))
+                zi = f.host_inv(z)
+                zi2 = f.host_mul(zi, zi)
+                out.append((f.host_mul(x, zi2), f.host_mul(f.host_mul(y, zi2), zi)))
+        assert len(out) == P.x.numel() // w
         return out
 
     def identity(self, shape=(), device="cpu") -> JPoints:
-        """(0, 1, 0) in Montgomery form, broadcast to shape + (8,)."""
+        """(0, 1, 0) in Montgomery form, broadcast to shape + (W,)."""
         f = self.fctx
-        full = tuple(shape) + (limb.NWORD,)
-        one = f.one_mont(device).reshape(limb.NWORD).expand(full).contiguous()
+        full = tuple(shape) + (f.nword,)
+        one = f.one_mont(device).reshape(f.nword).expand(full).contiguous()
         zero = torch.zeros(full, dtype=torch.int32, device=device)
         return JPoints(zero, one, zero.clone())
 
 
 @functools.lru_cache(maxsize=None)
 def get_curve_ctx(curve: Curve) -> CurveCtx:
-    ctx = CurveCtx(curve.p, curve.a, curve.n, curve.name)
+    ctx = CurveCtx(limb.get_ctx(curve.p), get_cuda_ec(curve.p, curve.a), curve.a,
+                   curve.n, curve.name)
     ctx.curve = curve
+    return ctx
+
+
+@functools.lru_cache(maxsize=None)
+def get_g2_ctx() -> CurveCtx:
+    """BN254 G2 over Fq2 (a = 0, order = the Fr modulus)."""
+    ctx = CurveCtx(get_fq2_ctx(), get_cuda_quad_ec(BN254_FQ), 0, BN254_FR,
+                   "bn254_g2")
+    ctx.curve = BN254G2
     return ctx

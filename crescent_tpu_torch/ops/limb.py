@@ -191,6 +191,8 @@ class ModCtx:
     PyTorch field ops on (..., 8) int32 word tensors (any device, leading
     dimensions broadcast)."""
 
+    nword = NWORD  # int32 words per element
+
     def __init__(self, modulus: int):
         assert modulus % 2 == 1 and modulus.bit_length() < 256
         self.modulus = modulus
@@ -232,6 +234,15 @@ class ModCtx:
     def words(self, xs, device="cpu") -> torch.Tensor:
         """ints (standard form, as given) -> (n, 8) int32 word tensor."""
         return limbs_to_words(ints_to_limbs(xs), device)
+
+    host_zero = 0
+    host_one = 1
+
+    def host_mul(self, a: int, b: int) -> int:
+        return a * b % self.modulus
+
+    def host_inv(self, a: int) -> int:
+        return pow(a, -1, self.modulus)
 
     # -- plain device ops ---------------------------------------------------
     # (p < 2^255, so a sum of two elements and a value below 2p fit 256 bits)

@@ -44,11 +44,12 @@ from .limb import NWORD
 I64 = torch.int64
 
 
-def batch_inv(pec: CudaEC, d: torch.Tensor, inv_floor: int = 512) -> torch.Tensor:
-    """Montgomery product-tree inversion of an (n, 8) plane of nonzero
-    values: about three ``mul`` per element and one ``inv`` of the root
-    level.  n must halve evenly down to inv_floor (callers pad; a power of
-    two always works)."""
+def batch_inv(pec, d: torch.Tensor, inv_floor: int = 512) -> torch.Tensor:
+    """Montgomery product-tree inversion of an (n, W) plane of nonzero
+    values (W = 8 with a ``CudaEC``, 16 over Fq2 with a ``CudaQuadEC``):
+    about three ``mul`` per element and one ``inv`` of the root level.  n
+    must halve evenly down to inv_floor (callers pad; a power of two always
+    works)."""
     levels = [d]
     while levels[-1].shape[0] > inv_floor:
         cur = levels[-1]

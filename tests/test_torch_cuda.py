@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (crescent_tpu_torch/csrc/ntt.cu, ec.cu) against
-their plain PyTorch versions on a card, bit for bit.
+"""The port's CUDA kernels (crescent_tpu_torch/csrc/ntt.cu, ec.cu, ec2.cu)
+against their plain PyTorch versions on a card, bit for bit, and the fixed
+base on the card against the native host backend.
 
 Needs a CUDA card and imports nothing of JAX, so it runs on a machine
 without JAX; the repo's conftest imports jax, so there run it with
@@ -15,7 +16,7 @@ import torch
 
 from crescent_tpu_torch.core import fields
 from crescent_tpu_torch.ops import limb
-from crescent_tpu_torch.ops.cuda_ec import get_cuda_ec
+from crescent_tpu_torch.ops.cuda_ec import get_cuda_ec, get_cuda_quad_ec
 
 FIELDS = {"Fr": fields.BN254_FR, "Fq": fields.BN254_FQ}
 
@@ -139,3 +140,108 @@ def test_cuda_point_kernels_match_plain(cuda, a):
         ec.jadd(*pq[:5], pq[5][1:])          # a plane of another length
     with pytest.raises(ValueError):
         ec.jdbl(pq[0][:, :4], pq[1], pq[2])  # not (N, 8) rows
+
+
+def _planted_madd(f, n: int, seed: int, device, elems):
+    """Jacobian P, affine Q and flags with lanes 0..6: P == Q, P == -Q,
+    P the identity, valid == 0, sign with -Q == P, sign with -Q == -P, sign
+    generic; seeded elsewhere.  `elems(seed)` gives (n, W) elements."""
+    x1, y1, z1, qx, qy = (elems(seed + 2 * k) for k in range(5))
+    for lane, neg in ((0, False), (1, True), (4, True), (5, False)):
+        z = z1[lane : lane + 1]
+        z2 = f.mont_sqr(z)
+        x1[lane : lane + 1] = f.mont_mul(qx[lane : lane + 1], z2)
+        y = f.mont_mul(qy[lane : lane + 1], f.mont_mul(z2, z))
+        y1[lane : lane + 1] = f.neg_mod(y) if neg else y
+    z1[2] = 0
+    valid = torch.ones(n, dtype=torch.int32, device=device)
+    valid[3] = 0
+    sign = torch.zeros(n, dtype=torch.int32, device=device)
+    sign[4:7] = 1
+    return x1, y1, z1, qx, qy, valid, sign
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [0, 0x1234567], ids=["a0", "a_nonzero"])
+def test_cuda_madd_matches_plain(cuda, a):
+    """madd over BN254 Fq at 3,100 lanes, with Q read through the halves
+    of gathered [x | y] rows, as the fixed base passes it."""
+    ec = get_cuda_ec(fields.BN254_FQ, a)
+    n = 3100
+    before = ec.madd_launches
+    args = _planted_madd(ec.ctx, n, 21, cuda,
+                         lambda s: _elems(ec.modulus, n + 16, s, cuda)[16:].contiguous())
+    q = torch.cat([args[3], args[4]], dim=1)
+    strided = args[:3] + (q[:, :8], q[:, 8:]) + args[5:]
+    got = ec.madd(*strided)
+    assert _equal(got, ec.madd_plain(*args))
+    assert _equal(ec.madd(*args), got)
+    assert got[2][1].eq(0).all() and got[2][5].eq(0).all() and got[2][0].any()
+    assert torch.equal(got[0][3], args[0][3])
+    assert ec.madd_launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_fq2_kernels_match_plain(cuda):
+    """mul (strided rows and a broadcast row), inv (0 -> 0) and madd over
+    Fq2, against their plain versions."""
+    from crescent_tpu_torch.ops.msm_affine import batch_inv
+
+    ec = get_cuda_quad_ec(fields.BN254_FQ)
+    f = ec.ctx
+    p = fields.BN254_FQ
+
+    def elems(seed, n=3100):
+        return torch.cat([_elems(p, n + 16, seed, cuda), _elems(p, n + 16, seed + 1, cuda)],
+                         dim=1)[16:].contiguous()
+
+    before = ec.launches()
+    x, y = elems(31), elems(33)
+    assert _equal(ec.mul(x, y), ec.mul_plain(x, y))
+    assert _equal(ec.mul(x, y[5:6]), ec.mul_plain(x, y[5:6]))
+    out = torch.zeros_like(x)
+    ec.mul(x[0::2], y[1::2], out=out[1::2])
+    assert torch.equal(out[1::2], ec.mul_plain(x[0::2], y[1::2])) and not out[0::2].any()
+    z = x[:512].clone()
+    z[0] = 0
+    z[1, 8:] = 0  # a base-field element
+    got = ec.inv(z)
+    assert _equal(got, ec.inv_plain(z)) and not got[0].any()
+    assert torch.equal(ec.mul(z[1:], got[1:]), f.one_mont(cuda).expand(511, 16))
+    d = x[:3072].contiguous()
+    assert torch.equal(ec.mul(d, batch_inv(ec, d, inv_floor=16)),
+                       f.one_mont(cuda).expand_as(d))
+    args = _planted_madd(f, 3100, 41, cuda, elems)
+    q = torch.cat([args[3], args[4]], dim=1)
+    got = ec.madd(*args[:3], q[:, :16], q[:, 16:], *args[5:])
+    assert _equal(got, ec.madd_plain(*args))
+    assert got[2][1].eq(0).all() and got[2][5].eq(0).all() and got[2][0].any()
+    after = ec.launches()
+    assert after["madd"] == before["madd"] + 1 and after["inv"] == before["inv"] + 2
+    with pytest.raises(ValueError):
+        ec.mul(x[:, :8].contiguous(), y[:, :8].contiguous())  # not (N, 16) rows
+
+
+@pytest.mark.cuda
+def test_cuda_fixed_base_matches_native(cuda):
+    """FixedBaseMSM on the card for G1 and G2 (several chunks, padding
+    lanes, 0, 1, n - 1) against the native fixed base."""
+    import random
+
+    from crescent_tpu_torch.core.curves import BN254_G1, BN254G2
+    from crescent_tpu_torch.native import backend as nb
+    from crescent_tpu_torch.ops.ec import get_curve_ctx, get_g2_ctx
+    from crescent_tpu_torch.ops.fixed_base import FixedBaseMSM
+
+    rng = random.Random(5)
+    for ctx, base, native in (
+            (get_curve_ctx(BN254_G1), BN254_G1.generator,
+             lambda b, ks: nb.fixed_base("bn254_g1", b, ks)),
+            (get_g2_ctx(), BN254G2.generator(), nb.fixed_base_g2)):
+        fb = FixedBaseMSM(ctx, chunk=256)
+        table = native(base, fb.table_scalars())
+        ks = [0, 1, ctx.n - 1, (ctx.n + 1) // 2] + [rng.randrange(ctx.n) for _ in range(700)]
+        before = ctx.ec.madd_launches
+        out = fb.run(table, limb.ints_to_limbs(ks), cuda)
+        assert list(out) == native(base, ks)
+        assert ctx.ec.madd_launches == before + 3 * 32

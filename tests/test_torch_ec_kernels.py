@@ -1,6 +1,6 @@
-"""Plain versions of the port's six point kernels
+"""Plain versions of the port's seven point kernels
 (crescent_tpu_torch/ops/cuda_ec.py: inv, affine_denom, affine_add, jadd,
-jdbl_n, jdbl) against the reference's XLA adapter and its Pallas kernels in
+jdbl_n, jdbl, madd) against the reference's XLA adapter and its Pallas kernels in
 interpret mode (the CUDA kernels against the plain versions:
 tests/test_torch_cuda.py and chip_smoke.py).
 
@@ -11,7 +11,7 @@ lanes of invalid or garbage inputs included.
 
 Eight lanes with the case zoo of the reference's own kernel tests: generic,
 P == Q, P == -Q, identity on either side and on both; L == R, L == -R, left
-only, right only, neither.
+only, right only, neither; for madd also valid == 0 and sign == 1.
 """
 
 import jax
@@ -231,6 +231,47 @@ def test_plain_point_ops_match_reference_with_nonzero_a():
     pair = _pair_inputs()
     inv = _port(ec.inv, _port(ec.affine_denom, *pair)[0])[0]
     _assert_same(_port(ec.affine_add, *pair, inv), _ref(pec.affine_add, *pair, inv))
+
+
+def _madd_inputs():
+    """Jacobian P (seeded Z) and affine Q with the cases planted: P == Q,
+    P == -Q, P the identity, valid == 0, and with sign == 1: -Q == P (the
+    doubling), -Q == -P (the identity) and a generic lane."""
+    pp, qq = _points(11), _points(12)
+    qq[1] = pp[1]                              # P == Q
+    qq[2] = BN254_G1.neg(pp[2])                # P == -Q
+    pp[3] = None                               # identity + Q
+    qq[5] = BN254_G1.neg(pp[5])                # sign: -Q == P
+    qq[6] = pp[6]                              # sign: -Q == -P
+    x1, y1, z1 = _jacobian(pp, 13)
+    valid = np.ones(N, np.uint32)
+    valid[4] = 0
+    sign = np.zeros(N, np.uint32)
+    sign[5:8] = 1
+    qx, qy = _mont([q[0] for q in qq]), _mont([q[1] for q in qq])
+    return x1, y1, z1, qx, qy, valid, sign
+
+
+@pytest.mark.parametrize("a", [0, A_NONZERO], ids=["a0", "a_nonzero"])
+def test_plain_madd_matches_reference(a):
+    """madd over BN254 Fq, on the curve's a = 0 and on an arbitrary a (the
+    a-term of the doubling lanes), against the XLA adapter's madd."""
+    ec = get_cuda_ec(P, a)
+    args = _madd_inputs()
+    got = _port(ec.madd, *args)
+    _assert_same(got, _ref(get_xla_pec(P, a).madd, *args))
+    z = limb.limbs_to_ints(got[2])
+    assert z[2] == 0 and z[6] == 0 and all(z[i] for i in (0, 1, 3, 5, 7))
+    assert z[3] == ec.ctx.r_mod_n                               # identity + Q: Z = 1
+    np.testing.assert_array_equal(got[0][4], args[0][4])       # valid == 0: P
+    xs, ys, zs = (ec.ctx.from_mont_host(g) for g in got[:3])
+    if a == 0:  # on the curve: the host group law
+        pp, qq = _points(11), _points(12)
+        for i, want in ((0, BN254_G1.add(pp[0], qq[0])), (1, BN254_G1.add(pp[1], pp[1])),
+                        (7, BN254_G1.add(pp[7], BN254_G1.neg(qq[7])))):
+            zi = pow(zs[i], -1, P)
+            assert (xs[i] * zi * zi % P, ys[i] * zi ** 3 % P) == want, i
+    assert ec.madd_launches == 0
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

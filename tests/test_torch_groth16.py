@@ -75,7 +75,7 @@ def test_h_matches_reference_device_pipeline(bundle):
 def test_setup_matches_reference(bundle):
     r1cs, _, pk, _, _ = bundle
     pr1cs, _ = port.dummy_circuit(LOG, random.Random(11))
-    ppk = port.setup(pr1cs, random.Random(12))
+    ppk = port.setup(pr1cs, random.Random(12), device="cpu")
     for f in ("beta_g1", "delta_g1", "a_query", "b_g1_query", "b_g2_query",
               "h_query", "l_query"):
         assert getattr(ppk, f) == getattr(pk, f), f
@@ -192,7 +192,7 @@ sys.modules["jax"] = None
 sys.modules["crescent_tpu"] = None
 from crescent_tpu_torch.models import groth16 as g
 r1cs, z = g.dummy_circuit(5, random.Random(3))
-pk = g.setup(r1cs, random.Random(4))
+pk = g.setup(r1cs, random.Random(4), device="cpu")
 proof = g.prove(pk, r1cs, z, random.Random(5), device="cpu")
 assert g.verify(pk.vk.prepare(), proof, z[1:r1cs.num_instance])
 import crescent_tpu_torch.convert, crescent_tpu_torch.ops.msm
