@@ -7,8 +7,8 @@
 2. Builds the port's CUDA kernels from crescent_tpu_torch/csrc with nvcc
    (one nvcc per source, started together, into build/kernels/) and prints
    the build time and each kernel's registers and spills.
-3. Kernel phase: holds each of the twelve kernels against its plain PyTorch
-   version on the card at its path's shapes, with the edge cases planted
+3. Kernel phase: holds each of the seventeen kernels against its plain
+   PyTorch version on the card at its path's shapes, with the edge cases planted
    (field: 0, 1, p-1, Montgomery 1, and u over Fq2; points: L == R,
    L == -R, one side only, neither; P + P, P + (-P), the identity on either
    side and on both; for madd also valid == 0 and sign == 1), and once over
@@ -20,7 +20,11 @@
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
-   same through the plain versions on the CPU, (x, y, z) bit-equal.
+   same through the plain versions on the CPU, (x, y, z) bit-equal.  Then
+   G2: one 2^17-point chunk over Fq2 (points made on the card by the G2
+   fixed base, the cases planted) under the same check, and
+   get_g2_msm().run_device of 2^21 points (16 chunks and the Fq2 jadd
+   tree), both against the native host G2 MSM.
 5. Fixed-base phase: one FixedBaseMSM run per group (G1, and G2 over Fq2)
    of 2^17 scalars (two chunks of 2^16) on the card; 4,096 sampled rows,
    0, 1, n-1 and (n+1)/2 among them, equal the native fixed base.
@@ -36,7 +40,10 @@
    host beside them) on that key, each with launch counts reset just
    before it and read just after, and `verify`, which must accept the proof
    and reject it against a wrong public input.  The same witness and
-   blinding under CRESCENT_PROVE_MSM=native must give the same proof.
+   blinding under CRESCENT_PROVE_MSM=native must give the same proof, and
+   so must a warm prove under CRESCENT_NATIVE=0 (the G2 MSM on the card
+   too, behind the fold), whose launch counts are read the same way and
+   which must run every Fq2 kernel but `jdbl` and `madd`.
 8. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
@@ -208,13 +215,25 @@ def kernel_phase(torch, fields, ntt, get_cuda_ec) -> dict:
     return out
 
 
+def _rand_elems2(torch, n: int, p: int, seed: int):
+    """(n, 16) int32 canonical Fq2 elements (c0, then c1) on the card."""
+    return torch.cat([_rand_elems(torch, n, p, seed), _rand_elems(torch, n, p, seed + 1000)],
+                     dim=1)
+
+
+def _elems_for(torch, ec, n: int):
+    """Seeded rows of ec's field: (n, 8) over Fq, (n, 16) over Fq2."""
+    rand = _rand_elems2 if ec.WIDTH == 16 else _rand_elems
+    return lambda seed: rand(torch, n, ec.modulus, seed)
+
+
 def _point_inputs(torch, ec, n: int, seed: int):
     """Two Jacobian batches P, Q of n lanes of seeded field elements with the
     cases planted in the first lanes: P + P (the same triple), P + P through
     another representative ((x l^2, y l^3, z l)), P + (-P), P at infinity,
     Q at infinity, both at infinity."""
-    p = ec.modulus
-    x1, y1, z1, x2, y2, z2 = (_rand_elems(torch, n, p, seed + k) for k in range(6))
+    elems = _elems_for(torch, ec, n)
+    x1, y1, z1, x2, y2, z2 = (elems(seed + k) for k in range(6))
     ctx = ec.ctx
     x2[0], y2[0], z2[0] = x1[0], y1[0], z1[0]
     lam = x2[1:2].clone()
@@ -236,8 +255,8 @@ def _pair_inputs(torch, ec, n: int, seed: int):
     neither; the validity of the other lanes is seeded."""
     import numpy as np
 
-    p = ec.modulus
-    lx, ly, rx, ry = (_rand_elems(torch, n, p, seed + k) for k in range(4))
+    elems = _elems_for(torch, ec, n)
+    lx, ly, rx, ry = (elems(seed + k) for k in range(4))
     rng = np.random.default_rng(seed + 9)
     lv = torch.from_numpy(rng.integers(0, 2, size=n).astype(np.int32)).cuda()
     rv = torch.from_numpy(rng.integers(0, 2, size=n).astype(np.int32)).cuda()
@@ -251,6 +270,89 @@ def _pair_inputs(torch, ec, n: int, seed: int):
     return lx, ly, lv, rx, ry, rv
 
 
+def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_inv,
+                         out: dict) -> None:
+    """The MSM path's point kernels of one field against their plain
+    versions, with the cases planted: affine_denom and affine_add at 2^21
+    lanes (the first pair level of a chunk), jadd at the dense table's W*B
+    lanes and at 2^17, jdbl at 2^17, jdbl_n at 16 lanes x 11 and x 176.
+    Bounds count an element's bytes (32 over Fq, 64 over Fq2) and its base
+    products (a square and a product are 1 and 1 over Fq, 2 and 3 over
+    Fq2)."""
+    f = ec.ctx
+    one = f.one_mont("cuda")
+    fq2 = ec.WIDTH == 16
+    e, sqr, mul = (64, 2, 3) if fq2 else (32, 1, 1)
+    n = 1 << LOG_SIZE
+    nb_lanes = ((256 + AFFINE_C - 1) // AFFINE_C + 1) * ((1 << (AFFINE_C - 1)) + 1)  # W * B
+    nck = 1 << CHUNK_LOG
+
+    def record(name, *row):
+        _record(out, prefix + name, label, *row)
+
+    # -- affine_denom, affine_add: 2^21 lanes ----------------------------------
+    pair = _pair_inputs(torch, ec, n, seed)
+    d = ec.affine_denom(*pair)
+    torch.cuda.synchronize()
+    err = _errs(torch, d, ec.affine_denom_plain(*pair))
+    if d[:7].ne(torch.cat([f.add_mod(pair[1][:1], pair[1][:1])] + [one] * 6)).any().item():
+        fail(f"{prefix}affine_denom: a planted case has the wrong denominator")
+    record("affine_denom", f"2^{LOG_SIZE} lanes", err,
+           _time_ms(torch, lambda: ec.affine_denom(*pair), REPS),
+           _time_ms(torch, lambda: ec.affine_denom_plain(*pair), 2), (5 * e + 8) * n, 0)
+    inv = batch_inv(ec, d)  # the mul tree down to 512 lanes, inv, the unwind
+    torch.cuda.synchronize()
+    if not (ec.mul(d, inv) == one).all().item():
+        fail(f"batch_inv [{label}]: d * inv(d) is not Montgomery 1")
+    got = ec.affine_add(*pair, inv)
+    torch.cuda.synchronize()
+    err = _errs(torch, got, ec.affine_add_plain(*pair, inv))
+    if got[2][:7].tolist() != [1, 0, 1, 1, 0, 1, 1]:
+        fail(f"{prefix}affine_add: planted cases give valid flags {got[2][:7].tolist()}")
+    record("affine_add", f"2^{LOG_SIZE} lanes", err,
+           _time_ms(torch, lambda: ec.affine_add(*pair, inv), REPS),
+           _time_ms(torch, lambda: ec.affine_add_plain(*pair, inv), 2),
+           (7 * e + 12) * n, (2 * sqr + 2 * mul) * MONT_MUL_MADS * n)
+    del d, inv, pair, got
+
+    # -- jadd: the dense table (W*B lanes) and 2^17 lanes ----------------------
+    for lanes, shape in ((nb_lanes, f"{nb_lanes} lanes"), (nck, f"2^{CHUNK_LOG} lanes")):
+        pq = _point_inputs(torch, ec, lanes, seed + 10)
+        got = ec.jadd(*pq)
+        torch.cuda.synchronize()
+        err = _errs(torch, got, ec.jadd_plain(*pq))
+        z = got[2]
+        if z[2].any().item() or z[5].any().item() or not z[0].any().item():
+            fail(f"{prefix}jadd: P + (-P) or inf + inf is not the identity, or P + P is")
+        if not (torch.equal(got[0][3], pq[3][3]) and torch.equal(got[0][4], pq[0][4])):
+            fail(f"{prefix}jadd: the identity on one side does not return the other side")
+        record("jadd", shape, err, _time_ms(torch, lambda: ec.jadd(*pq), REPS),
+               _time_ms(torch, lambda: ec.jadd_plain(*pq), 2),
+               9 * e * lanes, (5 * sqr + 11 * mul) * MONT_MUL_MADS * lanes)
+
+    # -- jdbl: 2^17 lanes; jdbl_n: 16 lanes, 11 and 176 doublings --------------
+    dbl = (7 * sqr + mul) * MONT_MUL_MADS
+    pt = _point_inputs(torch, ec, nck, seed + 20)[:3]
+    got = ec.jdbl(*pt)
+    torch.cuda.synchronize()
+    err = _errs(torch, got, ec.jdbl_plain(*pt))
+    # P + P takes the doubling (past the planted identities, which jadd
+    # passes through)
+    tail = tuple(a[8:] for a in pt)
+    err = max(err, _errs(torch, tuple(a[8:] for a in got), ec.jadd(*tail, *tail)))
+    record("jdbl", f"2^{CHUNK_LOG} lanes", err, _time_ms(torch, lambda: ec.jdbl(*pt), REPS),
+           _time_ms(torch, lambda: ec.jdbl_plain(*pt), 2), 6 * e * nck, dbl * nck)
+    p16 = tuple(a[:16].contiguous() for a in pt)
+    for count in (AFFINE_C, 16 * AFFINE_C):
+        got = ec.jdbl_n(*p16, count)
+        torch.cuda.synchronize()
+        err = _errs(torch, got, ec.jdbl_n_plain(*p16, count))
+        record("jdbl_n", f"16 lanes x {count}", err,
+               _time_ms(torch, lambda: ec.jdbl_n(*p16, count), 20),
+               _time_ms(torch, lambda: ec.jdbl_n_plain(*p16, count), 1),
+               6 * e * 16, dbl * 16 * count)
+
+
 def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     """The six point kernels against their plain versions over BN254 Fq at
     the MSM path's shapes, and once over a curve with a != 0."""
@@ -260,11 +362,6 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     one = ctx.one_mont("cuda")
     out = {}
     n = 1 << LOG_SIZE          # lanes of the first pair level of a chunk
-    nb_lanes = ((256 + AFFINE_C - 1) // AFFINE_C + 1) * ((1 << (AFFINE_C - 1)) + 1)  # W * B
-    nck = 1 << CHUNK_LOG
-
-    def record(name, *row):
-        _record(out, name, "BN254 Fq", *row)
 
     # -- inv: 512 lanes, the root of every batch_inv --------------------------
     x = _rand_elems(torch, 512, p, SEED + 20)
@@ -278,39 +375,14 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     if not (prod[1:] == one).all().item() or prod[0].any().item():
         fail("inv: x * inv(x) is not Montgomery 1 (or inv(0) is not 0)")
     e = p - 2
-    record("inv", "512 lanes", err, _time_ms(torch, lambda: ec.inv(x), 20),
-           _time_ms(torch, lambda: ec.inv_plain(x), 1), 64 * 512,
-           512 * (256 + bin(e).count("1")) * MONT_MUL_MADS)
+    _record(out, "inv", "BN254 Fq", "512 lanes", err, _time_ms(torch, lambda: ec.inv(x), 20),
+            _time_ms(torch, lambda: ec.inv_plain(x), 1), 64 * 512,
+            512 * (256 + bin(e).count("1")) * MONT_MUL_MADS)
 
-    # -- affine_denom, affine_add: 2^21 lanes ----------------------------------
-    pair = _pair_inputs(torch, ec, n, SEED + 30)
-    d = ec.affine_denom(*pair)
-    torch.cuda.synchronize()
-    err = _errs(torch, d, ec.affine_denom_plain(*pair))
-    record("affine_denom", f"2^{LOG_SIZE} lanes", err,
-           _time_ms(torch, lambda: ec.affine_denom(*pair), REPS),
-           _time_ms(torch, lambda: ec.affine_denom_plain(*pair), 2), 168 * n, 0)
-    if d[:7].ne(torch.stack([
-            ctx.add_mod(pair[1][0], pair[1][0]), one[0], one[0], one[0], one[0],
-            one[0], one[0]])).any().item():
-        fail("affine_denom: a planted case has the wrong denominator")
+    _point_kernel_checks(torch, ec, "BN254 Fq", "", SEED + 30, batch_inv, out)
 
-    inv = batch_inv(ec, d)  # the mul tree down to 512 lanes, inv, the unwind
-    torch.cuda.synchronize()
-    if not (ec.mul(d, inv) == one).all().item():
-        fail("batch_inv: d * inv(d) is not Montgomery 1")
-    got = ec.affine_add(*pair, inv)
-    torch.cuda.synchronize()
-    want = ec.affine_add_plain(*pair, inv)
-    err = _errs(torch, got, want)
-    if got[2][:7].tolist() != [1, 0, 1, 1, 0, 1, 1]:
-        fail(f"affine_add: planted cases give valid flags {got[2][:7].tolist()}")
-    record("affine_add", f"2^{LOG_SIZE} lanes", err,
-           _time_ms(torch, lambda: ec.affine_add(*pair, inv), REPS),
-           _time_ms(torch, lambda: ec.affine_add_plain(*pair, inv), 2),
-           236 * n, 4 * MONT_MUL_MADS * n)
-
-    # -- mul over the widths of that batch_inv tree ----------------------------
+    # -- mul over the widths of a batch_inv tree of 2^21 lanes ----------------
+    d = ec.affine_denom(*_pair_inputs(torch, ec, n, SEED + 30))
     tree_ms = 0.0
     width = n
     while width > 512:
@@ -325,45 +397,7 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     say(f"batch_inv [BN254 Fq] 2^{LOG_SIZE} lanes: {bi_ms:.4f} ms in all; its mul "
         f"launches over the tree widths 2^{LOG_SIZE}..2^10 sum to {tree_ms:.4f} ms")
     out["batch_inv_ms"] = bi_ms
-    del d, inv, pair, got, want
-
-    # -- jadd: the dense table (W*B lanes) and 2^17 lanes ----------------------
-    for lanes, shape in ((nb_lanes, f"{nb_lanes} lanes"), (nck, f"2^{CHUNK_LOG} lanes")):
-        pq = _point_inputs(torch, ec, lanes, SEED + 40)
-        got = ec.jadd(*pq)
-        torch.cuda.synchronize()
-        want = ec.jadd_plain(*pq)
-        err = _errs(torch, got, want)
-        z = got[2]
-        if z[2].any().item() or z[5].any().item() or not z[0].any().item():
-            fail("jadd: P + (-P) or inf + inf is not the identity, or P + P is")
-        if not (torch.equal(got[0][3], pq[3][3]) and torch.equal(got[0][4], pq[0][4])):
-            fail("jadd: the identity on one side does not return the other side")
-        record("jadd", shape, err, _time_ms(torch, lambda: ec.jadd(*pq), REPS),
-               _time_ms(torch, lambda: ec.jadd_plain(*pq), 2),
-               288 * lanes, 16 * MONT_MUL_MADS * lanes)
-
-    # -- jdbl: 2^17 lanes; jdbl_n: 16 lanes, 11 and 176 doublings --------------
-    pt = _point_inputs(torch, ec, nck, SEED + 50)[:3]
-    got = ec.jdbl(*pt)
-    torch.cuda.synchronize()
-    err = _errs(torch, got, ec.jdbl_plain(*pt))
-    # P + P takes the doubling (past the planted identities, which jadd
-    # passes through)
-    tail = tuple(a[8:] for a in pt)
-    err = max(err, _errs(torch, tuple(a[8:] for a in got), ec.jadd(*tail, *tail)))
-    record("jdbl", f"2^{CHUNK_LOG} lanes", err, _time_ms(torch, lambda: ec.jdbl(*pt), REPS),
-           _time_ms(torch, lambda: ec.jdbl_plain(*pt), 2),
-           192 * nck, 8 * MONT_MUL_MADS * nck)
-    p16 = tuple(a[:16].contiguous() for a in pt)
-    for count in (AFFINE_C, 16 * AFFINE_C):
-        got = ec.jdbl_n(*p16, count)
-        torch.cuda.synchronize()
-        err = _errs(torch, got, ec.jdbl_n_plain(*p16, count))
-        record("jdbl_n", f"16 lanes x {count}", err,
-               _time_ms(torch, lambda: ec.jdbl_n(*p16, count), 20),
-               _time_ms(torch, lambda: ec.jdbl_n_plain(*p16, count), 1),
-               192 * 16, 8 * MONT_MUL_MADS * 16 * count)
+    del d
 
     # -- a != 0: the a-terms of jdbl, jdbl_n and affine_add (and jadd's
     #    doubling branch), over BN254 Fq with an arbitrary a ------------------
@@ -480,8 +514,7 @@ def setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv) 
     label = "BN254 Fq2"
 
     def elems2(n, seed):
-        return torch.cat([_rand_elems(torch, n, p, seed), _rand_elems(torch, n, p, seed + 1000)],
-                         dim=1)
+        return _rand_elems2(torch, n, p, seed)
 
     def edges2(first: bool):
         vals = [fields.Fq2(0, 0), fields.Fq2(1, 0), fields.Fq2(p - 1, 0), fields.Fq2(0, 1)]
@@ -651,6 +684,122 @@ def msm_phase(torch, curves, nb) -> dict:
     return {"chunk_ms": chunk_ms, "enqueue_ms": enqueue_s * 1e3}
 
 
+def _g2_points_on_card(torch, nb, ctx, n: int, seed: int):
+    """n random G2 points, made on the card by the ported G2 fixed base from
+    seeded scalars in [1, r), as an ArrayPointVec."""
+    from crescent_tpu_torch.ops import limb
+    from crescent_tpu_torch.ops.fixed_base import FixedBaseMSM
+
+    fb = FixedBaseMSM(ctx, chunk=1 << FB_CHUNK_LOG)
+    table = nb.fixed_base_g2(ctx.curve.generator(), fb.table_scalars())
+    words = _rand_scalars(n, ctx.n, seed)
+    words[:, 0] |= 1  # never 0: every point is finite
+    return fb.run(table, limb.u64_to_limbs(words), "cuda")
+
+
+def _rand_scalars(n: int, order: int, seed: int):
+    """(n, 4) u64 standard-form scalars below `order`, from a numpy seed (the
+    top word drawn below the order's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64) * 2 + rng.integers(
+        0, 2, size=(n, 4), dtype=np.uint64)
+    w[:, 3] = rng.integers(0, order >> 192, size=n, dtype=np.uint64)
+    return w
+
+
+def g2_msm_phase(torch, curves, nb) -> dict:
+    """The G2 MSM of prove on the card against the native host G2 MSM: one
+    2^17-point chunk (c = 11) with the cases planted, under PyTorch's
+    synchronisation check, and get_g2_msm's run_device of 2^21 points (16
+    chunks added by the Fq2 jadd)."""
+    import numpy as np
+
+    from crescent_tpu_torch.ops import limb
+    from crescent_tpu_torch.ops.ec import JPoints, get_g2_ctx, points_valid
+    from crescent_tpu_torch.ops.msm import get_g2_msm
+    from crescent_tpu_torch.ops.msm_affine import AffineMSM
+    from crescent_tpu_torch.utils.pointvec import ArrayPointVec
+
+    G2 = curves.BN254G2
+    ctx = get_g2_ctx()
+    n = 1 << CHUNK_LOG
+    t0 = time.perf_counter()
+    pts = _g2_points_on_card(torch, nb, ctx, n, SEED + 180)
+    make_s = time.perf_counter() - t0
+    words = _rand_scalars(n, ctx.n, SEED + 181)
+    pts.inf[5] = True                          # an identity in the table
+    pts.xs[5] = pts.ys[5] = 0
+    words[6] = 0                               # a zero scalar
+    words[7] = np.frombuffer((ctx.n - 1).to_bytes(32, "little"), dtype="<u8")  # -1
+    pts.xs[9], pts.ys[9], words[9] = pts.xs[8], pts.ys[8], words[8]  # L == R in a bucket
+    neg = ArrayPointVec.from_points([G2.neg(pts[10])], g2=True)
+    pts.xs[11], pts.ys[11], words[11] = pts.xs[10], neg.ys[0], words[10]  # and L == -R
+    P = ctx.points_to_device(pts, "cuda")
+    valid = torch.from_numpy(points_valid(pts)).cuda()
+    sc = limb.u64_to_words(words, "cuda")
+    am = AffineMSM(ctx, ctx.ec, c=AFFINE_C)
+    am.run(P.x, P.y, valid, sc)        # warm: allocator, constant tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    # nothing in a chunk may wait for the card: PyTorch raises if it does
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = am.run(P.x, P.y, valid, sc)
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    chunk_ms = start.elapsed_time(end)
+    peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    got = ctx.points_to_host(JPoints(*(a[None] for a in res)))[0]
+    t0 = time.perf_counter()
+    want = nb.msm_g2_raw(words, pts.to_u64())
+    native_s = time.perf_counter() - t0
+    if got != want:
+        fail(f"G2 AffineMSM of 2^{CHUNK_LOG} points differs from the native host G2 MSM")
+    say(f"g2 msm 2^{CHUNK_LOG} points (c={AFFINE_C}) on the card: equals the native G2 MSM; "
+        f"{chunk_ms:.3f} ms on the card, {enqueue_s * 1e3:.3f} ms to enqueue, no "
+        f"synchronisation, peak {peak_mib:.0f} MiB above its inputs; native host G2 MSM "
+        f"{native_s * 1e3:.1f} ms; its points made on the card in {make_s:.3f} s")
+    del P, valid, sc, res, pts
+
+    # -- get_g2_msm().run_device: 2^21 points, 16 chunks ----------------------
+    nbig = 1 << LOG_SIZE
+    pts = _g2_points_on_card(torch, nb, ctx, nbig, SEED + 182)
+    words = _rand_scalars(nbig, ctx.n, SEED + 183)
+    P = ctx.points_to_device(pts, "cuda")
+    valid = torch.from_numpy(points_valid(pts)).cuda()
+    sc = limb.u64_to_words(words, "cuda")
+    m = get_g2_msm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = m.run_device(P.x, P.y, valid, sc)
+    got = ctx.points_to_host(JPoints(*(a[None] for a in res)))[0]
+    big_s = time.perf_counter() - t0
+    big_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    t0 = time.perf_counter()
+    want = nb.msm_g2_raw(words, pts.to_u64())
+    big_native_s = time.perf_counter() - t0
+    if got != want:
+        fail(f"get_g2_msm().run_device of 2^{LOG_SIZE} points differs from the native G2 MSM")
+    say(f"g2 msm 2^{LOG_SIZE} points (get_g2_msm().run_device, "
+        f"{nbig // m.max_chunk} chunks + jadd tree): equals the native G2 MSM; "
+        f"{big_s:.3f} s on the card (enqueue to result), peak {big_peak:.0f} MiB above its "
+        f"inputs; native host G2 MSM {big_native_s:.3f} s")
+    return {"g2_chunk_ms": chunk_ms, "g2_enqueue_ms": enqueue_s * 1e3,
+            "g2_chunk_peak_mib": peak_mib, "g2_big_s": big_s}
+
+
 def _proof_ints(proof) -> tuple:
     """A proof as plain ints, for comparison."""
     return (proof.a, (proof.b[0].c0, proof.b[0].c1, proof.b[1].c0, proof.b[1].c1),
@@ -762,7 +911,11 @@ def main() -> None:
     kres = kernel_phase(torch, fields, ntt, get_cuda_ec)
     kres.update(ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv))
     kres.update(setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv))
+    # the G2 MSM's five Fq2 point kernels
+    _point_kernel_checks(torch, get_cuda_quad_ec(fields.BN254_FQ), "BN254 Fq2", "fq2_",
+                         SEED + 150, batch_inv, kres)
     mres = msm_phase(torch, curves, nb)
+    mres.update(g2_msm_phase(torch, curves, nb))
     fixed_base_phase(torch, curves, nb)
     setup_crosscheck(torch, groth16)
     small_crosscheck(torch, groth16)
@@ -843,25 +996,48 @@ def main() -> None:
         fail("the fold's proof differs from the native configuration's")
     say("proofs: the fold's (twice) and the native configuration's are equal")
 
+    # the native backend off: the G2 MSM joins the fold on the card (its
+    # table uploaded first, so that this prove is warm)
+    from crescent_tpu_torch.ops.msm import get_g2_msm
+
+    pk.device_table("b_g2_query", get_g2_msm(), "cuda")
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    proof_dev, _, _ = _with_env("CRESCENT_NATIVE", "0",
+                                lambda: timed_prove("CRESCENT_NATIVE=0: G2 on the card too, warm"))
+    native0_launches = counts()
+    say(f"launches during that prove: {native0_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    for k in names:
+        if native0_launches[k] == 0 and k not in ("jdbl", "madd", "fq2_jdbl", "fq2_madd"):
+            fail(f"the {k} kernel was not launched during the CRESCENT_NATIVE=0 prove")
+    if _proof_ints(proof_dev) != _proof_ints(proof):
+        fail("the CRESCENT_NATIVE=0 proof differs from the default configuration's")
+    say("proofs: the CRESCENT_NATIVE=0 proof equals the default configuration's")
+
     t0 = time.perf_counter()
     pvk = pk.vk.prepare()
     pubs = z[1 : r1cs.num_instance]
-    if not groth16.verify(pvk, proof, pubs):
+    if not groth16.verify(pvk, proof, pubs) or not groth16.verify(pvk, proof_dev, pubs):
         fail("verify rejected the proof")
     if groth16.verify(pvk, proof, [(pubs[0] + 1) % groth16.R]):
         fail("verify accepted the proof against a wrong public input")
     say(f"verify: ok ({time.perf_counter() - t0:.3f} s)")
     say(f"chunk MSM 2^{CHUNK_LOG}: {mres['chunk_ms']:.3f} ms on the card, "
-        f"{mres['enqueue_ms']:.3f} ms to enqueue")
+        f"{mres['enqueue_ms']:.3f} ms to enqueue; G2: {mres['g2_chunk_ms']:.3f} ms on the "
+        f"card, {mres['g2_enqueue_ms']:.3f} ms to enqueue")
 
     pallas = "crescent_tpu/ops/pallas_ec.py"
-    # the TPU kernel each replaces: the kernel function (PallasEC), or for
-    # the Fq2 ops of QuadPallasEC the `_F2` body or override that makes them
+    # the TPU kernel each replaces: the kernel function (PallasEC); for the
+    # Fq2 ops of QuadPallasEC the `_F2` body or override that makes them, or
+    # the op that runs the shared kernel at ROWS = 32
     replaces = {"mul": 513, "butterfly": 517, "inv": 527, "affine_denom": 560,
                 "affine_add": 566, "jadd": 505, "jdbl_n": 550, "jdbl": 545,
-                "madd": 495, "fq2_mul": 362, "fq2_inv": 858, "fq2_madd": 831}
-    source = {"mul": "ntt.cu", "butterfly": "ntt.cu", "fq2_mul": "ec2.cu",
-              "fq2_inv": "ec2.cu", "fq2_madd": "ec2.cu"}
+                "madd": 495, "fq2_mul": 362, "fq2_inv": 858, "fq2_madd": 831,
+                "fq2_affine_denom": 757, "fq2_affine_add": 771, "fq2_jadd": 670,
+                "fq2_jdbl_n": 744, "fq2_jdbl": 735}
+    source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
+    source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     kernels = []
     for name in names:
         rows = kres[name]
@@ -874,9 +1050,10 @@ def main() -> None:
             "source": "crescent_tpu_torch/csrc/" + source.get(name, "ec.cu"),
             "replaces": f"{pallas}:{replaces[name]}",
             "shape": label,
-            "launches": setup_launches[name] + prove_launches[name],
+            "launches": setup_launches[name] + prove_launches[name] + native0_launches[name],
             "launches_setup": setup_launches[name],
             "launches_prove": prove_launches[name],
+            "launches_prove_native0": native0_launches[name],
             "max_abs_err": max(r[1] for r in rows),
             "bit_exact": all(r[1] == 0 for r in rows),
             "ms": ms,

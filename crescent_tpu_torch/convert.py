@@ -51,12 +51,17 @@ def proving_key_from_reference(pk) -> groth16.ProvingKey:
 
 
 def device_table_from_reference(planes, device="cpu"):
-    """The reference's ``ProvingKey.device_table`` planes ((N, 16) x limbs,
-    (N, 16) y limbs, (N,) valid; Montgomery form) as the port's ((N, 8)
-    words, (N, 8) words, (N,) int32) on `device`."""
+    """The reference's ``ProvingKey.device_table`` planes (x and y limbs,
+    (N, 16) over Fq or (N, 2, 16) over Fq2, and (N,) valid; Montgomery
+    form) as the port's ((N, 8) or (N, 16) int32 words, and (N,) int32) on
+    `device`."""
     x, y, valid = (np.asarray(a) for a in planes)
-    return (limb.limbs_to_words(x, device), limb.limbs_to_words(y, device),
-            torch.from_numpy(valid.astype(np.int32)).to(device))
+    n = valid.shape[0]
+
+    def words(a):
+        return limb.limbs_to_words(a.reshape(-1, limb.NLIMB), device).reshape(n, -1)
+
+    return (words(x), words(y), torch.from_numpy(valid.astype(np.int32)).to(device))
 
 
 def domain_tables_from_reference(dom, device="cpu") -> dict:

@@ -1,11 +1,21 @@
-// Fq2 kernels for Hopper (sm_90a): the G2 fixed base's three.
+// Fq2 kernels for Hopper (sm_90a): the G2 fixed base's three and the G2
+// MSM's five more.
 //
 // Each replaces one op of the Pallas TPU class QuadPallasEC
 // (crescent_tpu/ops/pallas_ec.py:831), which runs PallasEC's kernels at
 // ROWS = 32 over the field `_F2` (:337):
-//   * `mul`  -> PallasEC.mul at ROWS = 32 (op :680; body _F2.mont_mul :362)
-//   * `inv`  -> QuadPallasEC.inv (op :698; core _inv_core :858)
-//   * `madd` -> PallasEC.madd at ROWS = 32 (op :657; body _madd_body :261)
+//   * `mul`          -> PallasEC.mul at ROWS = 32 (op :680; body _F2.mont_mul :362)
+//   * `inv`          -> QuadPallasEC.inv (op :698; core _inv_core :858)
+//   * `madd`         -> PallasEC.madd at ROWS = 32 (op :657; body :261)
+//   * `affine_denom` -> PallasEC.affine_denom at ROWS = 32 (op :757; kernel
+//                       :560; body :408)
+//   * `affine_add`   -> PallasEC.affine_add at ROWS = 32 (op :771; kernel
+//                       :566; body :421)
+//   * `jadd`         -> PallasEC.jadd at ROWS = 32 (op :670; kernel :505;
+//                       body :300)
+//   * `jdbl_n`       -> PallasEC.jdbl_n at ROWS = 32 (op :744; kernel :550;
+//                       body :243)
+//   * `jdbl`         -> PallasEC.jdbl at ROWS = 32 (op :735; kernel :545)
 // An element is one 64-byte row of an (N, 16) int32 plane: c0's eight
 // words, then c1's (field.cuh Fe2).  Results are canonical, so they equal
 // the TPU kernels' bit for bit.
@@ -16,9 +26,16 @@
 // interleaved rows without copies.  `inv` is the norm map: a 256-bit
 // Fermat chain over the base field on the norm x0^2 + x1^2, then two
 // products; on batch_inv's 512-lane root it is latency, so it launches one
-// warp a block.  `madd` is point.cuh's template over Fe2 (33 base
-// products a lane, twice ec.cu's registers), bound by operations; BN254 G2
-// has a = 0, which the wrapper requires.
+// warp a block.  The six point kernels are point.cuh's templates over Fe2,
+// with ec.cu's launch shapes: `affine_denom` (328 bytes a lane, no
+// product) is bound by bytes, `affine_add` (460 bytes, 10 base products)
+// near the line where products overtake bytes, `madd` (29 base products
+// on the addition path), `jadd` (43) and `jdbl` (17) by operations, and
+// `jdbl_n` (16 lanes of a doubling chain in the window combine) by
+// latency.  An Fq2 element is twice an Fq one in registers, so `jadd` and
+// `madd` run at the 255-register limit and spill; their doubling stays a
+// branch that only lanes with P == Q take.  BN254 G2 has a = 0, which the
+// wrapper requires.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -34,6 +51,8 @@
 using crescent::Curve;
 using crescent::Fe2;
 using crescent::FieldRow;
+using crescent::In;
+using crescent::Out;
 using crescent::grid_for;
 using crescent::kChainThreads;
 using crescent::kThreads;
@@ -64,9 +83,6 @@ __global__ void fq2_inv_kernel(Curve C, const uint4* x, uint4* out,
   Row2::store(out + 4 * i, crescent::fe_inv(Row2::load(x + 4 * i), C.one, C.M));
 }
 
-typedef const uint4* In;
-typedef uint4* Out;
-
 }  // namespace
 
 extern "C" int crescent_fq2_mul(const uint32_t* curve26, const void* x,
@@ -96,11 +112,48 @@ extern "C" int crescent_fq2_madd(const uint32_t* curve26, const void* x1,
                                  const void* qy, long long qxs, long long qys,
                                  const void* valid, const void* sign, void* ox,
                                  void* oy, void* oz, long long n, void* stream) {
-  if (n > 0) {
-    crescent::madd_kernel<Fe2><<<grid_for(n, kThreads), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)qx, (In)qy, qxs, qys,
-        (const int*)valid, (const int*)sign, (Out)ox, (Out)oy, (Out)oz, n);
-  }
-  return (int)cudaGetLastError();
+  return crescent::launch_madd<Fe2>(curve26, x1, y1, z1, qx, qy, qxs, qys,
+                                    valid, sign, ox, oy, oz, n, stream);
+}
+
+extern "C" int crescent_fq2_affine_denom(const uint32_t* curve26,
+                                         const void* lx, const void* ly,
+                                         const void* lv, const void* rx,
+                                         const void* ry, const void* rv,
+                                         void* out, long long n, void* stream) {
+  return crescent::launch_affine_denom<Fe2>(curve26, lx, ly, lv, rx, ry, rv,
+                                            out, n, stream);
+}
+
+extern "C" int crescent_fq2_affine_add(const uint32_t* curve26, const void* lx,
+                                       const void* ly, const void* lv,
+                                       const void* rx, const void* ry,
+                                       const void* rv, const void* inv,
+                                       void* ox, void* oy, void* ov,
+                                       long long n, void* stream) {
+  return crescent::launch_affine_add<Fe2>(curve26, lx, ly, lv, rx, ry, rv, inv,
+                                          ox, oy, ov, n, stream);
+}
+
+extern "C" int crescent_fq2_jadd(const uint32_t* curve26, const void* x1,
+                                 const void* y1, const void* z1, const void* x2,
+                                 const void* y2, const void* z2, void* ox,
+                                 void* oy, void* oz, long long n,
+                                 void* stream) {
+  return crescent::launch_jadd<Fe2>(curve26, x1, y1, z1, x2, y2, z2, ox, oy, oz,
+                                    n, stream);
+}
+
+extern "C" int crescent_fq2_jdbl_n(const uint32_t* curve26, const void* x,
+                                   const void* y, const void* z, void* ox,
+                                   void* oy, void* oz, long long n, int count,
+                                   void* stream) {
+  return crescent::launch_jdbl_n<Fe2>(curve26, x, y, z, ox, oy, oz, n, count,
+                                      stream);
+}
+
+extern "C" int crescent_fq2_jdbl(const uint32_t* curve26, const void* x,
+                                 const void* y, const void* z, void* ox,
+                                 void* oy, void* oz, long long n, void* stream) {
+  return crescent::launch_jdbl<Fe2>(curve26, x, y, z, ox, oy, oz, n, stream);
 }

@@ -2,10 +2,14 @@
 // shared by ec.cu (Fq) and ec2.cu (Fq2).
 //
 // The reference writes each formula once and runs it over `_F` or `_F2`
-// (crescent_tpu/ops/pallas_ec.py: `_double` :243, `_madd_body` :261); here
-// each is a template over F, built on field.cuh's overloads, so one body
-// compiles into the Fq and the Fq2 kernels.  Every result is canonical and
-// equals the reference's value, hence its bits.
+// (crescent_tpu/ops/pallas_ec.py: `_double` :243, `_madd_body` :261,
+// `_jadd_body` :300, `_affine_denom_body` :408, `_affine_add_body` :421);
+// here each is a template over F, built on field.cuh's overloads and
+// `FieldRow<F>` (row width, loads, stores, base constants), so one body
+// compiles into the Fq kernels of ec.cu and the Fq2 kernels of ec2.cu.
+// Every result is canonical and equals the reference's value, hence its
+// bits.  The kernels below are one thread per lane; their launch shapes
+// are the C entry points' (ec.cu, ec2.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -128,6 +132,138 @@ __global__ void madd_kernel(Curve C, const uint4* x1, const uint4* y1,
   pt_store<F>(ox, oy, oz, i, P);
 }
 
+// Denominator of the affine sum L + R (pallas_ec._affine_denom_body): 2*ly
+// if L == R; 1 if a side is invalid or L == -R; else rx - lx.
+template <class F>
+__global__ void affine_denom_kernel(Curve C, const uint4* lx, const uint4* ly,
+                                    const int* lv, const uint4* rx,
+                                    const uint4* ry, const int* rv, uint4* out,
+                                    long long n) {
+  const long long i = lane();
+  if (i >= n) return;
+  typedef FieldRow<F> Row;
+  constexpr int V = Row::kVec;
+  const Mod& M = C.M;
+  const F Lx = Row::load(lx + V * i), Ly = Row::load(ly + V * i);
+  const F Rx = Row::load(rx + V * i), Ry = Row::load(ry + V * i);
+  const bool both = lv[i] != 0 && rv[i] != 0;
+  const F dx = fe_sub(Rx, Lx, M);
+  const bool same_x = fe_is_zero(dx);
+  const bool same_y = fe_is_zero(fe_sub(Ry, Ly, M));
+  F d = fe_select(same_x && same_y, fe_dbl(Ly, M), dx);
+  d = fe_select(both && !(same_x && !same_y), d, Row::from_base(C.one));
+  Row::store(out + V * i, d);
+}
+
+// Affine L + R given inv = 1/denominator (pallas_ec._affine_add_body):
+// chord, tangent (3x^2 + a; a a base-field constant), infinity for L == -R,
+// passthrough of the one valid side.
+template <class F>
+__global__ void affine_add_kernel(Curve C, const uint4* lx, const uint4* ly,
+                                  const int* lv, const uint4* rx,
+                                  const uint4* ry, const int* rv,
+                                  const uint4* inv, uint4* ox, uint4* oy,
+                                  int* ov, long long n) {
+  const long long i = lane();
+  if (i >= n) return;
+  typedef FieldRow<F> Row;
+  constexpr int V = Row::kVec;
+  const Mod& M = C.M;
+  const F Lx = Row::load(lx + V * i), Ly = Row::load(ly + V * i);
+  const F Rx = Row::load(rx + V * i), Ry = Row::load(ry + V * i);
+  const bool l = lv[i] != 0, r = rv[i] != 0;
+  const bool both = l && r;
+  const bool same_x = fe_is_zero(fe_sub(Rx, Lx, M));
+  const bool same_y = fe_is_zero(fe_sub(Ry, Ly, M));
+  const bool dbl_case = same_x && same_y;
+  const bool inf_case = same_x && !same_y;
+
+  const F xx = fe_sqr(Lx, M);
+  F num_dbl = fe_add(fe_add(xx, xx, M), xx, M);
+  if (!C.a_is_zero) num_dbl = fe_add(num_dbl, Row::from_base(C.a), M);
+  const F num = fe_select(dbl_case, num_dbl, fe_sub(Ry, Ly, M));
+  const F lam = fe_mont_mul(num, Row::load(inv + V * i), M);
+  const F x3 = fe_sub(fe_sub(fe_sqr(lam, M), Lx, M), Rx, M);
+  const F y3 = fe_sub(fe_mont_mul(lam, fe_sub(Lx, x3, M), M), Ly, M);
+
+  Row::store(ox + V * i, fe_select(both, x3, fe_select(l, Lx, Rx)));
+  Row::store(oy + V * i, fe_select(both, y3, fe_select(l, Ly, Ry)));
+  ov[i] = ((l || r) && !(both && inf_case)) ? 1 : 0;
+}
+
+// Complete Jacobian addition (add-2007-bl; pallas_ec._jadd_body).
+template <class F>
+__global__ void jadd_kernel(Curve C, const uint4* x1, const uint4* y1,
+                            const uint4* z1, const uint4* x2, const uint4* y2,
+                            const uint4* z2, uint4* ox, uint4* oy, uint4* oz,
+                            long long n) {
+  const long long i = lane();
+  if (i >= n) return;
+  const Mod& M = C.M;
+  const PtT<F> P = pt_load<F>(x1, y1, z1, i);
+  const PtT<F> Q = pt_load<F>(x2, y2, z2, i);
+  const F Z1Z1 = fe_sqr(P.z, M);
+  const F Z2Z2 = fe_sqr(Q.z, M);
+  const F U1 = fe_mont_mul(P.x, Z2Z2, M);
+  const F U2 = fe_mont_mul(Q.x, Z1Z1, M);
+  const F S1 = fe_mont_mul(fe_mont_mul(P.y, Q.z, M), Z2Z2, M);
+  const F S2 = fe_mont_mul(fe_mont_mul(Q.y, P.z, M), Z1Z1, M);
+  const F H = fe_sub(U2, U1, M);
+  const F r = fe_sub(S2, S1, M);
+
+  const bool h_zero = fe_is_zero(H);
+  const bool r_zero = fe_is_zero(r);
+  const bool p_inf = fe_is_zero(P.z);
+  const bool q_inf = fe_is_zero(Q.z);
+  const bool finite = !p_inf && !q_inf;
+
+  PtT<F> R;
+  if (finite && h_zero && r_zero) {
+    // P == Q: the doubling.  The TPU kernel evaluates it in every lane and
+    // selects; here only the lanes that need it pay for it.
+    R = pt_double(C, P);
+  } else {
+    const F I = fe_sqr(fe_add(H, H, M), M);
+    const F J = fe_mont_mul(H, I, M);
+    const F rr = fe_add(r, r, M);
+    const F V = fe_mont_mul(U1, I, M);
+    R.x = fe_sub(fe_sub(fe_sqr(rr, M), J, M), fe_add(V, V, M), M);
+    const F SJ = fe_mont_mul(S1, J, M);
+    R.y = fe_sub(fe_mont_mul(rr, fe_sub(V, R.x, M), M), fe_add(SJ, SJ, M), M);
+    R.z = fe_mont_mul(
+        fe_sub(fe_sub(fe_sqr(fe_add(P.z, Q.z, M), M), Z1Z1, M), Z2Z2, M), H, M);
+  }
+  R.x = fe_select(p_inf, Q.x, fe_select(q_inf, P.x, R.x));
+  R.y = fe_select(p_inf, Q.y, fe_select(q_inf, P.y, R.y));
+  R.z = fe_select(p_inf, Q.z, fe_select(q_inf, P.z, R.z));
+  // P == -Q: the identity (Z == 0; x and y stay what the formula gave)
+  R.z = fe_select(finite && h_zero && !r_zero, FieldRow<F>::zero(), R.z);
+  pt_store<F>(ox, oy, oz, i, R);
+}
+
+// `count` chained doublings.
+template <class F>
+__global__ void jdbl_n_kernel(Curve C, const uint4* x, const uint4* y,
+                              const uint4* z, uint4* ox, uint4* oy, uint4* oz,
+                              long long n, int count) {
+  const long long i = lane();
+  if (i >= n) return;
+  PtT<F> P = pt_load<F>(x, y, z, i);
+#pragma unroll 1
+  for (int k = 0; k < count; ++k) P = pt_double(C, P);
+  pt_store<F>(ox, oy, oz, i, P);
+}
+
+// One doubling.
+template <class F>
+__global__ void jdbl_kernel(Curve C, const uint4* x, const uint4* y,
+                            const uint4* z, uint4* ox, uint4* oy, uint4* oz,
+                            long long n) {
+  const long long i = lane();
+  if (i >= n) return;
+  pt_store<F>(ox, oy, oz, i, pt_double(C, pt_load<F>(x, y, z, i)));
+}
+
 // curve26: host array of 26 u32: modulus words, -p^-1 mod 2^32, Montgomery
 // 1, Montgomery a, a_is_zero.
 inline Curve make_curve(const uint32_t* c) {
@@ -146,5 +282,92 @@ inline unsigned grid_for(long long n, int threads) {
 
 constexpr int kThreads = 128;      // wide kernels
 constexpr int kChainThreads = 32;  // latency-bound chains: one warp a block
+
+// Host-side launches of the point kernels over F, behind the C entry points
+// of ec.cu (Fe) and ec2.cu (Fe2): pointers to device memory, the caller's
+// stream; each returns cudaGetLastError().  Wide kernels run kThreads a
+// block; `jdbl_n`, a chain on few lanes, one warp a block.
+typedef const uint4* In;
+typedef uint4* Out;
+
+template <class F>
+int launch_affine_denom(const uint32_t* curve26, const void* lx,
+                        const void* ly, const void* lv, const void* rx,
+                        const void* ry, const void* rv, void* out, long long n,
+                        void* stream) {
+  if (n > 0) {
+    affine_denom_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        make_curve(curve26), (In)lx, (In)ly, (const int*)lv, (In)rx, (In)ry,
+        (const int*)rv, (Out)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int launch_affine_add(const uint32_t* curve26, const void* lx, const void* ly,
+                      const void* lv, const void* rx, const void* ry,
+                      const void* rv, const void* inv, void* ox, void* oy,
+                      void* ov, long long n, void* stream) {
+  if (n > 0) {
+    affine_add_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+        make_curve(curve26), (In)lx, (In)ly, (const int*)lv, (In)rx, (In)ry,
+        (const int*)rv, (In)inv, (Out)ox, (Out)oy, (int*)ov, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int launch_jadd(const uint32_t* curve26, const void* x1, const void* y1,
+                const void* z1, const void* x2, const void* y2, const void* z2,
+                void* ox, void* oy, void* oz, long long n, void* stream) {
+  if (n > 0) {
+    jadd_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+        make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)x2, (In)y2, (In)z2,
+        (Out)ox, (Out)oy, (Out)oz, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int launch_jdbl_n(const uint32_t* curve26, const void* x, const void* y,
+                  const void* z, void* ox, void* oy, void* oz, long long n,
+                  int count, void* stream) {
+  if (n > 0) {
+    jdbl_n_kernel<F><<<grid_for(n, kChainThreads), kChainThreads, 0,
+                       (cudaStream_t)stream>>>(
+        make_curve(curve26), (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n,
+        count);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int launch_jdbl(const uint32_t* curve26, const void* x, const void* y,
+                const void* z, void* ox, void* oy, void* oz, long long n,
+                void* stream) {
+  if (n > 0) {
+    jdbl_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+        make_curve(curve26), (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int launch_madd(const uint32_t* curve26, const void* x1, const void* y1,
+                const void* z1, const void* qx, const void* qy, long long qxs,
+                long long qys, const void* valid, const void* sign, void* ox,
+                void* oy, void* oz, long long n, void* stream) {
+  if (n > 0) {
+    madd_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+        make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)qx, (In)qy, qxs, qys,
+        (const int*)valid, (const int*)sign, (Out)ox, (Out)oy, (Out)oz, n);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace crescent

@@ -1,16 +1,25 @@
-"""Groth16 setup, prove and verify with h(x) and the G1 MSMs on a device.
+"""Groth16 setup, prove and verify with h(x) and the MSMs on a device.
 
 Counterpart of ``crescent_tpu/models/groth16.py``.  ``prove`` runs the QAP
 witness map h(x) on the device (``device="cuda"`` launches the kernels; a CPU
-device runs their plain PyTorch versions) and then, by the reference's switch
-``CRESCENT_PROVE_MSM``:
+device runs their plain PyTorch versions) and then, by the reference's
+switches ``CRESCENT_PROVE_MSM`` and ``CRESCENT_NATIVE``:
 
 * ``device``: the four G1 MSMs as one chunk fold of sorted-segment affine
   MSMs on the device (``ops/msm.py``), with h staying there, while the G2
   MSM runs on the native C++ host backend on a worker thread
-  (groth16.py:876-931);
+  (groth16.py:876-931); under ``CRESCENT_NATIVE=0`` the G2 MSM runs on the
+  device too, enqueued behind the fold (groth16.py:943-958);
 * ``native``: all five MSMs on the native host backend (groth16.py:868-875);
 * ``auto`` (the default): ``device`` on a CUDA device, ``native`` on the CPU.
+
+``CRESCENT_NATIVE=0`` (default 1) turns the native host backend off where
+the reference does in ``prove``: the MSMs take the device route on any
+device (the CPU runs the kernels' plain versions), whatever
+``CRESCENT_PROVE_MSM`` says.  One difference from the reference: the port
+has no pure-Python route for the witness matvec Az/Bz/Cz, verify's
+public-input MSM or setup's native branch, so those stay on the native
+backend even then.
 
 ``setup`` draws the same randomness in the same order as the reference
 (gamma == 1) and then, by the reference's switch ``CRESCENT_SETUP_TPU``,
@@ -50,7 +59,7 @@ from ..ops import limb, ntt
 from ..ops.cuda_ec import get_cuda_ec
 from ..ops.ec import JPoints, get_curve_ctx, get_g2_ctx, points_valid
 from ..ops.fixed_base import FixedBaseMSM
-from ..ops.msm import MSM, get_msm
+from ..ops.msm import MSM, get_g2_msm, get_msm
 
 G1 = curves.BN254_G1
 G2 = curves.BN254G2
@@ -79,16 +88,28 @@ def _setup_device_enabled(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def _native_ok() -> bool:
+    """Whether `prove` may use the native host backend for its MSMs, by
+    CRESCENT_NATIVE (default 1; the reference's switch, groth16.py:49).
+    The backend itself is required either way (see the module's
+    docstring)."""
+    return os.environ.get("CRESCENT_NATIVE", "1") == "1"
+
+
 def _device_msm_prove(device: torch.device) -> bool:
     """Whether `prove` runs the G1 MSMs on `device` (else on the native
-    host backend), by CRESCENT_PROVE_MSM = auto | device | native."""
+    host backend), by CRESCENT_PROVE_MSM = auto | device | native; with the
+    native backend off (CRESCENT_NATIVE=0), always (the reference's
+    `_native_msm_prove`, groth16.py:102-110)."""
     env = os.environ.get("CRESCENT_PROVE_MSM", "auto")
+    if env not in ("auto", "device", "native"):
+        raise ValueError(f"CRESCENT_PROVE_MSM={env!r}: expected auto, device or native")
+    if not _native_ok():
+        return True
     if env == "native":
         return False
     if env == "device":
         return True
-    if env != "auto":
-        raise ValueError(f"CRESCENT_PROVE_MSM={env!r}: expected auto, device or native")
     return device.type == "cuda"
 
 
@@ -543,15 +564,17 @@ def prove(
     timings: Optional[dict] = None,
 ) -> Proof:
     """Groth16 prove (forks/groth16/src/prover.rs): h(x) on `device`, the
-    four G1 MSMs there or on the native backend (CRESCENT_PROVE_MSM, see the
-    module's docstring), the G2 MSM on the native backend, the proof
-    assembled on the host.
+    four G1 MSMs there or on the native backend (CRESCENT_PROVE_MSM), the
+    G2 MSM on the native backend or, under CRESCENT_NATIVE=0, on `device`
+    (see the module's docstring), the proof assembled on the host.
 
     z: full assignment, a list of ints or an (nv, 4) u64 standard-form
     array.  device: where the device work runs; the default is the card,
     and without one the call raises.  timings: if given, filled with wall
     seconds per phase ("matvec", "h", "msm", "msm_g1", "msm_g2",
-    "assemble"; "msm" spans both MSM phases, which overlap on a device)."""
+    "assemble"; "msm" spans both MSM phases, which overlap on a device; with
+    G2 on the device, "msm_g2" is the host's time to enqueue it and read its
+    result, and its device time falls in the one wait, inside "msm_g1")."""
     _require_native()
     device = torch.device(device)
     r = rng.randrange(R) if r is None else r
@@ -566,25 +589,28 @@ def prove(
 
     if _device_msm_prove(device):
         msm_g1 = get_msm(G1)
+        g2_on_device = not _native_ok()
         with _phase(f"prove::MSMs G1 {device} ({r1cs.num_vars} vars)", timings, "msm"):
             g2_out: dict = {}
+            worker = None
+            if not g2_on_device:
+                def g2_worker():
+                    t0 = time.perf_counter()
+                    try:
+                        g2_out["bz2"] = nb.msm_g2_raw(zu, pk.native_g2_table())
+                    except BaseException as e:  # re-raised on the main thread
+                        g2_out["error"] = e
+                    g2_out["seconds"] = time.perf_counter() - t0
 
-            def g2_worker():
-                t0 = time.perf_counter()
-                try:
-                    g2_out["bz2"] = nb.msm_g2_raw(zu, pk.native_g2_table())
-                except BaseException as e:  # re-raised on the main thread
-                    g2_out["error"] = e
-                g2_out["seconds"] = time.perf_counter() - t0
-
-            # the G2 MSM runs on the host beside the fold: the ctypes call
-            # releases the GIL while this thread enqueues the launches
-            worker = threading.Thread(target=g2_worker, name="prove-msm-g2")
-            worker.start()
+                # the G2 MSM runs on the host beside the fold: the ctypes
+                # call releases the GIL while this thread enqueues the
+                # launches
+                worker = threading.Thread(target=g2_worker, name="prove-msm-g2")
+                worker.start()
             try:
                 t0 = time.perf_counter()
-                # one z plane, shared by a, b1 and (sliced) l; h stays on
-                # the device
+                # one z plane, shared by a, b1, (sliced) l and G2's b; h
+                # stays on the device
                 zsc = limb.u64_to_words(zu, device)
                 nh = dom.n - 1
                 ta, tb, th, tl = (
@@ -596,11 +622,27 @@ def prove(
                     (th[0][:nh], th[1][:nh], th[2][:nh], hw[:nh]),
                     (*tl, zsc[ni:]),
                 ])
+                if g2_on_device:
+                    # enqueued behind the fold before anything is read
+                    # back, so the one wait below covers both
+                    t1 = time.perf_counter()
+                    msm_g2 = get_g2_msm()
+                    nv = r1cs.num_vars
+                    tg2 = pk.device_table("b_g2_query", msm_g2, device)
+                    res2 = msm_g2.run_device(*(a[:nv] for a in tg2), zsc)
+                    g2_enqueue = time.perf_counter() - t1
                 az, bz1, hq, lw = msm_g1.ctx.points_to_host(
                     JPoints(*(torch.stack(c) for c in zip(*fold))))
                 g1_seconds = time.perf_counter() - t0
+                if g2_on_device:
+                    t1 = time.perf_counter()
+                    g2_out["bz2"] = msm_g2.ctx.points_to_host(
+                        JPoints(*(a[None] for a in res2)))[0]
+                    g2_out["seconds"] = g2_enqueue + time.perf_counter() - t1
+                    g1_seconds -= g2_enqueue
             finally:
-                worker.join()
+                if worker is not None:
+                    worker.join()
             if "error" in g2_out:
                 raise g2_out["error"]
             bz2 = g2_out["bz2"]

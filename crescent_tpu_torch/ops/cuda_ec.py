@@ -25,8 +25,10 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
   (``_madd_kernel``).
 
 ``CudaQuadEC`` is the counterpart of ``QuadPallasEC``: ``mul``, ``inv`` and
-``madd`` over Fq2 (``csrc/ec2.cu``; ``ops/quadratic.py`` for the layout), the
-three that setup's G2 fixed base runs.
+the six point ops over Fq2 (``csrc/ec2.cu``; ``ops/quadratic.py`` for the
+layout), for setup's G2 fixed base and the G2 MSM of ``prove``.  The point
+ops of both classes share their wrappers (``_Kernels``), their plain
+versions (the formula bodies below) and their CUDA bodies (``csrc/point.cuh``).
 
 Tensors are packed (N, 8) int32 word rows (``ops/limb.py``), (N, 16) over
 Fq2, canonical, Montgomery form where the op needs it; validity flags are
@@ -92,7 +94,8 @@ def _words32(x: int) -> list[int]:
 
 KERNELS = ("mul", "butterfly", "inv", "affine_denom", "affine_add", "jadd",
            "jdbl_n", "jdbl", "madd")
-QUAD_KERNELS = ("mul", "inv", "madd")
+QUAD_KERNELS = ("mul", "inv", "affine_denom", "affine_add", "jadd", "jdbl_n",
+                "jdbl", "madd")
 
 
 # -- formula bodies shared by the prime-field and Fq2 plain versions ---------
@@ -159,10 +162,95 @@ def madd_plain(f, a, X1, Y1, Z1, qx, qy, valid, sign):
     return sel(keep, X1, x), sel(keep, Y1, y), sel(keep, Z1, z)
 
 
+def jadd_plain(f, a, X1, Y1, Z1, X2, Y2, Z2):
+    """Complete Jacobian addition (``pallas_ec._jadd_body``): the doubling
+    when P == Q, the identity (Z = 0) when P == -Q, the other side when one
+    is the identity."""
+    Z1Z1 = f.mont_sqr(Z1)
+    Z2Z2 = f.mont_sqr(Z2)
+    U1 = f.mont_mul(X1, Z2Z2)
+    U2 = f.mont_mul(X2, Z1Z1)
+    S1 = f.mont_mul(f.mont_mul(Y1, Z2), Z2Z2)
+    S2 = f.mont_mul(f.mont_mul(Y2, Z1), Z1Z1)
+    H = f.sub_mod(U2, U1)
+    r = f.sub_mod(S2, S1)
+
+    h_zero = f.is_zero(H)
+    r_zero = f.is_zero(r)
+    p_inf = f.is_zero(Z1)
+    q_inf = f.is_zero(Z2)
+
+    I = f.mont_sqr(f.add_mod(H, H))
+    J = f.mont_mul(H, I)
+    rr = f.add_mod(r, r)
+    V = f.mont_mul(U1, I)
+    X3 = f.sub_mod(f.sub_mod(f.mont_sqr(rr), J), f.add_mod(V, V))
+    SJ = f.mont_mul(S1, J)
+    Y3 = f.sub_mod(f.mont_mul(rr, f.sub_mod(V, X3)), f.add_mod(SJ, SJ))
+    Z3 = f.mont_mul(
+        f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Z1, Z2)), Z1Z1), Z2Z2), H)
+
+    dX, dY, dZ = double_plain(f, a, X1, Y1, Z1)
+
+    same = h_zero & r_zero & ~p_inf & ~q_inf
+    negs = h_zero & ~r_zero & ~p_inf & ~q_inf
+
+    sel = f.select
+    x = sel(p_inf, X2, sel(q_inf, X1, sel(same, dX, X3)))
+    y = sel(p_inf, Y2, sel(q_inf, Y1, sel(same, dY, Y3)))
+    z = sel(p_inf, Z2, sel(q_inf, Z1, sel(same, dZ, Z3)))
+    z = sel(negs, torch.zeros_like(z), z)
+    return x, y, z
+
+
+def affine_denom_plain(f, lx, ly, lv, rx, ry, rv):
+    """``pallas_ec._affine_denom_body``: 2*ly when L == R, 1 when a side is
+    invalid or L == -R, else rx - lx."""
+    both = (lv != 0) & (rv != 0)
+    dx = f.sub_mod(rx, lx)
+    same_x = f.is_zero(dx)
+    same_y = f.is_zero(f.sub_mod(ry, ly))
+    d = f.select(same_x & same_y, f.add_mod(ly, ly), dx)
+    one = f.one_mont(lx.device).expand_as(lx)
+    return f.select(both & ~(same_x & ~same_y), d, one)
+
+
+def affine_add_plain(f, a, lx, ly, lv, rx, ry, rv, inv):
+    """``pallas_ec._affine_add_body``: (x3, y3, valid3) from the inverse
+    denominators: chord, tangent (3x^2 + a), infinity for L == -R, the one
+    valid side passed through."""
+    lv = lv != 0
+    rv = rv != 0
+    both = lv & rv
+    same_x = f.is_zero(f.sub_mod(rx, lx))
+    same_y = f.is_zero(f.sub_mod(ry, ly))
+    dbl_case = same_x & same_y
+    inf_case = same_x & ~same_y
+
+    xx = f.mont_sqr(lx)
+    num_dbl = f.add_mod(f.add_mod(xx, xx), xx)
+    if a is not None:
+        num_dbl = f.add_mod(num_dbl, a)
+    num = f.select(dbl_case, num_dbl, f.sub_mod(ry, ly))
+    lam = f.mont_mul(num, inv)
+    x3 = f.sub_mod(f.sub_mod(f.mont_sqr(lam), lx), rx)
+    y3 = f.sub_mod(f.mont_mul(lam, f.sub_mod(lx, x3)), ly)
+
+    x = f.select(both, x3, f.select(lv, lx, rx))
+    y = f.select(both, y3, f.select(lv, ly, ry))
+    v = (lv | rv) & ~(both & inf_case)
+    return x, y, v.to(torch.int32)
+
+
 class _Kernels:
-    """Launch counts and the device rule shared by the kernel sets."""
+    """Launch counts, the device rule, and the point ops shared by the
+    prime-field and Fq2 kernel sets: each subclass names its library
+    (`LIB`), its entry points' prefix (`PREFIX`), its row width (`WIDTH`),
+    and sets `ctx`, `_curve26` and `_a`."""
 
     KERNELS: tuple = ()
+    LIB = PREFIX = ""
+    WIDTH = NWORD
 
     def reset_launches(self) -> None:
         for k in self.KERNELS:
@@ -183,9 +271,14 @@ class _Kernels:
             raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
         setattr(self, f"{kernel}_launches", getattr(self, f"{kernel}_launches") + 1)
 
-    def _mul_args(self, x, y, out, width: int):
+    def _entry(self, kernel: str):
+        """The C entry point of `kernel` in this set's library."""
+        return getattr(_build.library(self.LIB), self.PREFIX + kernel)
+
+    def _mul_args(self, x, y, out):
         """Checks of a strided product: (n, x stride, y stride (0: y is one
         broadcast row), out stride, out), in 16-byte units."""
+        width = self.WIDTH
         n = x.shape[0]
         xs = _check_strided("x", x, x.device, width)
         ys = _check_strided("y", y, x.device, width)
@@ -199,25 +292,143 @@ class _Kernels:
             raise ValueError(f"out has {out.shape[0]} rows, x has {n}")
         return n, xs, ys, _check_strided("out", out, x.device, width), out
 
-    def _madd_launch(self, lib: str, fn: str, width: int, x1, y1, z1, qx, qy,
-                     valid, sign):
-        """Checks and launch of a madd kernel: x1, y1, z1 packed (N, width)
-        planes, qx, qy (N, width) rows at any 16-byte stride, flags (N,)
-        int32.  Returns new (x, y, z) planes."""
-        dev, n = x1.device, x1.shape[0]
-        for name, t in (("x1", x1), ("y1", y1), ("z1", z1)):
-            _check_rows(name, t, dev, width)
+    def _planes(self, names: str, tensors, flags=()) -> tuple[int, torch.device]:
+        """Check (N, WIDTH) coordinate planes and (N,) flag vectors of one
+        op."""
+        dev = tensors[0].device
+        n = tensors[0].shape[0]
+        for name, t in zip(names.split(), tensors):
+            _check_rows(name, t, dev, self.WIDTH)
             if t.shape[0] != n:
                 raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
+        for name, t in flags:
+            _check_flags(name, t, n, dev)
+        return n, dev
+
+    # -- plain versions -------------------------------------------------------
+    def mul_plain(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.ctx.mont_mul(x, y)
+
+    def inv_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ctx.inv_mod(x)
+
+    def jdbl_plain(self, X1, Y1, Z1):
+        """dbl-2007-bl, plus a*ZZ^2 when a != 0 (``pallas_ec._double``)."""
+        return double_plain(self.ctx, self._a(X1.device), X1, Y1, Z1)
+
+    def jdbl_n_plain(self, x, y, z, count: int):
+        for _ in range(count):
+            x, y, z = self.jdbl_plain(x, y, z)
+        return x, y, z
+
+    def jadd_plain(self, X1, Y1, Z1, X2, Y2, Z2):
+        return jadd_plain(self.ctx, self._a(X1.device), X1, Y1, Z1, X2, Y2, Z2)
+
+    def affine_denom_plain(self, lx, ly, lv, rx, ry, rv):
+        return affine_denom_plain(self.ctx, lx, ly, lv, rx, ry, rv)
+
+    def affine_add_plain(self, lx, ly, lv, rx, ry, rv, inv):
+        return affine_add_plain(self.ctx, self._a(lx.device), lx, ly, lv, rx, ry,
+                                rv, inv)
+
+    def madd_plain(self, x1, y1, z1, qx, qy, valid, sign):
+        return madd_plain(self.ctx, self._a(x1.device), x1, y1, z1, qx, qy,
+                          valid, sign)
+
+    # -- ops ------------------------------------------------------------------
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Inverse of every row (Montgomery form; the Fermat chain, over Fq2
+        the norm map); 0 -> 0."""
+        if self._device(x) == "cpu":
+            return self.inv_plain(x)
+        n, dev = self._planes("x", [x])
+        out = torch.empty_like(x)
+        self._launched("inv", self._entry("inv")(
+            self._curve26, x.data_ptr(), out.data_ptr(), n, _stream(dev)))
+        return out
+
+    def affine_denom(self, lx, ly, lv, rx, ry, rv) -> torch.Tensor:
+        """Pair denominators for a batched affine addition; invalid and
+        infinity pairs get 1, so a batch inversion stays defined."""
+        if self._device(lx) == "cpu":
+            return self.affine_denom_plain(lx, ly, lv, rx, ry, rv)
+        n, dev = self._planes("lx ly rx ry", [lx, ly, rx, ry],
+                              (("lv", lv), ("rv", rv)))
+        out = torch.empty_like(lx)
+        self._launched("affine_denom", self._entry("affine_denom")(
+            self._curve26, lx.data_ptr(), ly.data_ptr(), lv.data_ptr(),
+            rx.data_ptr(), ry.data_ptr(), rv.data_ptr(), out.data_ptr(), n,
+            _stream(dev)))
+        return out
+
+    def affine_add(self, lx, ly, lv, rx, ry, rv, inv):
+        """Affine pair addition with the inverse denominators given.
+        Returns (x3, y3, valid3), valid3 an (N,) int32 vector."""
+        if self._device(lx) == "cpu":
+            return self.affine_add_plain(lx, ly, lv, rx, ry, rv, inv)
+        n, dev = self._planes("lx ly rx ry inv", [lx, ly, rx, ry, inv],
+                              (("lv", lv), ("rv", rv)))
+        ox, oy = torch.empty_like(lx), torch.empty_like(lx)
+        ov = torch.empty(n, dtype=torch.int32, device=dev)
+        self._launched("affine_add", self._entry("affine_add")(
+            self._curve26, lx.data_ptr(), ly.data_ptr(), lv.data_ptr(),
+            rx.data_ptr(), ry.data_ptr(), rv.data_ptr(), inv.data_ptr(),
+            ox.data_ptr(), oy.data_ptr(), ov.data_ptr(), n, _stream(dev)))
+        return ox, oy, ov
+
+    def jadd(self, x1, y1, z1, x2, y2, z2):
+        """Complete Jacobian addition on (N, WIDTH) planes (identity:
+        Z == 0)."""
+        if self._device(x1) == "cpu":
+            return self.jadd_plain(x1, y1, z1, x2, y2, z2)
+        ins = [x1, y1, z1, x2, y2, z2]
+        n, dev = self._planes("x1 y1 z1 x2 y2 z2", ins)
+        outs = [torch.empty_like(x1) for _ in range(3)]
+        self._launched("jadd", self._entry("jadd")(
+            self._curve26, *(t.data_ptr() for t in ins + outs), n, _stream(dev)))
+        return tuple(outs)
+
+    def jdbl_n(self, x, y, z, count: int):
+        """`count` chained Jacobian doublings in one launch."""
+        if count < 0:
+            raise ValueError(f"count must be >= 0, got {count}")
+        if self._device(x) == "cpu":
+            return self.jdbl_n_plain(x, y, z, count)
+        ins = [x, y, z]
+        n, dev = self._planes("x y z", ins)
+        outs = [torch.empty_like(x) for _ in range(3)]
+        self._launched("jdbl_n", self._entry("jdbl_n")(
+            self._curve26, *(t.data_ptr() for t in ins + outs), n, int(count),
+            _stream(dev)))
+        return tuple(outs)
+
+    def jdbl(self, x, y, z):
+        """One Jacobian doubling."""
+        if self._device(x) == "cpu":
+            return self.jdbl_plain(x, y, z)
+        ins = [x, y, z]
+        n, dev = self._planes("x y z", ins)
+        outs = [torch.empty_like(x) for _ in range(3)]
+        self._launched("jdbl", self._entry("jdbl")(
+            self._curve26, *(t.data_ptr() for t in ins + outs), n, _stream(dev)))
+        return tuple(outs)
+
+    def madd(self, x1, y1, z1, qx, qy, valid, sign):
+        """P + (sign ? -Q : Q) where valid != 0, else P: P Jacobian
+        (N, WIDTH) planes, Q affine (N, WIDTH) rows (views at any 16-byte
+        row stride, such as the halves of one gathered (N, 2 * WIDTH) table
+        row), flags (N,) int32.  Returns new (x, y, z) planes."""
+        if self._device(x1) == "cpu":
+            return self.madd_plain(x1, y1, z1, qx, qy, valid, sign)
+        n, dev = self._planes("x1 y1 z1", [x1, y1, z1],
+                              (("valid", valid), ("sign", sign)))
         qs = []
         for name, t in (("qx", qx), ("qy", qy)):
-            qs.append(_check_strided(name, t, dev, width))
+            qs.append(_check_strided(name, t, dev, self.WIDTH))
             if t.shape[0] != n:
                 raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
-        _check_flags("valid", valid, n, dev)
-        _check_flags("sign", sign, n, dev)
         outs = [torch.empty_like(x1) for _ in range(3)]
-        self._launched("madd", getattr(_build.library(lib), fn)(
+        self._launched("madd", self._entry("madd")(
             self._curve26, x1.data_ptr(), y1.data_ptr(), z1.data_ptr(),
             qx.data_ptr(), qy.data_ptr(), qs[0], qs[1], valid.data_ptr(),
             sign.data_ptr(), *(t.data_ptr() for t in outs), n, _stream(dev)))
@@ -238,6 +449,7 @@ class CudaEC(_Kernels):
     coefficient `a` (0 where only the field ops are used)."""
 
     KERNELS = KERNELS
+    LIB, PREFIX = "ec", "crescent_"
 
     def __init__(self, modulus: int, a_host: int = 0):
         self.modulus = modulus
@@ -255,104 +467,9 @@ class CudaEC(_Kernels):
         return None if self.a_is_zero else self.ctx.const_words(self.a_mont, device)
 
     # -- plain versions -----------------------------------------------------
-    def mul_plain(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return self.ctx.mont_mul(x, y)
-
     def butterfly_plain(self, a, b, tw):
         t = self.ctx.mont_mul(b, tw)
         return self.ctx.add_mod(a, t), self.ctx.sub_mod(a, t)
-
-    def inv_plain(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ctx.inv_mod(x)
-
-    def jdbl_plain(self, X1, Y1, Z1):
-        """dbl-2007-bl, plus a*ZZ^2 when a != 0 (``pallas_ec._double``)."""
-        return double_plain(self.ctx, self._a(X1.device), X1, Y1, Z1)
-
-    def madd_plain(self, x1, y1, z1, qx, qy, valid, sign):
-        return madd_plain(self.ctx, self._a(x1.device), x1, y1, z1, qx, qy,
-                          valid, sign)
-
-    def jdbl_n_plain(self, x, y, z, count: int):
-        for _ in range(count):
-            x, y, z = self.jdbl_plain(x, y, z)
-        return x, y, z
-
-    def jadd_plain(self, X1, Y1, Z1, X2, Y2, Z2):
-        """Complete Jacobian addition (``pallas_ec._jadd_body``)."""
-        f = self.ctx
-        Z1Z1 = f.mont_sqr(Z1)
-        Z2Z2 = f.mont_sqr(Z2)
-        U1 = f.mont_mul(X1, Z2Z2)
-        U2 = f.mont_mul(X2, Z1Z1)
-        S1 = f.mont_mul(f.mont_mul(Y1, Z2), Z2Z2)
-        S2 = f.mont_mul(f.mont_mul(Y2, Z1), Z1Z1)
-        H = f.sub_mod(U2, U1)
-        r = f.sub_mod(S2, S1)
-
-        h_zero = f.is_zero(H)
-        r_zero = f.is_zero(r)
-        p_inf = f.is_zero(Z1)
-        q_inf = f.is_zero(Z2)
-
-        I = f.mont_sqr(f.add_mod(H, H))
-        J = f.mont_mul(H, I)
-        rr = f.add_mod(r, r)
-        V = f.mont_mul(U1, I)
-        X3 = f.sub_mod(f.sub_mod(f.mont_sqr(rr), J), f.add_mod(V, V))
-        SJ = f.mont_mul(S1, J)
-        Y3 = f.sub_mod(f.mont_mul(rr, f.sub_mod(V, X3)), f.add_mod(SJ, SJ))
-        Z3 = f.mont_mul(
-            f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Z1, Z2)), Z1Z1), Z2Z2), H)
-
-        dX, dY, dZ = self.jdbl_plain(X1, Y1, Z1)
-
-        same = h_zero & r_zero & ~p_inf & ~q_inf
-        negs = h_zero & ~r_zero & ~p_inf & ~q_inf
-
-        sel = f.select
-        x = sel(p_inf, X2, sel(q_inf, X1, sel(same, dX, X3)))
-        y = sel(p_inf, Y2, sel(q_inf, Y1, sel(same, dY, Y3)))
-        z = sel(p_inf, Z2, sel(q_inf, Z1, sel(same, dZ, Z3)))
-        z = sel(negs, torch.zeros_like(z), z)
-        return x, y, z
-
-    def affine_denom_plain(self, lx, ly, lv, rx, ry, rv):
-        """``pallas_ec._affine_denom_body``: 2*ly when L == R, 1 when a side
-        is invalid or L == -R, else rx - lx."""
-        f = self.ctx
-        both = (lv != 0) & (rv != 0)
-        dx = f.sub_mod(rx, lx)
-        same_x = f.is_zero(dx)
-        same_y = f.is_zero(f.sub_mod(ry, ly))
-        d = f.select(same_x & same_y, f.add_mod(ly, ly), dx)
-        one = f.one_mont(lx.device).expand_as(lx)
-        return f.select(both & ~(same_x & ~same_y), d, one)
-
-    def affine_add_plain(self, lx, ly, lv, rx, ry, rv, inv):
-        """``pallas_ec._affine_add_body``: (x3, y3, valid3)."""
-        f = self.ctx
-        lv = lv != 0
-        rv = rv != 0
-        both = lv & rv
-        same_x = f.is_zero(f.sub_mod(rx, lx))
-        same_y = f.is_zero(f.sub_mod(ry, ly))
-        dbl_case = same_x & same_y
-        inf_case = same_x & ~same_y
-
-        xx = f.mont_sqr(lx)
-        num_dbl = f.add_mod(f.add_mod(xx, xx), xx)
-        if not self.a_is_zero:
-            num_dbl = f.add_mod(num_dbl, f.const_words(self.a_mont, lx.device))
-        num = f.select(dbl_case, num_dbl, f.sub_mod(ry, ly))
-        lam = f.mont_mul(num, inv)
-        x3 = f.sub_mod(f.sub_mod(f.mont_sqr(lam), lx), rx)
-        y3 = f.sub_mod(f.mont_mul(lam, f.sub_mod(lx, x3)), ly)
-
-        x = f.select(both, x3, f.select(lv, lx, rx))
-        y = f.select(both, y3, f.select(lv, ly, ry))
-        v = (lv | rv) & ~(both & inf_case)
-        return x, y, v.to(torch.int32)
 
     # -- ops ----------------------------------------------------------------
     def mul(self, x: torch.Tensor, y: torch.Tensor, out=None) -> torch.Tensor:
@@ -362,7 +479,7 @@ class CudaEC(_Kernels):
         if self._device(x) == "cpu":
             r = self.mul_plain(x, y)
             return r if out is None else out.copy_(r)
-        n, xs, ys, os_, out = self._mul_args(x, y, out, NWORD)
+        n, xs, ys, os_, out = self._mul_args(x, y, out)
         self._launched("mul", _build.library("ntt").crescent_mul(
             self._mod9, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
             xs, ys, os_, _stream(x.device)))
@@ -405,112 +522,14 @@ class CudaEC(_Kernels):
         self._butterfly_launch(x, x[half:], tw, n // 2, half.bit_length() - 1)
         return x
 
-    # -- point ops -----------------------------------------------------------
-    def _planes(self, names: str, tensors, flags=()) -> tuple[int, torch.device]:
-        """Check (N, 8) coordinate planes and (N,) flag vectors of one op."""
-        dev = tensors[0].device
-        n = tensors[0].shape[0]
-        for name, t in zip(names.split(), tensors):
-            _check_rows(name, t, dev)
-            if t.shape[0] != n:
-                raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
-        for name, t in flags:
-            _check_flags(name, t, n, dev)
-        return n, dev
-
-    def inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Fermat inverse of every row (Montgomery form); 0 -> 0."""
-        if self._device(x) == "cpu":
-            return self.inv_plain(x)
-        n, dev = self._planes("x", [x])
-        out = torch.empty_like(x)
-        self._launched("inv", _build.library("ec").crescent_inv(
-            self._curve26, x.data_ptr(), out.data_ptr(), n, _stream(dev)))
-        return out
-
-    def affine_denom(self, lx, ly, lv, rx, ry, rv) -> torch.Tensor:
-        """Pair denominators for a batched affine addition; invalid and
-        infinity pairs get 1, so a batch inversion stays defined."""
-        if self._device(lx) == "cpu":
-            return self.affine_denom_plain(lx, ly, lv, rx, ry, rv)
-        n, dev = self._planes("lx ly rx ry", [lx, ly, rx, ry],
-                              (("lv", lv), ("rv", rv)))
-        out = torch.empty_like(lx)
-        self._launched("affine_denom", _build.library("ec").crescent_affine_denom(
-            self._curve26, lx.data_ptr(), ly.data_ptr(), lv.data_ptr(),
-            rx.data_ptr(), ry.data_ptr(), rv.data_ptr(), out.data_ptr(), n,
-            _stream(dev)))
-        return out
-
-    def affine_add(self, lx, ly, lv, rx, ry, rv, inv):
-        """Affine pair addition with the inverse denominators given.
-        Returns (x3, y3, valid3), valid3 an (N,) int32 vector."""
-        if self._device(lx) == "cpu":
-            return self.affine_add_plain(lx, ly, lv, rx, ry, rv, inv)
-        n, dev = self._planes("lx ly rx ry inv", [lx, ly, rx, ry, inv],
-                              (("lv", lv), ("rv", rv)))
-        ox, oy = torch.empty_like(lx), torch.empty_like(lx)
-        ov = torch.empty(n, dtype=torch.int32, device=dev)
-        self._launched("affine_add", _build.library("ec").crescent_affine_add(
-            self._curve26, lx.data_ptr(), ly.data_ptr(), lv.data_ptr(),
-            rx.data_ptr(), ry.data_ptr(), rv.data_ptr(), inv.data_ptr(),
-            ox.data_ptr(), oy.data_ptr(), ov.data_ptr(), n, _stream(dev)))
-        return ox, oy, ov
-
-    def jadd(self, x1, y1, z1, x2, y2, z2):
-        """Complete Jacobian addition on (N, 8) planes (identity: Z == 0)."""
-        if self._device(x1) == "cpu":
-            return self.jadd_plain(x1, y1, z1, x2, y2, z2)
-        ins = [x1, y1, z1, x2, y2, z2]
-        n, dev = self._planes("x1 y1 z1 x2 y2 z2", ins)
-        outs = [torch.empty_like(x1) for _ in range(3)]
-        self._launched("jadd", _build.library("ec").crescent_jadd(
-            self._curve26, *(t.data_ptr() for t in ins + outs), n, _stream(dev)))
-        return tuple(outs)
-
-    def jdbl_n(self, x, y, z, count: int):
-        """`count` chained Jacobian doublings in one launch."""
-        if count < 0:
-            raise ValueError(f"count must be >= 0, got {count}")
-        if self._device(x) == "cpu":
-            return self.jdbl_n_plain(x, y, z, count)
-        ins = [x, y, z]
-        n, dev = self._planes("x y z", ins)
-        outs = [torch.empty_like(x) for _ in range(3)]
-        self._launched("jdbl_n", _build.library("ec").crescent_jdbl_n(
-            self._curve26, *(t.data_ptr() for t in ins + outs), n, int(count),
-            _stream(dev)))
-        return tuple(outs)
-
-    def jdbl(self, x, y, z):
-        """One Jacobian doubling."""
-        if self._device(x) == "cpu":
-            return self.jdbl_plain(x, y, z)
-        ins = [x, y, z]
-        n, dev = self._planes("x y z", ins)
-        outs = [torch.empty_like(x) for _ in range(3)]
-        self._launched("jdbl", _build.library("ec").crescent_jdbl(
-            self._curve26, *(t.data_ptr() for t in ins + outs), n, _stream(dev)))
-        return tuple(outs)
-
-
-    def madd(self, x1, y1, z1, qx, qy, valid, sign):
-        """P + (sign ? -Q : Q) where valid != 0, else P: P Jacobian (N, 8)
-        planes, Q affine (N, 8) rows (views at any 16-byte row stride, such
-        as the halves of one gathered (N, 16) table row), flags (N,) int32.
-        Returns new (x, y, z) planes."""
-        if self._device(x1) == "cpu":
-            return self.madd_plain(x1, y1, z1, qx, qy, valid, sign)
-        return self._madd_launch("ec", "crescent_madd", NWORD, x1, y1, z1, qx,
-                                 qy, valid, sign)
-
 
 class CudaQuadEC(_Kernels):
-    """``mul``, ``inv`` and ``madd`` over Fq2 = Fq[u]/(u^2 + 1) on (N, 16)
-    int32 rows (``QuadPallasEC``); the curve's a is 0, as
+    """``mul``, ``inv`` and the point ops over Fq2 = Fq[u]/(u^2 + 1) on
+    (N, 16) int32 rows (``QuadPallasEC``); the curve's a is 0, as
     ``QuadPallasEC.__init__`` requires."""
 
     KERNELS = QUAD_KERNELS
+    LIB, PREFIX, WIDTH = "ec2", "crescent_fq2_", QWORD
     a_is_zero = True
 
     def __init__(self, modulus: int):
@@ -519,46 +538,21 @@ class CudaQuadEC(_Kernels):
         self._curve26 = _curve26(modulus, self.ctx.base.r_mod_n, 0)
         self.reset_launches()
 
-    # -- plain versions -----------------------------------------------------
-    def mul_plain(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return self.ctx.mont_mul(x, y)
+    @staticmethod
+    def _a(device):
+        return None
 
-    def inv_plain(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ctx.inv_mod(x)
-
-    def madd_plain(self, x1, y1, z1, qx, qy, valid, sign):
-        return madd_plain(self.ctx, None, x1, y1, z1, qx, qy, valid, sign)
-
-    # -- ops ----------------------------------------------------------------
     def mul(self, x: torch.Tensor, y: torch.Tensor, out=None) -> torch.Tensor:
         """x (N, 16) times y (N, 16), or y (1, 16) broadcast; strided row
         views and `out` as for ``CudaEC.mul``."""
         if self._device(x) == "cpu":
             r = self.mul_plain(x, y)
             return r if out is None else out.copy_(r)
-        n, xs, ys, os_, out = self._mul_args(x, y, out, QWORD)
-        self._launched("mul", _build.library("ec2").crescent_fq2_mul(
+        n, xs, ys, os_, out = self._mul_args(x, y, out)
+        self._launched("mul", self._entry("mul")(
             self._curve26, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
             xs, ys, os_, _stream(x.device)))
         return out
-
-    def inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Norm-map inverse of every row (Montgomery form); 0 -> 0."""
-        if self._device(x) == "cpu":
-            return self.inv_plain(x)
-        _check_rows("x", x, x.device, QWORD)
-        out = torch.empty_like(x)
-        self._launched("inv", _build.library("ec2").crescent_fq2_inv(
-            self._curve26, x.data_ptr(), out.data_ptr(), x.shape[0],
-            _stream(x.device)))
-        return out
-
-    def madd(self, x1, y1, z1, qx, qy, valid, sign):
-        """``CudaEC.madd`` over Fq2."""
-        if self._device(x1) == "cpu":
-            return self.madd_plain(x1, y1, z1, qx, qy, valid, sign)
-        return self._madd_launch("ec2", "crescent_fq2_madd", QWORD, x1, y1, z1,
-                                 qx, qy, valid, sign)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,16 +1,17 @@
 """Multi-scalar multiplication on one device.
 
-Counterpart of ``crescent_tpu/ops/msm.py`` for the path Groth16 ``prove``
-takes: prime-field MSMs through the sorted-segment batched-affine
-accumulator (``ops/msm_affine.py``), one problem at a time (``run_device``)
-or several QAP-scale problems as one fold over fixed-shape chunks
+Counterpart of ``crescent_tpu/ops/msm.py`` for the paths Groth16 ``prove``
+takes: MSMs over G1 (``get_msm``) or over G2, whose field is Fq2
+(``get_g2_msm``), through the sorted-segment batched-affine accumulator
+(``ops/msm_affine.py``), one problem at a time (``run_device``) or several
+QAP-scale problems as one fold over fixed-shape chunks
 (``run_device_fold``).
 
 Not here yet: the direct path for small N (``run_device`` raises below
 ``small_cutoff``), ``run_device_many`` and the scan-based Pippenger.
 
 Scalars on the device are (N, 8) int32 word planes in standard form, the
-bytes of the reference's (N, 16) 16-bit limbs.
+bytes of the reference's (N, 16) 16-bit limbs, whatever the curve's field.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import os
 import torch
 
 from ..core.curves import Curve
-from .ec import CurveCtx, JPoints, get_curve_ctx, points_valid
+from . import limb
+from .ec import CurveCtx, JPoints, get_curve_ctx, get_g2_ctx, points_valid
 from .msm_affine import AffineMSM, pad_rows
 
 I64 = torch.int64
@@ -68,7 +70,8 @@ def scalar_digits_signed(scalars: torch.Tensor, c: int):
 
 
 class MSM:
-    """MSM executor for one prime-field curve context.
+    """MSM executor for one curve context, over a prime field (G1) or Fq2
+    (G2): the context's kernel set and row width carry the difference.
 
     Problems above `small_cutoff` points go to the sorted-segment
     batched-affine accumulator with window width `affine_c`; problems above
@@ -96,11 +99,16 @@ class MSM:
 
     # -- device API ---------------------------------------------------------
     def run_device(self, px, py, pvalid, scalars) -> JPoints:
-        """px, py: (N, 8) Montgomery affine; pvalid: (N,) int32 0/1;
-        scalars: (N, 8) standard-form words.  Returns one Jacobian point.
-        N is padded to a power of two with invalid lanes."""
+        """px, py: (N, W) Montgomery affine (W = the field's words); pvalid:
+        (N,) int32 0/1; scalars: (N, 8) standard-form Fr words.  Returns one
+        Jacobian point.  N is padded with invalid lanes to a power of two,
+        or above `max_chunk` to whole chunks (the reference pads to a power
+        of two there too, to share compiled programs; chunks of padding
+        alone add nothing to the sum)."""
         n = px.shape[0]
         npad = 1 << (n - 1).bit_length() if n > 1 else 1
+        if npad > self.max_chunk:
+            npad = -(-n // self.max_chunk) * self.max_chunk
         if npad <= self.small_cutoff:
             raise NotImplementedError(
                 f"MSM of {n} points: the direct path for N <= "
@@ -152,7 +160,10 @@ class MSM:
         """Host scalars and affine points -> the host affine result."""
         P = self.ctx.points_to_device(points, device)
         valid = torch.from_numpy(points_valid(points)).to(device)
-        sc = self.ctx.fctx.words([s % self.ctx.n for s in scalars], device)
+        # Fr words whatever the curve's field (the reference's
+        # limb.ints_to_limbs, msm.py:539)
+        sc = limb.limbs_to_words(limb.ints_to_limbs([s % self.ctx.n for s in scalars]),
+                                 device)
         res = self.run_device(P.x, P.y, valid, sc)
         return self.ctx.points_to_host(JPoints(*(a[None] for a in res)))[0]
 
@@ -160,3 +171,10 @@ class MSM:
 @functools.lru_cache(maxsize=None)
 def get_msm(curve: Curve) -> MSM:
     return MSM(curve)
+
+
+@functools.lru_cache(maxsize=None)
+def get_g2_msm() -> MSM:
+    """The G2 MSM over Fq2 (reference msm.py:551-555, whose `c` and `lanes`
+    belong to the scan Pippenger, not ported yet)."""
+    return MSM(get_g2_ctx())

@@ -26,8 +26,10 @@ one program, PyTorch enqueues it launch by launch; the property kept is that
 nothing between the inputs and the result waits for the device: no
 ``.item()``, no ``nonzero``, no boolean-mask indexing.
 
-Layout: coordinates are packed (N, 8) word planes, so a lane range is a row
-range and slicing lanes copies nothing.  Keys, payloads and positions are
+Layout: coordinates are packed (N, W) word planes, W = 8 over a prime
+field and 16 over Fq2 (the context's ``fctx.nword``; the reference's
+``rows`` planes of 16 or 32 limbs), so a lane range is a row range and
+slicing lanes copies nothing.  Keys, payloads and positions are
 int64 (they index tensors); they stay far below 2^31.
 """
 
@@ -37,9 +39,7 @@ import os
 
 import torch
 
-from .cuda_ec import CudaEC
 from .ec import CurveCtx, JPoints
-from .limb import NWORD
 
 I64 = torch.int64
 
@@ -102,12 +102,14 @@ def _head_positions(rank: torch.Tensor, mn: int) -> torch.Tensor:
 
 
 class AffineMSM:
-    """Segmented-affine MSM executor for one prime-field curve context."""
+    """Segmented-affine MSM executor for one curve context: `pec` is its
+    kernel set (``CudaEC``, or ``CudaQuadEC`` over Fq2)."""
 
-    def __init__(self, ctx: CurveCtx, pec: CudaEC, c: int = 11,
+    def __init__(self, ctx: CurveCtx, pec, c: int = 11,
                  min_bucket: int = 512, inv_floor: int = 512):
         self.ctx = ctx
         self.pec = pec
+        self.nword = ctx.fctx.nword  # int32 words per coordinate
         self.c = c
         self.min_bucket = min_bucket
         self.inv_floor = inv_floor
@@ -143,7 +145,7 @@ class AffineMSM:
 
     def _round(self, pk, ex, ey, mn: int):
         """One 4-ary reduction round on survivor arrays (rounds >= 2).
-        pk: (m,) packed keys (key << 1 | valid); ex, ey: (m, 8)."""
+        pk: (m,) packed keys (key << 1 | valid); ex, ey: (m, nword)."""
         m = pk.shape[0]
         seg = pk >> 1
         rank = _rank_in_segment(seg)
@@ -166,7 +168,7 @@ class AffineMSM:
 
     def _round1(self, spk, spay, tx, ty, mn: int, n: int):
         """First reduction round: coordinates come straight from the point
-        table through the sorted payload.  tx, ty: (2n, 8), row j the point
+        table through the sorted payload.  tx, ty: (2n, nword), row j the point
         (x, y) and row n + j its negative (x, -y).
 
         The rank in the segment mod 4 decides quad membership (position
@@ -199,15 +201,15 @@ class AffineMSM:
 
     # -- bucket aggregation -----------------------------------------------------
     def _scatter_dense(self, pk, ex, ey):
-        """Survivors -> dense Jacobian bucket tables, three (W*B, 8) planes.
-        A survivor that is not valid writes to one spare row, which is cut
-        off."""
+        """Survivors -> dense Jacobian bucket tables, three (W*B, nword)
+        planes.  A survivor that is not valid writes to one spare row, which
+        is cut off."""
         WB = self.W * self.B
         dev = pk.device
         ev = pk & 1
         idx = torch.where(ev != 0, pk >> 1, torch.full_like(pk, WB))
-        dx = torch.zeros((WB + 1, NWORD), dtype=torch.int32, device=dev)
-        dy = torch.zeros((WB + 1, NWORD), dtype=torch.int32, device=dev)
+        dx = torch.zeros((WB + 1, self.nword), dtype=torch.int32, device=dev)
+        dy = torch.zeros((WB + 1, self.nword), dtype=torch.int32, device=dev)
         dv = torch.zeros(WB + 1, dtype=I64, device=dev)
         dx[idx] = ex
         dy[idx] = ey
@@ -219,7 +221,7 @@ class AffineMSM:
 
     def _aggregate(self, pk, ex, ey):
         """Dense (W, B) table -> suffix sums -> bucket weighting -> window
-        combine.  Returns one Jacobian point as three (8,) rows."""
+        combine.  Returns one Jacobian point as three (nword,) rows."""
         if os.environ.get("CRESCENT_MSM_FUSED_AGG", "0") == "1":
             raise NotImplementedError(
                 "CRESCENT_MSM_FUSED_AGG=1 needs the bucket_reduce kernel, "
@@ -230,9 +232,10 @@ class AffineMSM:
         W, B, c = self.W, self.B, self.c
         pec = self.pec
         WB = W * B
+        nw = self.nword
 
         def x3(a):
-            return a.reshape(W, -1, NWORD)
+            return a.reshape(W, -1, nw)
 
         # per-window suffix sums: running_b = sum_{b' >= b} S_b' (shift-add)
         run = (dx, dy, dz)
@@ -240,8 +243,8 @@ class AffineMSM:
         while j < B:
             def shift(a, j=j):
                 a = x3(a)
-                pad = torch.zeros((W, j, NWORD), dtype=a.dtype, device=a.device)
-                return torch.cat([a[:, j:], pad], dim=1).reshape(WB, NWORD)
+                pad = torch.zeros((W, j, nw), dtype=a.dtype, device=a.device)
+                return torch.cat([a[:, j:], pad], dim=1).reshape(WB, nw)
 
             run = pec.jadd(*run, *(shift(a) for a in run))
             j *= 2
@@ -251,8 +254,8 @@ class AffineMSM:
         n = B - 1
         while n > 1:
             h = n // 2
-            lo = [a[:, :h].reshape(W * h, NWORD).contiguous() for a in acc]
-            hi = [a[:, h:].reshape(W * h, NWORD).contiguous() for a in acc]
+            lo = [a[:, :h].reshape(W * h, nw).contiguous() for a in acc]
+            hi = [a[:, h:].reshape(W * h, nw).contiguous() for a in acc]
             acc = [x3(a) for a in pec.jadd(*lo, *hi)]
             n = h
 
@@ -260,8 +263,8 @@ class AffineMSM:
         # pairs (2t, 2t+1) with the odd half doubled c*2^j times (padded
         # with the identity up to a power of two)
         Wp = 1 << (W - 1).bit_length()
-        pad = torch.zeros((Wp - W, NWORD), dtype=torch.int32, device=dx.device)
-        acc = [torch.cat([a.reshape(W, NWORD), pad]) for a in acc]
+        pad = torch.zeros((Wp - W, nw), dtype=torch.int32, device=dx.device)
+        acc = [torch.cat([a.reshape(W, nw), pad]) for a in acc]
         shift_bits = c
         while Wp > 1:
             odd = pec.jdbl_n(*(a[1::2].contiguous() for a in acc), count=shift_bits)
@@ -318,9 +321,10 @@ class AffineMSM:
         return spk, ex, ey
 
     def run(self, px, py, pvalid, scalars) -> JPoints:
-        """px, py: (N, 8) Montgomery affine coordinates; pvalid: (N,) 0/1;
-        scalars: (N, 8) standard-form words.  Returns one Jacobian point
-        with (8,) coordinates.  Nothing here waits for the device."""
+        """px, py: (N, nword) Montgomery affine coordinates; pvalid: (N,)
+        0/1; scalars: (N, 8) standard-form Fr words.  Returns one Jacobian
+        point with (nword,) coordinates.  Nothing here waits for the
+        device."""
         nq = quantize(px.shape[0], self.min_bucket)
         px, py, pvalid, scalars = (pad_rows(a, nq) for a in (px, py, pvalid, scalars))
         return JPoints(*self._aggregate(*self._survivors(px, py, pvalid, scalars, nq)))

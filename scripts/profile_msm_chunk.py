@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where one chunk MSM of the port spends its time on the card.
 
-    python3 scripts/profile_msm_chunk.py [log2_points] [c]
+    python3 scripts/profile_msm_chunk.py [log2_points] [c] [g1|g2]
 
 Builds the CUDA kernels, makes 2^log2_points (default 17) seeded BN254 G1
-points and scalars, checks one ``AffineMSM.run`` (window width c, default
-11) against the native host MSM, and then prints, for one warm run:
+points (or G2 points, over Fq2) and scalars, checks one ``AffineMSM.run``
+(window width c, default 11) against the native host MSM, and then prints,
+for one warm run:
 
 * a split by stage from CUDA events around the stages (recode and sort,
   each round's compaction and gathers, the pair levels, ``batch_inv``, the
@@ -20,6 +21,7 @@ Needs a CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import os
 import random
 import subprocess
@@ -38,33 +40,48 @@ def main() -> None:
         sys.exit("profile_msm_chunk: needs a CUDA card")
     from crescent_tpu_torch.core import curves
     from crescent_tpu_torch.native import backend as nb
-    from crescent_tpu_torch.ops import _build
-    from crescent_tpu_torch.ops.ec import JPoints, get_curve_ctx, points_valid
+    from crescent_tpu_torch.ops import _build, limb
+    from crescent_tpu_torch.ops.ec import JPoints, get_curve_ctx, get_g2_ctx, points_valid
     from crescent_tpu_torch.ops.msm_affine import AffineMSM
 
     logn = int(sys.argv[1]) if len(sys.argv) > 1 else 17
     c = int(sys.argv[2]) if len(sys.argv) > 2 else 11
+    group = sys.argv[3] if len(sys.argv) > 3 else "g1"
+    if group not in ("g1", "g2"):
+        sys.exit(f"profile_msm_chunk: group {group!r}: expected g1 or g2")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), flush=True)
     _build.build_all()
 
-    G1 = curves.BN254_G1
-    ctx = get_curve_ctx(G1)
+    if group == "g1":
+        ctx = get_curve_ctx(curves.BN254_G1)
+        make = functools.partial(nb.fixed_base, "bn254_g1", curves.BN254_G1.generator)
+        native = functools.partial(nb.msm, "bn254_g1")
+    else:
+        ctx = get_g2_ctx()
+        make = functools.partial(nb.fixed_base_g2, curves.BN254G2.generator())
+        native = nb.msm_g2
     rng = random.Random(17)
     n = 1 << logn
-    pts = nb.fixed_base("bn254_g1", G1.generator,
-                        [rng.randrange(1, G1.n) for _ in range(n)])
-    ks = [rng.randrange(G1.n) for _ in range(n)]
+    pts = make([rng.randrange(1, ctx.n) for _ in range(n)])
+    ks = [rng.randrange(ctx.n) for _ in range(n)]
     P = ctx.points_to_device(pts, "cuda")
     valid = torch.from_numpy(points_valid(pts)).cuda()
-    sc = ctx.fctx.words(ks, "cuda")
+    sc = limb.limbs_to_words(limb.ints_to_limbs(ks), "cuda")
     am = AffineMSM(ctx, ctx.ec, c=c)
     res = am.run(P.x, P.y, valid, sc)
     got = ctx.points_to_host(JPoints(*(a[None] for a in res)))[0]
-    assert got == nb.msm("bn254_g1", ks, pts), "chunk MSM differs from the native MSM"
-    print(f"chunk MSM 2^{logn} points, c={c}: W={am.W} B={am.B}, rounds "
-          f"{am._round_schedule(n)}; equals the native MSM", flush=True)
+    assert got == native(ks, pts), "chunk MSM differs from the native MSM"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    am.run(P.x, P.y, valid, sc)
+    torch.cuda.synchronize()
+    print(f"{group} chunk MSM 2^{logn} points, c={c}: W={am.W} B={am.B}, rounds "
+          f"{am._round_schedule(n)}; equals the native MSM; peak device memory "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.0f} MiB above its inputs",
+          flush=True)
 
     # -- whole chunk: device time and host time to enqueue ------------------
     for _ in range(2):

@@ -61,12 +61,13 @@ def test_cuda_kernels_match_plain(cuda, name):
     assert (ec.mul_launches, ec.butterfly_launches) == (launches[0] + 2, launches[1] + 4)
 
 
-def _planted_points(ec, n: int, seed: int, device):
+def _planted_points(ec, n: int, seed: int, device, elems=None):
     """Jacobian batches P, Q with lanes 0..5: P == Q, P == Q through another
-    representative, P == -Q, P at infinity, Q at infinity, both."""
+    representative, P == -Q, P at infinity, Q at infinity, both.
+    `elems(seed)` gives the seeded rows (default: n - 16 Fq rows)."""
     p = ec.modulus
-    x1, y1, z1, x2, y2, z2 = (_elems(p, n, seed + 2 * k, device)[16:].contiguous()
-                              for k in range(6))
+    elems = elems or (lambda s: _elems(p, n, s, device)[16:].contiguous())
+    x1, y1, z1, x2, y2, z2 = (elems(seed + 2 * k) for k in range(6))
     f = ec.ctx
     x2[0], y2[0], z2[0] = x1[0], y1[0], z1[0]
     lam = x2[1:2].clone()
@@ -82,11 +83,13 @@ def _planted_points(ec, n: int, seed: int, device):
     return x1, y1, z1, x2, y2, z2
 
 
-def _planted_pairs(ec, n: int, seed: int, device):
+def _planted_pairs(ec, n: int, seed: int, device, elems=None):
     """Affine pairs with lanes 0..4: L == R, L == -R, left only, right only,
-    neither; seeded validity elsewhere."""
+    neither; seeded validity elsewhere.  `elems` as for
+    ``_planted_points``."""
     p = ec.modulus
-    lx, ly, rx, ry = (_elems(p, n, seed + 2 * k, device)[16:].contiguous() for k in range(4))
+    elems = elems or (lambda s: _elems(p, n, s, device)[16:].contiguous())
+    lx, ly, rx, ry = (elems(seed + 2 * k) for k in range(4))
     rng = np.random.default_rng(seed)
     lv = torch.from_numpy(rng.integers(0, 2, size=lx.shape[0]).astype(np.int32)).to(device)
     rv = torch.from_numpy(rng.integers(0, 2, size=lx.shape[0]).astype(np.int32)).to(device)
@@ -220,6 +223,78 @@ def test_cuda_fq2_kernels_match_plain(cuda):
     assert after["madd"] == before["madd"] + 1 and after["inv"] == before["inv"] + 2
     with pytest.raises(ValueError):
         ec.mul(x[:, :8].contiguous(), y[:, :8].contiguous())  # not (N, 16) rows
+
+
+def _elems2(n: int, seed: int, device) -> torch.Tensor:
+    """(n, 16) seeded Fq2 rows (c0, then c1)."""
+    p = fields.BN254_FQ
+    return torch.cat([_elems(p, n + 16, seed, device), _elems(p, n + 16, seed + 1, device)],
+                     dim=1)[16:].contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_fq2_point_kernels_match_plain(cuda):
+    """affine_denom, affine_add, jadd, jdbl_n and jdbl over Fq2 (the G2
+    MSM's) against their plain versions at 3,100 lanes, the cases
+    planted."""
+    ec = get_cuda_quad_ec(fields.BN254_FQ)
+    n = 3100
+    before = ec.launches()
+    pair = _planted_pairs(ec, n, 51, cuda, lambda s: _elems2(n, s, cuda))
+    d = ec.affine_denom(*pair)
+    assert _equal(d, ec.affine_denom_plain(*pair))
+    inv = ec.inv(d)
+    got = ec.affine_add(*pair, inv)
+    assert _equal(got, ec.affine_add_plain(*pair, inv))
+    assert got[2][:5].tolist() == [1, 0, 1, 1, 0]
+    pq = _planted_points(ec, n, 61, cuda, lambda s: _elems2(n, s, cuda))
+    got = ec.jadd(*pq)
+    assert _equal(got, ec.jadd_plain(*pq))
+    assert not got[2][2].any() and not got[2][5].any() and got[2][0].any()
+    assert _equal(ec.jdbl(*pq[:3]), ec.jdbl_plain(*pq[:3]))
+    p16 = tuple(t[:16].contiguous() for t in pq[:3])
+    for count in (0, 1, 11):
+        assert _equal(ec.jdbl_n(*p16, count), ec.jdbl_n_plain(*p16, count))
+    after = ec.launches()
+    grew = {k: after[k] - before[k] for k in after}
+    assert (grew["affine_denom"], grew["affine_add"], grew["jadd"], grew["jdbl"],
+            grew["jdbl_n"]) == (1, 1, 1, 1, 3)
+    with pytest.raises(ValueError):
+        ec.jadd(*(t[:, :8].contiguous() for t in pq))  # not (N, 16) rows
+
+
+@pytest.mark.cuda
+def test_cuda_g2_chunk_matches_native(cuda):
+    """One AffineMSM chunk of 4,096 G2 points at the prove path's window
+    width (c = 11) on the card, the cases planted, against the native G2
+    MSM; and get_g2_msm's run_device of 3 * 2^12 points as three chunks
+    added by the Fq2 jadd."""
+    import random
+
+    from crescent_tpu_torch.core.curves import BN254G2
+    from crescent_tpu_torch.native import backend as nb
+    from crescent_tpu_torch.ops.ec import JPoints, get_g2_ctx, points_valid
+    from crescent_tpu_torch.ops.msm import MSM
+    from crescent_tpu_torch.ops.msm_affine import AffineMSM
+
+    ctx = get_g2_ctx()
+    rng = random.Random(7)
+    n = 3 << 12
+    pts = nb.fixed_base_g2(BN254G2.generator(), [rng.randrange(1, ctx.n) for _ in range(n)])
+    ks = [rng.randrange(ctx.n) for _ in range(n)]
+    pts[5] = None
+    ks[6], ks[7] = 0, ctx.n - 1
+    pts[9], ks[9] = pts[8], ks[8]
+    pts[11], ks[11] = BN254G2.neg(pts[10]), ks[10]
+    P = ctx.points_to_device(pts, cuda)
+    valid = torch.from_numpy(points_valid(pts)).to(cuda)
+    sc = limb.limbs_to_words(limb.ints_to_limbs(ks), cuda)
+    ck = 1 << 12
+    res = AffineMSM(ctx, ctx.ec).run(P.x[:ck], P.y[:ck], valid[:ck], sc[:ck])
+    assert ctx.points_to_host(JPoints(*(a[None] for a in res)))[0] == nb.msm_g2(ks[:ck], pts[:ck])
+    m = MSM(ctx, max_chunk=ck)
+    res = m.run_device(P.x, P.y, valid, sc)
+    assert ctx.points_to_host(JPoints(*(a[None] for a in res)))[0] == nb.msm_g2(ks, pts)
 
 
 @pytest.mark.cuda

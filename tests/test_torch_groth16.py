@@ -5,7 +5,9 @@ The reference runs as its own tests run it here: `prove` in its CPU
 configuration (XLA h(x), native MSMs), `_compute_h_device` through the
 Pallas kernels in interpret mode.  The port's `prove` runs in both of its
 MSM configurations (CRESCENT_PROVE_MSM=native and =device, the latter through
-the plain versions of the MSM kernels at a small window width).  Exact
+the plain versions of the MSM kernels at a small window width), and with
+the native backend off (CRESCENT_NATIVE=0), where the G2 MSM joins the G1
+fold on the device.  Exact
 comparisons (tolerance 0); proofs are compared as tuples of ints, since the
 two packages define their own field classes.
 """
@@ -23,6 +25,9 @@ import torch
 from crescent_tpu.models import groth16 as ref
 from crescent_tpu_torch.convert import proving_key_from_reference
 from crescent_tpu_torch.models import groth16 as port
+from crescent_tpu_torch.native import backend as nb
+from crescent_tpu_torch.ops import ec as port_ec
+from crescent_tpu_torch.ops import limb
 from crescent_tpu_torch.ops import msm as port_msm
 from crescent_tpu_torch.ops import msm_affine as port_affine
 
@@ -48,6 +53,15 @@ def bundle():
     zu = ref.nb.ints_to_u64([x % ref.R for x in z])
     h_ref = np.asarray(jax.device_get(ref._compute_h_device(r1cs, zu, dom)))
     return r1cs, z, pk, zu, h_ref
+
+
+def _small_msm(curve, chunk: int):
+    """An MSM with a window width of 5, floors of 16 lanes and chunks of
+    `chunk` points (the prove path's 11 and 512 take minutes through the
+    plain versions); the proof does not depend on them."""
+    m = port_msm.MSM(curve, affine_c=5, small_cutoff=8, max_chunk=chunk)
+    m._affine = port_affine.AffineMSM(m.ctx, m.ctx.ec, c=5, min_bucket=16, inv_floor=16)
+    return m
 
 
 def _proof_ints(proof) -> tuple:
@@ -113,13 +127,7 @@ def test_prove_device_msm_matches_reference_and_native(bundle, monkeypatch):
     pr1cs, _ = port.dummy_circuit(LOG, random.Random(11))
     ppk = proving_key_from_reference(pk)
 
-    def small_msm(curve):
-        m = port_msm.MSM(curve, affine_c=5, max_chunk=64)
-        m._affine = port_affine.AffineMSM(m.ctx, m.ctx.ec, c=5, min_bucket=16,
-                                          inv_floor=16)
-        return m
-
-    monkeypatch.setattr(port, "get_msm", small_msm)
+    monkeypatch.setattr(port, "get_msm", lambda curve: _small_msm(curve, 64))
     proofs = {}
     for mode in ("device", "native"):
         monkeypatch.setenv("CRESCENT_PROVE_MSM", mode)
@@ -133,6 +141,86 @@ def test_prove_device_msm_matches_reference_and_native(bundle, monkeypatch):
     monkeypatch.setenv("CRESCENT_PROVE_MSM", "host")
     with pytest.raises(ValueError):
         port.prove(ppk, pr1cs, zu, random.Random(0), device="cpu")
+
+
+class _NativeChunk:
+    """AffineMSM.run of a G1 chunk answered by the native host MSM."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def run(self, px, py, pvalid, sc):
+        ctx = self.ctx
+        z = torch.where(pvalid[:, None] != 0, ctx.fctx.one_mont("cpu"),
+                        torch.zeros((), dtype=torch.int32))
+        pts = ctx.points_to_host(port_ec.JPoints(px, py, z))
+        ks = limb.limbs_to_ints(limb.words_to_limbs(sc))
+        res = nb.msm("bn254_g1", ks, pts)
+        return port_ec.JPoints(*(a[0] for a in ctx.points_to_device([res], "cpu")))
+
+
+def test_prove_with_native_off_matches_reference(bundle, monkeypatch):
+    """CRESCENT_NATIVE=0 on the CPU: the MSMs take the device route (the
+    reference's `_native_msm_prove`), the G2 MSM too, behind the G1 fold:
+    its 65 points as one chunk through the plain Fq2 point ops; no native G2
+    table is built.  The G1 fold's chunks are answered by the native MSM
+    here (their plain versions run in the test above), so that the time
+    goes to G2.  The proof equals the reference's and verifies."""
+    r1cs, z, pk, zu, _ = bundle
+    r, s = 0x13579BD, 0xDB97531
+    want = _proof_ints(ref.prove(pk, r1cs, z, random.Random(0), r=r, s=s))
+    pr1cs, _ = port.dummy_circuit(LOG, random.Random(11))
+    ppk = proving_key_from_reference(pk)
+    g1 = port_msm.MSM(port.G1, max_chunk=64)
+    g1._affine = _NativeChunk(g1.ctx)
+    monkeypatch.setattr(port, "get_msm", lambda curve: g1)
+    g2 = _small_msm(port_ec.get_g2_ctx(), 128)
+    monkeypatch.setattr(port, "get_g2_msm", lambda: g2)
+    monkeypatch.setenv("CRESCENT_NATIVE", "0")
+    monkeypatch.setenv("CRESCENT_PROVE_MSM", "native")  # overridden: the backend is off
+    timings = {}
+    got = port.prove(ppk, pr1cs, zu, random.Random(0), r=r, s=s, device="cpu",
+                     timings=timings)
+    assert _proof_ints(got) == want
+    assert timings["msm_g1"] > 0 and timings["msm_g2"] > 0
+    assert set(ppk._dev) == {("a_query", "cpu"), ("b_g1_query", "cpu"), ("h_query", "cpu"),
+                             ("l_query", "cpu"), ("b_g2_query", "cpu")}
+    assert port.verify(ppk.vk.prepare(), got, z[1 : r1cs.num_instance])
+
+
+def test_native_switch(monkeypatch):
+    """CRESCENT_NATIVE (default 1) as the reference reads it: with it off,
+    prove's MSMs take the device route on any device."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    monkeypatch.delenv("CRESCENT_PROVE_MSM", raising=False)
+    monkeypatch.delenv("CRESCENT_NATIVE", raising=False)
+    assert port._native_ok()
+    monkeypatch.setenv("CRESCENT_NATIVE", "0")
+    assert not port._native_ok()
+    for mode in ("auto", "device", "native"):
+        monkeypatch.setenv("CRESCENT_PROVE_MSM", mode)
+        assert port._device_msm_prove(cpu) and port._device_msm_prove(cuda)
+    monkeypatch.setenv("CRESCENT_PROVE_MSM", "host")
+    with pytest.raises(ValueError):
+        port._device_msm_prove(cpu)
+
+
+def test_device_table_of_g2_matches_reference(bundle):
+    """ProvingKey.device_table of b_g2_query over Fq2: (N, 16) word rows,
+    carried from the reference's (N, 2, 16) limbs by
+    convert.device_table_from_reference."""
+    from crescent_tpu.ops.msm import get_g2_msm as ref_get_g2_msm
+    from crescent_tpu_torch.convert import device_table_from_reference
+
+    _, _, pk, _, _ = bundle
+    ppk = proving_key_from_reference(pk)
+    want = device_table_from_reference(pk.device_table("b_g2_query", ref_get_g2_msm()))
+    got = ppk.device_table("b_g2_query", port_msm.get_g2_msm(), "cpu")
+    assert got[0].shape == want[0].shape == (len(pk.b_g2_query), 16)
+    keep = want[2].bool()  # an identity's x, y are free
+    assert torch.equal(got[2], want[2]) and keep.any() and not keep.all()
+    assert torch.equal(got[0][keep], want[0][keep])
+    assert torch.equal(got[1][keep], want[1][keep])
 
 
 def test_device_table_matches_reference(bundle):

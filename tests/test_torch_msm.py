@@ -8,7 +8,8 @@ planes are (16, N) limb-major u32, the port's (N, 8) int32 word rows.
 
 The reference's functions (``batch_inv``, ``_round1``, ``_round``,
 ``_scatter_dense``, ``_aggregate_dense``) run as they are, over the XLA
-adapter's ops.  XLA compiles every op anew for every lane count, and a round
+adapter's ops: ``XlaPEC`` for G1, ``QuadXlaPEC`` (32-row planes, Fq2) for
+G2, whose (N, 16) word rows hold the same bytes.  XLA compiles every op anew for every lane count, and a round
 has a dozen of them, so the adapter is wrapped (``_PaddedPEC``): each op pads
 its planes to one fixed lane count with zeros, runs (``mul``, ``inv``,
 ``affine_denom`` and ``affine_add`` each jitted by itself; ``jadd`` and
@@ -16,7 +17,8 @@ its planes to one fixed lane count with zeros, runs (``mul``, ``inv``,
 back.  The ops are lane-wise, so the values are the adapter's own.  Its
 ``jdbl_n`` (a compiled loop for every count) is its ``jdbl`` applied count
 times, which has the same body.  ``_aggregate_dense`` is held on a table of
-three windows.
+three windows.  G2's MSM is also held against the native host G2 MSM,
+through ``run_device`` (one chunk and two) and the repaired ``run_host``.
 """
 
 
@@ -30,13 +32,13 @@ from crescent_tpu.core.curves import BN254_G1 as REF_G1
 from crescent_tpu.ops import ec as ref_ec
 from crescent_tpu.ops import msm as ref_msm
 from crescent_tpu.ops import msm_affine as ref_affine
-from crescent_tpu.ops.xla_pec import XlaPEC
-from crescent_tpu_torch.core.curves import BN254_G1
+from crescent_tpu.ops.xla_pec import QuadXlaPEC, XlaPEC
+from crescent_tpu_torch.core.curves import BN254_G1, BN254G2
 from crescent_tpu_torch.native import backend as nb
 from crescent_tpu_torch.ops import limb
 from crescent_tpu_torch.ops import msm as port_msm
 from crescent_tpu_torch.ops import msm_affine as port_affine
-from crescent_tpu_torch.ops.ec import JPoints, get_curve_ctx, points_valid
+from crescent_tpu_torch.ops.ec import JPoints, get_curve_ctx, get_g2_ctx, points_valid
 from crescent_tpu_torch.utils.pointvec import ArrayPointVec
 
 P = BN254_G1.p
@@ -74,17 +76,37 @@ def _problem(seed: int, n: int):
     return pts, ks
 
 
+def _g2_problem(seed: int, n: int):
+    """`_problem` on G2: n seeded affine G2 points and Fr scalars with the
+    same cases planted."""
+    pts = nb.fixed_base_g2(BN254G2.generator(), [k or 1 for k in _ints(seed, n, BN254G2.n)])
+    ks = _ints(seed + 1, n, BN254G2.n)
+    pts[1] = None
+    ks[2] = 0
+    ks[3] = BN254G2.n - 1
+    pts[5], ks[5] = pts[4], ks[4]
+    pts[7], ks[7] = BN254G2.neg(pts[6]), ks[6]
+    return pts, ks
+
+
+def _limbs(t: torch.Tensor) -> np.ndarray:
+    """(N, 8) or (N, 16) words -> (N, 16) or (N, 32) limbs (an Fq2 row:
+    c0's limbs, then c1's)."""
+    return limb.words_to_limbs(t.reshape(-1, 8)).reshape(t.shape[0], -1)
+
+
 def _to_ref(t: torch.Tensor):
-    """(N, 8) words -> (16, N) u32 plane; (N,) ints -> (N,) u32."""
+    """(N, 8) words -> (16, N) u32 plane, (N, 16) -> (32, N); (N,) ints ->
+    (N,) u32."""
     if t.dim() == 2:
-        return jnp.asarray(limb.words_to_limbs(t).T.copy())
+        return jnp.asarray(_limbs(t).T.copy())
     return jnp.asarray(t.numpy().astype(np.uint32))
 
 
 def _same(got: torch.Tensor, want) -> None:
     want = np.asarray(jax.device_get(want))
     if got.dim() == 2:
-        np.testing.assert_array_equal(limb.words_to_limbs(got), want.T)
+        np.testing.assert_array_equal(_limbs(got), want.T)
     else:
         np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
 
@@ -92,13 +114,17 @@ def _same(got: torch.Tensor, want) -> None:
 class _PaddedPEC(XlaPEC):
     """The XLA adapter with every op run at one fixed lane count."""
 
+    BASE = XlaPEC
+
     def __init__(self, lanes: int, inv_lanes: int, jit: bool):
-        super().__init__(P, 0)
+        self._init_base()
         self.lanes, self.inv_lanes = lanes, inv_lanes
         wrap = jax.jit if jit else (lambda f: f)
-        base = XlaPEC
-        self._ops = {name: wrap(getattr(base, name).__get__(self))
+        self._ops = {name: wrap(getattr(self.BASE, name).__get__(self))
                      for name in ("mul", "inv", "affine_denom", "affine_add", "jadd", "jdbl")}
+
+    def _init_base(self):
+        XlaPEC.__init__(self, P, 0)
 
     def _call(self, name: str, args, lanes=None):
         lanes = lanes or self.lanes
@@ -134,6 +160,42 @@ class _PaddedPEC(XlaPEC):
         return x1, y1, z1
 
 
+class _PaddedQuadPEC(_PaddedPEC, QuadXlaPEC):
+    """The same over Fq2: QuadXlaPEC's field, inverse and 32-row planes."""
+
+    BASE = QuadXlaPEC
+
+    def _init_base(self):
+        QuadXlaPEC.__init__(self, P)
+
+
+class _PortQuadPEC:
+    """The port's plain Fq2 ``jadd`` and ``jdbl_n`` behind the adapter's
+    interface on 32-row planes, for the reference's ``_aggregate_dense``
+    over G2.  The adapter's own Fq2 ops there, op by op, take over a minute
+    on a CPU; these equal them bit for bit on the case zoo
+    (tests/test_torch_quadratic.py), so what the comparison holds is the
+    pipeline around them: table layout, shifts, the weight tree and the
+    window combine at 32 rows."""
+
+    ROWS = 32
+
+    def __init__(self):
+        self.ec = get_g2_ctx().ec
+
+    @staticmethod
+    def _words(a) -> torch.Tensor:
+        a = np.asarray(jax.device_get(a))
+        return limb.limbs_to_words(a.T.reshape(-1, 16)).reshape(a.shape[1], 16)
+
+    def jadd(self, *a):
+        return tuple(_to_ref(o) for o in self.ec.jadd(*map(self._words, a)))
+
+    def jdbl_n(self, x1, y1, z1, count: int):
+        return tuple(_to_ref(o) for o in self.ec.jdbl_n(*map(self._words, (x1, y1, z1)),
+                                                          count))
+
+
 N1 = 32          # points of the round tests: 32 * 53 = 1696 sorted entries
 
 
@@ -150,16 +212,25 @@ def pair():
 
 
 @pytest.fixture(scope="module")
-def sorted_entries(pair):
-    """A 32-point problem up to the sort, in the port's tensors:
-    (spk, spay, tx, ty, n)."""
-    port, _ = pair
-    n = N1
-    pts, ks = _problem(21, n)
+def pair_g2():
+    """`pair` on G2: the port's AffineMSM over CudaQuadEC and the
+    reference's over QuadXlaPEC (rows = 32)."""
+    ctx = get_g2_ctx()
+    port = port_affine.AffineMSM(ctx, ctx.ec, c=C, min_bucket=FLOOR, inv_floor=FLOOR)
+    lanes = 2 * port._round_schedule(N1)[0]
+    ref = ref_affine.AffineMSM(ref_ec.get_g2_ctx(), _PaddedQuadPEC(lanes, FLOOR, jit=True),
+                               c=C, min_bucket=FLOOR, inv_floor=FLOOR)
+    return port, ref
+
+
+def _sorted(port, pts, ks):
+    """A problem up to the sort, in the port's tensors: (spk, spay, tx, ty,
+    n)."""
+    n = len(pts)
     ctx = port.ctx
     Pd = ctx.points_to_device(pts, "cpu")
     valid = torch.from_numpy(points_valid(pts))
-    digits, signs = port_msm.scalar_digits_signed(ctx.fctx.words(ks), C)
+    digits, signs = port_msm.scalar_digits_signed(limb.limbs_to_words(limb.ints_to_limbs(ks)), C)
     ok = (digits != 0) & (valid[:, None] != 0)
     keys = torch.where(ok, torch.arange(port.W)[None, :] * port.B + digits,
                        torch.full_like(digits, port.sentinel))
@@ -169,6 +240,18 @@ def sorted_entries(pair):
     tx = torch.cat([Pd.x, Pd.x])
     ty = torch.cat([Pd.y, ctx.fctx.neg_mod(Pd.y)])
     return spk, pay[order], tx, ty, n
+
+
+@pytest.fixture(scope="module")
+def sorted_entries(pair):
+    """A 32-point problem up to the sort."""
+    return _sorted(pair[0], *_problem(21, N1))
+
+
+@pytest.fixture(scope="module")
+def sorted_entries_g2(pair_g2):
+    """A 32-point G2 problem up to the sort."""
+    return _sorted(pair_g2[0], *_g2_problem(22, N1))
 
 
 @pytest.mark.parametrize("c", [5, 8, 11, 16])
@@ -209,7 +292,7 @@ def test_batch_inv_matches_reference(pair):
     assert ctx.fctx.from_mont_host(limb.words_to_limbs(got)) == [pow(v, -1, P) for v in vals]
 
 
-def test_round1_and_round_match_reference(pair, sorted_entries):
+def _check_rounds(pair, sorted_entries):
     port, ref = pair
     spk, spay, tx, ty, n = sorted_entries
     m1, m2 = port._round_schedule(n)[:2]
@@ -223,16 +306,23 @@ def test_round1_and_round_match_reference(pair, sorted_entries):
     assert int((pk2 & 1).sum()) < int((pk1 & 1).sum()) < int((spk & 1).sum())
 
 
-def test_aggregate_dense_matches_reference():
+def test_round1_and_round_match_reference(pair, sorted_entries):
+    _check_rounds(pair, sorted_entries)
+
+
+def test_g2_round1_and_round_match_reference(pair_g2, sorted_entries_g2):
+    """The first two rounds on G2: (N, 16) Fq2 rows against the reference's
+    32-row planes."""
+    _check_rounds(pair_g2, sorted_entries_g2)
+
+
+def _check_aggregate(ctx, ref_ctx, ref_pec, curve, pts):
     """Scatter and aggregate of a three-window table (c = 3, five buckets a
     window), seeded survivors in some buckets and none in others."""
-    ctx = get_curve_ctx(BN254_G1)
     port = port_affine.AffineMSM(ctx, ctx.ec, c=3)
-    ref = ref_affine.AffineMSM(ref_ec.get_curve_ctx(REF_G1),
-                               _PaddedPEC(15, 15, jit=False), c=3)
+    ref = ref_affine.AffineMSM(ref_ctx, ref_pec, c=3)
     port.W = ref.W = 3
     port.sentinel = ref.sentinel = 3 * port.B
-    pts = nb.fixed_base("bn254_g1", BN254_G1.generator, [3, 5, 7, 11, 13, 17, 19, 23])
     Pd = ctx.points_to_device(pts, "cpu")
     # survivors: key << 1 | valid; two lanes hold nothing
     keys = [1, 2, 4, 6, 8, 9, 13, 15]
@@ -244,13 +334,26 @@ def test_aggregate_dense_matches_reference():
     got = port._aggregate_dense(*dense)
     want = ref._aggregate_dense(*rdense)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(limb.words_to_limbs(g[None])[0], np.asarray(w))
+        np.testing.assert_array_equal(_limbs(g[None])[0], np.asarray(w).reshape(-1))
     # sum over windows w and buckets b of b * 2^(3w) * S[w, b]
     host = None
     for k, p in zip(keys[:6], pts):
         w, b = divmod(k, port.B)
-        host = BN254_G1.add(host, BN254_G1.mul(b << (3 * w), p))
+        host = curve.add(host, curve.mul(b << (3 * w), p))
     assert ctx.points_to_host(JPoints(*(a[None] for a in got)))[0] == host
+
+
+def test_aggregate_dense_matches_reference():
+    _check_aggregate(get_curve_ctx(BN254_G1), ref_ec.get_curve_ctx(REF_G1),
+                     _PaddedPEC(15, 15, jit=False), BN254_G1,
+                     nb.fixed_base("bn254_g1", BN254_G1.generator, [3, 5, 7, 11, 13, 17, 19, 23]))
+
+
+def test_g2_aggregate_dense_matches_reference():
+    """The reference's scatter and aggregate at 32 rows, over the port's
+    Fq2 point ops (``_PortQuadPEC``)."""
+    _check_aggregate(get_g2_ctx(), ref_ec.get_g2_ctx(), _PortQuadPEC(), BN254G2,
+                     nb.fixed_base_g2(BN254G2.generator(), [3, 5, 7, 11, 13, 17, 19, 23]))
 
 
 def test_fused_aggregate_is_not_ported(pair, monkeypatch):
@@ -273,13 +376,27 @@ def test_affine_msm_run_matches_native(pair):
     assert ec.launches() == dict.fromkeys(ec.launches(), 0)  # CPU: no kernel
 
 
-def test_run_device_adds_up_its_chunks():
-    """run_device above max_chunk: the problem is padded to a power of two,
-    cut into chunks, and the chunks' Jacobian results are added up by a tree
-    of jadd (four chunks, and three, where one is carried over a level).
-    The chunk MSM here is a stand-in that answers from the native host MSM,
-    so that what is tested is the cutting and the adding."""
-    ctx = get_curve_ctx(BN254_G1)
+def test_g2_run_host_matches_native(pair_g2):
+    """G2's MSM at the small parameters, against the native host G2 MSM:
+    run_host -> run_device -> one AffineMSM.run of 32 points.  run_host
+    makes Fr words of the scalars whatever the curve's field.  (Two chunks
+    added by the Fq2 jadd: the G2 MSM of tests/test_torch_groth16.py's
+    prove under CRESCENT_NATIVE=0.)"""
+    port, _ = pair_g2
+    pts, ks = _g2_problem(91, 32)
+    m = port_msm.MSM(get_g2_ctx(), affine_c=C, small_cutoff=8, max_chunk=32)
+    m._affine = port                     # the small floors, for the CPU
+    assert m.run_host(ks, pts, device="cpu") == nb.msm_g2(ks, pts)
+    ec = m.ctx.ec
+    assert ec.launches() == dict.fromkeys(ec.launches(), 0)  # CPU: no kernel
+
+
+def _check_chunks_add_up(ctx, problem, native):
+    """run_device above max_chunk: the problem is padded to whole chunks,
+    cut into them, and the chunks' Jacobian results are added up by a tree
+    of jadd (four chunks, three, where one is carried over a level, and
+    two).  The chunk MSM here is a stand-in that answers from the native
+    host MSM, so that what is tested is the cutting and the adding."""
 
     class HostChunk:
         """AffineMSM.run answered by the native host MSM."""
@@ -291,17 +408,27 @@ def test_run_device_adds_up_its_chunks():
             z = torch.where(pvalid[:, None] != 0, ctx.fctx.one_mont("cpu"),
                             torch.zeros((), dtype=torch.int32))
             pts = ctx.points_to_host(JPoints(px, py, z))
-            ks = ctx.fctx.from_mont_host(limb.words_to_limbs(ctx.fctx.to_mont(sc)))
-            res = nb.msm("bn254_g1", ks, pts)
+            ks = limb.limbs_to_ints(limb.words_to_limbs(sc))
+            res = native(ks, pts)
             return JPoints(*(a[0] for a in ctx.points_to_device([res], "cpu")))
 
-    for n, chunk, want_calls in ((12, 4, 4), (9, 4, 4), (12, 6, 3)):
-        pts, ks = _problem(81 + n, n)
-        m = port_msm.MSM(BN254_G1, small_cutoff=2, max_chunk=chunk)
+    for n, chunk, want_calls in ((16, 4, 4), (9, 4, 3), (12, 6, 2)):
+        pts, ks = problem(81 + n, n)
+        m = port_msm.MSM(ctx, small_cutoff=2, max_chunk=chunk)
         m._affine = HostChunk()
         HostChunk.calls = 0
-        assert m.run_host(ks, pts, device="cpu") == nb.msm("bn254_g1", ks, pts)
+        assert m.run_host(ks, pts, device="cpu") == native(ks, pts)
         assert HostChunk.calls == want_calls
+
+
+def test_run_device_adds_up_its_chunks():
+    _check_chunks_add_up(get_curve_ctx(BN254_G1), _problem,
+                         lambda ks, pts: nb.msm("bn254_g1", ks, pts))
+
+
+def test_g2_run_device_adds_up_its_chunks():
+    """The same on G2: the chunks' results added by the Fq2 jadd."""
+    _check_chunks_add_up(get_g2_ctx(), _g2_problem, nb.msm_g2)
 
 
 def test_run_device_fold_of_three_chunks_matches_native(pair, monkeypatch):
