@@ -7,16 +7,19 @@
 2. Builds the port's CUDA kernels from crescent_tpu_torch/csrc with nvcc
    (one nvcc per source, started together, into build/kernels/) and prints
    the build time and each kernel's registers and spills.
-3. Kernel phase: holds each of the seventeen kernels against its plain
+3. Kernel phase: holds each of the twenty kernels against its plain
    PyTorch version on the card at its path's shapes, with the edge cases planted
    (field: 0, 1, p-1, Montgomery 1, and u over Fq2; points: L == R,
    L == -R, one side only, neither; P + P, P + (-P), the identity on either
-   side and on both; for madd also valid == 0 and sign == 1), and once over
-   a curve with a != 0.  Tolerance: none, the results must be bit-identical
+   side and on both; for madd also valid == 0 and sign == 1; for
+   bucket_reduce, at the fused aggregate's 25 windows of 1025 buckets, empty
+   buckets, P == Q and P == -Q in neighbouring buckets), and once over a
+   curve with a != 0.  Tolerance: none, the results must be bit-identical
    (exact integer arithmetic).  Prints the kernel's and the plain version's
    times (CUDA events) and the least time the card could take (`bound_ms`:
    bytes over 3.35 TB/s against 32-bit multiply-adds over 16.75e12/s,
-   whichever is larger, counted for this run's data).
+   whichever is larger, counted for this run's data), and nvcc's register
+   count.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -24,7 +27,10 @@
    G2: one 2^17-point chunk over Fq2 (points made on the card by the G2
    fixed base, the cases planted) under the same check, and
    get_g2_msm().run_device of 2^21 points (16 chunks and the Fq2 jadd
-   tree), both against the native host G2 MSM.
+   tree), both against the native host G2 MSM.  Small N: get_msm(G1) and
+   get_g2_msm() run_device of 1000 seeded points each (padded to 1024, the
+   direct path: scalar_mul by jdbl and jadd, then a jadd tree) against the
+   native MSMs.
 5. Fixed-base phase: one FixedBaseMSM run per group (G1, and G2 over Fq2)
    of 2^17 scalars (two chunks of 2^16) on the card; 4,096 sampled rows,
    0, 1, n-1 and (n+1)/2 among them, equal the native fixed base.
@@ -43,7 +49,13 @@
    blinding under CRESCENT_PROVE_MSM=native must give the same proof, and
    so must a warm prove under CRESCENT_NATIVE=0 (the G2 MSM on the card
    too, behind the fold), whose launch counts are read the same way and
-   which must run every Fq2 kernel but `jdbl` and `madd`.
+   which must run every Fq2 kernel but `jdbl`, `madd`, `bucket_reduce` and
+   `butterfly`; and a warm prove under CRESCENT_MSM_FUSED_AGG=1 and
+   CRESCENT_NATIVE=0 together, whose chunks aggregate by one
+   `bucket_reduce` launch each over Fq (66) and Fq2 (17) in place of 21
+   `jadd` launches, which must give the same proof; `verify` under
+   CRESCENT_NATIVE=0 then takes the public-input MSM on the card (the
+   direct path: `jdbl`'s caller).
 8. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
@@ -71,6 +83,42 @@ HBM_BYTES_PER_S = 3.35e12
 # float32 ones: half of the data sheet's 67 TFLOP/s (33.5e12 FMA/s)
 IMAD_PER_S = 16.75e12
 MONT_MUL_MADS = 136  # 8 x (8 + 8 + 1) in fe_mont_mul
+
+
+def _registers(reports: dict) -> dict:
+    """nvcc's -Xptxas -v report per library -> {(library, mangled entry):
+    (registers, spill store bytes)}."""
+    import re
+
+    out = {}
+    for lib, rep in reports.items():
+        entry = None
+        spill = 0
+        for ln in rep.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                entry, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m and entry:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and entry:
+                out[(lib, entry)] = (int(m.group(1)), spill)
+    return out
+
+
+def _kernel_registers(regs: dict, name: str):
+    """(registers, spill store bytes) of the port's kernel `name` (fq2_ for
+    the Fq2 set), or None where its library was not built in this run."""
+    import re
+
+    base = name[4:] if name.startswith("fq2_") else name
+    if name.startswith("fq2_"):
+        lib, key = "ec2", (name if base in ("mul", "inv", "butterfly") else base) + "_kernel"
+    else:
+        lib, key = ("ntt" if base in ("mul", "butterfly") else "ec"), base + "_kernel"
+    hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
+    return hits[0] if len(hits) == 1 else None
 
 
 def fail(msg: str) -> None:
@@ -270,15 +318,35 @@ def _pair_inputs(torch, ec, n: int, seed: int):
     return lx, ly, lv, rx, ry, rv
 
 
+def _bucket_table(torch, ec, W: int, B: int, seed: int):
+    """A dense (W * B)-row Jacobian bucket table of seeded rows with the
+    cases planted in every window: empty buckets (zero rows, as the scatter
+    leaves them; the top bucket among them), bucket 2 equal to bucket 1
+    (P == Q at the first level) and bucket 5 the negative of bucket 4
+    (P == -Q)."""
+    elems = _elems_for(torch, ec, W * B)
+    x, y, z = (elems(seed + k).view(W, B, -1) for k in range(3))
+    for a in (x, y, z):
+        a[:, 2] = a[:, 1]
+        a[:, 3] = 0
+        a[:, B - 1] = 0
+    x[:, 5], z[:, 5] = x[:, 4], z[:, 4]
+    y[:, 5] = ec.ctx.neg_mod(y[:, 4].contiguous())
+    return tuple(a.view(W * B, -1) for a in (x, y, z))
+
+
 def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_inv,
                          out: dict) -> None:
     """The MSM path's point kernels of one field against their plain
     versions, with the cases planted: affine_denom and affine_add at 2^21
     lanes (the first pair level of a chunk), jadd at the dense table's W*B
-    lanes and at 2^17, jdbl at 2^17, jdbl_n at 16 lanes x 11 and x 176.
+    lanes and at 2^17, jdbl at 2^17, jdbl_n at 16 lanes x 11 and x 176,
+    bucket_reduce on the fused aggregate's (W * B)-row table.
     Bounds count an element's bytes (32 over Fq, 64 over Fq2) and its base
     products (a square and a product are 1 and 1 over Fq, 2 and 3 over
     Fq2)."""
+    from crescent_tpu_torch.ops.cuda_ec import bucket_levels
+
     f = ec.ctx
     one = f.one_mont("cuda")
     fq2 = ec.WIDTH == 16
@@ -351,6 +419,28 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
                _time_ms(torch, lambda: ec.jdbl_n(*p16, count), 20),
                _time_ms(torch, lambda: ec.jdbl_n_plain(*p16, count), 1),
                6 * e * 16, dbl * 16 * count)
+
+    # -- bucket_reduce: the fused aggregate's table, W = 25 windows of B = 1025
+    W = (256 + AFFINE_C - 1) // AFFINE_C + 1
+    B = (1 << (AFFINE_C - 1)) + 1
+    table = _bucket_table(torch, ec, W, B, seed + 40)
+    got = ec.bucket_reduce(*table, W, B)
+    torch.cuda.synchronize()
+    finite = [0, 0]
+
+    def counted_jadd(*a):
+        # the pairs that need the addition's products: both sides finite
+        finite[0] += int((~f.is_zero(a[2]) & ~f.is_zero(a[5])).sum().item())
+        finite[1] += a[0].shape[0]
+        return ec.jadd_plain(*a)
+
+    err = _errs(torch, got, bucket_levels(counted_jadd, *table, W, B))
+    record("bucket_reduce", f"{W} windows x {B} buckets", err,
+           _time_ms(torch, lambda: ec.bucket_reduce(*table, W, B), 10),
+           _time_ms(torch, lambda: ec.bucket_reduce_plain(*table, W, B), 1),
+           3 * e * (W * B + W), (5 * sqr + 11 * mul) * MONT_MUL_MADS * finite[0])
+    say(f"  bucket_reduce [{label}]: {finite[0]} of its {finite[1]} pair additions have "
+        "both sides finite (counted in its bound)")
 
 
 def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
@@ -554,6 +644,18 @@ def setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv) 
 
     args = _madd_inputs(torch, f2, lambda sd: elems2(nm, sd), nm, SEED + 120)
     check_madd("fq2_madd", label, ec2, args, 16, 2, 3, 0, time_it=True)
+
+    # -- Fq2 butterfly: 2^20 pairs (no caller on the path) -------------------
+    nb_ = 1 << (LOG_SIZE - 1)
+    a, b, tw = (elems2(nb_, SEED + 125 + k) for k in range(3))
+    a[:16], b[:16], tw[:16] = edges2(False), edges2(True), edges2(False)
+    got = ec2.butterfly(a, b, tw)
+    torch.cuda.synchronize()
+    _record(out, "fq2_butterfly", label, f"2^{LOG_SIZE - 1} pairs",
+            _errs(torch, got, ec2.butterfly_plain(a, b, tw)),
+            _time_ms(torch, lambda: ec2.butterfly(a, b, tw), REPS),
+            _time_ms(torch, lambda: ec2.butterfly_plain(a, b, tw), 2),
+            5 * 64 * nb_, 3 * MONT_MUL_MADS * nb_)
     return out
 
 
@@ -800,6 +902,47 @@ def g2_msm_phase(torch, curves, nb) -> dict:
             "g2_chunk_peak_mib": peak_mib, "g2_big_s": big_s}
 
 
+def small_msm_phase(torch, curves, nb) -> dict:
+    """get_msm(G1) and get_g2_msm() run_device of 1000 seeded points each
+    (padded to 1024, at small_cutoff: the direct path) on the card, the
+    identity, 0 and n - 1 planted, against the native MSMs."""
+    from crescent_tpu_torch.ops import limb
+    from crescent_tpu_torch.ops.ec import JPoints, points_valid
+    from crescent_tpu_torch.ops.msm import get_g2_msm, get_msm
+
+    out = {}
+    n = 1000
+    rng = random.Random(SEED + 190)
+    for label, m, make, native in (
+            ("G1", get_msm(curves.BN254_G1),
+             lambda ks: nb.fixed_base("bn254_g1", curves.BN254_G1.generator, ks),
+             lambda ks, pts: nb.msm("bn254_g1", ks, pts)),
+            ("G2", get_g2_msm(), lambda ks: nb.fixed_base_g2(curves.BN254G2.generator(), ks),
+             nb.msm_g2)):
+        ctx = m.ctx
+        pts = make([rng.randrange(1, ctx.n) for _ in range(n)])
+        ks = [rng.randrange(ctx.n) for _ in range(n)]
+        pts[3] = None
+        ks[4], ks[5] = 0, ctx.n - 1
+        P = ctx.points_to_device(pts, "cuda")
+        valid = torch.from_numpy(points_valid(pts)).cuda()
+        sc = limb.limbs_to_words(limb.ints_to_limbs(ks), "cuda")
+        if not m.small_cutoff >= 1 << (n - 1).bit_length():
+            fail(f"small MSM {label}: {n} points are not at or under small_cutoff")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = m.run_device(P.x, P.y, valid, sc)
+        got = ctx.points_to_host(JPoints(*(a[None] for a in res)))[0]
+        dev_s = time.perf_counter() - t0
+        if got != native(ks, pts):
+            fail(f"small MSM {label} of {n} points (run_device's direct path) differs from "
+                 "the native MSM")
+        say(f"small msm {label}: {n} points through run_device's direct path on the card "
+            f"in {dev_s:.3f} s (enqueue to result); equals the native MSM")
+        out[f"small_{label}_s"] = dev_s
+    return out
+
+
 def _proof_ints(proof) -> tuple:
     """A proof as plain ints, for comparison."""
     return (proof.a, (proof.b[0].c0, proof.b[0].c1, proof.b[1].c0, proof.b[1].c1),
@@ -916,6 +1059,7 @@ def main() -> None:
                          SEED + 150, batch_inv, kres)
     mres = msm_phase(torch, curves, nb)
     mres.update(g2_msm_phase(torch, curves, nb))
+    mres.update(small_msm_phase(torch, curves, nb))
     fixed_base_phase(torch, curves, nb)
     setup_crosscheck(torch, groth16)
     small_crosscheck(torch, groth16)
@@ -984,7 +1128,8 @@ def main() -> None:
     say(f"launches during that prove: {prove_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     for k in KERNELS:
-        if prove_launches[k] == 0 and k not in ("jdbl", "madd"):  # no caller in prove
+        # no caller in prove; bucket_reduce: the opt-in aggregate, below
+        if prove_launches[k] == 0 and k not in ("jdbl", "madd", "bucket_reduce"):
             fail(f"the {k} kernel was not launched during prove")
 
     # warm second prove: tables and twiddles on the card
@@ -1008,12 +1153,37 @@ def main() -> None:
     native0_launches = counts()
     say(f"launches during that prove: {native0_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    unused = ("jdbl", "madd", "bucket_reduce", "fq2_jdbl", "fq2_madd", "fq2_bucket_reduce",
+              "fq2_butterfly")
     for k in names:
-        if native0_launches[k] == 0 and k not in ("jdbl", "madd", "fq2_jdbl", "fq2_madd"):
+        if native0_launches[k] == 0 and k not in unused:
             fail(f"the {k} kernel was not launched during the CRESCENT_NATIVE=0 prove")
     if _proof_ints(proof_dev) != _proof_ints(proof):
         fail("the CRESCENT_NATIVE=0 proof differs from the default configuration's")
     say("proofs: the CRESCENT_NATIVE=0 proof equals the default configuration's")
+
+    # the fused aggregate: each chunk's suffix sums and weighting in one
+    # bucket_reduce launch, with the native backend off (G1 and G2 chunks)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    proof_fused, _, _ = _with_env("CRESCENT_NATIVE", "0", lambda: _with_env(
+        "CRESCENT_MSM_FUSED_AGG", "1",
+        lambda: timed_prove("CRESCENT_MSM_FUSED_AGG=1 CRESCENT_NATIVE=0, warm")))
+    fused_launches = counts()
+    say(f"launches during that prove: {fused_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    chunks = (native0_launches["jadd"] - fused_launches["jadd"],
+              native0_launches["fq2_jadd"] - fused_launches["fq2_jadd"])
+    say(f"fused aggregate: bucket_reduce {fused_launches['bucket_reduce']} (Fq), "
+        f"{fused_launches['fq2_bucket_reduce']} (Fq2) launches; jadd launches "
+        f"{chunks[0]} (Fq) and {chunks[1]} (Fq2) fewer than without it")
+    if not fused_launches["bucket_reduce"] or not fused_launches["fq2_bucket_reduce"]:
+        fail("the fused prove did not launch bucket_reduce over Fq and over Fq2")
+    if chunks != (21 * fused_launches["bucket_reduce"], 21 * fused_launches["fq2_bucket_reduce"]):
+        fail("the fused prove does not save 21 jadd launches a bucket_reduce launch")
+    if _proof_ints(proof_fused) != _proof_ints(proof):
+        fail("the fused-aggregate proof differs from the default configuration's")
+    say("proofs: the fused-aggregate proof equals the default configuration's")
 
     t0 = time.perf_counter()
     pvk = pk.vk.prepare()
@@ -1023,6 +1193,18 @@ def main() -> None:
     if groth16.verify(pvk, proof, [(pubs[0] + 1) % groth16.R]):
         fail("verify accepted the proof against a wrong public input")
     say(f"verify: ok ({time.perf_counter() - t0:.3f} s)")
+    # the native backend off: the public-input MSM on the card (direct path)
+    reset()
+    t0 = time.perf_counter()
+    ok = _with_env("CRESCENT_NATIVE", "0",
+                   lambda: groth16.verify(pvk, proof_fused, pubs, device="cuda"))
+    verify_launches = counts()
+    if not ok:
+        fail("verify under CRESCENT_NATIVE=0 rejected the fused-aggregate proof")
+    if not verify_launches["jdbl"] or not verify_launches["jadd"]:
+        fail("verify under CRESCENT_NATIVE=0 did not run its MSM on the card")
+    say(f"verify (CRESCENT_NATIVE=0, public-input MSM on the card): ok "
+        f"({time.perf_counter() - t0:.3f} s); launches {verify_launches}")
     say(f"chunk MSM 2^{CHUNK_LOG}: {mres['chunk_ms']:.3f} ms on the card, "
         f"{mres['enqueue_ms']:.3f} ms to enqueue; G2: {mres['g2_chunk_ms']:.3f} ms on the "
         f"card, {mres['g2_enqueue_ms']:.3f} ms to enqueue")
@@ -1033,9 +1215,13 @@ def main() -> None:
     # the op that runs the shared kernel at ROWS = 32
     replaces = {"mul": 513, "butterfly": 517, "inv": 527, "affine_denom": 560,
                 "affine_add": 566, "jadd": 505, "jdbl_n": 550, "jdbl": 545,
-                "madd": 495, "fq2_mul": 362, "fq2_inv": 858, "fq2_madd": 831,
-                "fq2_affine_denom": 757, "fq2_affine_add": 771, "fq2_jadd": 670,
-                "fq2_jdbl_n": 744, "fq2_jdbl": 735}
+                "madd": 495, "bucket_reduce": 575, "fq2_mul": 362, "fq2_inv": 858,
+                "fq2_madd": 831, "fq2_affine_denom": 757, "fq2_affine_add": 771,
+                "fq2_jadd": 670, "fq2_jdbl_n": 744, "fq2_jdbl": 735,
+                "fq2_bucket_reduce": 790, "fq2_butterfly": 689}
+    regs = _registers(reports)
+    runs = (setup_launches, prove_launches, native0_launches, fused_launches,
+            verify_launches)
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     kernels = []
@@ -1050,10 +1236,14 @@ def main() -> None:
             "source": "crescent_tpu_torch/csrc/" + source.get(name, "ec.cu"),
             "replaces": f"{pallas}:{replaces[name]}",
             "shape": label,
-            "launches": setup_launches[name] + prove_launches[name] + native0_launches[name],
+            "launches": sum(r[name] for r in runs),
             "launches_setup": setup_launches[name],
             "launches_prove": prove_launches[name],
             "launches_prove_native0": native0_launches[name],
+            "launches_prove_fused_native0": fused_launches[name],
+            "launches_verify_native0": verify_launches[name],
+            "registers": (_kernel_registers(regs, name) or (None, None))[0],
+            "spill_store_bytes": (_kernel_registers(regs, name) or (None, None))[1],
             "max_abs_err": max(r[1] for r in rows),
             "bit_exact": all(r[1] == 0 for r in rows),
             "ms": ms,

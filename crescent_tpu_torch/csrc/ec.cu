@@ -1,5 +1,5 @@
 // Short-Weierstrass point kernels over Fq for Hopper (sm_90a): the G1 MSM's
-// six, and the fixed base's mixed addition.
+// six, its fused bucket aggregate, and the fixed base's mixed addition.
 //
 // Each replaces one Pallas TPU kernel of crescent_tpu/ops/pallas_ec.py:
 //   * `inv`          -> PallasEC._inv_kernel    (:527, core :533; op :698)
@@ -9,6 +9,8 @@
 //   * `jdbl_n`       -> PallasEC._dbln_kernel   (:550, body :243; op :744)
 //   * `jdbl`         -> PallasEC._dbl_kernel    (:545, body :243; op :735)
 //   * `madd`         -> PallasEC._madd_kernel   (:495, body :261; op :657)
+//   * `bucket_reduce` -> PallasEC._bucket_reduce_kernel (:575; op :790, call
+//                       :805)
 // Coordinates are packed (N, 8) planes of 32-byte rows (field.cuh), one
 // plane per coordinate, where the TPU kept limb-major (16, N) u32 planes;
 // validity flags are (N,) int32.  Every result is canonical, so it is
@@ -31,7 +33,11 @@
 // bound by latency, so they launch small blocks that spread the lanes over
 // many SMs, and `inv` skips the product for a zero exponent bit (uniform
 // over the grid).  `madd` (5 rows in, 3 out, eleven products) is bound by
-// operations, with `jadd`'s branch for the doubling.
+// operations, with `jadd`'s branch for the doubling.  `bucket_reduce`
+// (one window of the dense bucket table a block, 12,298 dependent-level
+// jadds a window at c = 11) is bound by operations in principle; with one
+// block per window it runs on W of the card's SMs, 44 jadds in a row a
+// thread (point.cuh).
 //
 // Every kernel but `inv` is a template of point.cuh instantiated here over
 // Fe; ec2.cu instantiates the same bodies over Fe2.
@@ -126,4 +132,15 @@ extern "C" int crescent_madd(const uint32_t* curve26, const void* x1,
                              void* oy, void* oz, long long n, void* stream) {
   return crescent::launch_madd<Fe>(curve26, x1, y1, z1, qx, qy, qxs, qys, valid,
                                    sign, ox, oy, oz, n, stream);
+}
+
+// Fq: the jadd body takes 166 registers, so a block of 384 threads fits
+// one SM's 65,536 (three passes over B = 1025 columns a level).
+extern "C" int crescent_bucket_reduce(const uint32_t* curve26, const void* x,
+                                      const void* y, const void* z,
+                                      void* scratch, void* ox, void* oy,
+                                      void* oz, long long W, long long B,
+                                      void* stream) {
+  return crescent::launch_bucket_reduce<Fe, 384>(curve26, x, y, z, scratch, ox,
+                                                 oy, oz, W, B, stream);
 }

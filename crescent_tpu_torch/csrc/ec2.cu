@@ -1,5 +1,5 @@
-// Fq2 kernels for Hopper (sm_90a): the G2 fixed base's three and the G2
-// MSM's five more.
+// Fq2 kernels for Hopper (sm_90a): the G2 fixed base's three, the G2 MSM's
+// five more and its fused bucket aggregate, and the Fq2 butterfly.
 //
 // Each replaces one op of the Pallas TPU class QuadPallasEC
 // (crescent_tpu/ops/pallas_ec.py:831), which runs PallasEC's kernels at
@@ -16,6 +16,10 @@
 //   * `jdbl_n`       -> PallasEC.jdbl_n at ROWS = 32 (op :744; kernel :550;
 //                       body :243)
 //   * `jdbl`         -> PallasEC.jdbl at ROWS = 32 (op :735; kernel :545)
+//   * `bucket_reduce` -> QuadPallasEC.bucket_reduce: PallasEC.bucket_reduce
+//                       at ROWS = 32 (op :790; kernel :575; call :805)
+//   * `butterfly`    -> PallasEC.butterfly at ROWS = 32 (op :689; kernel
+//                       _bfly_kernel :517 over `_F2`)
 // An element is one 64-byte row of an (N, 16) int32 plane: c0's eight
 // words, then c1's (field.cuh Fe2).  Results are canonical, so they equal
 // the TPU kernels' bit for bit.
@@ -34,8 +38,12 @@
 // `jdbl_n` (16 lanes of a doubling chain in the window combine) by
 // latency.  An Fq2 element is twice an Fq one in registers, so `jadd` and
 // `madd` run at the 255-register limit and spill; their doubling stays a
-// branch that only lanes with P == Q take.  BN254 G2 has a = 0, which the
-// wrapper requires.
+// branch that only lanes with P == Q take.  `bucket_reduce` is point.cuh's
+// one block a window over the jadd body, 256 threads a block (the most the
+// 255-register body allows; 66 jadds in a row a thread at c = 11).
+// `butterfly` (a, b, tw in, two rows out: 320 bytes and 3 base products a
+// lane) is bound by bytes; no path of the reference calls it.  BN254 G2
+// has a = 0, which the wrapper requires.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -81,6 +89,20 @@ __global__ void fq2_inv_kernel(Curve C, const uint4* x, uint4* out,
   const long long i = lane();
   if (i >= n) return;
   Row2::store(out + 4 * i, crescent::fe_inv(Row2::load(x + 4 * i), C.one, C.M));
+}
+
+// (o0, o1) = (a + b*tw, a - b*tw): b*tw the Karatsuba product of
+// fq2_mul_kernel (pallas_ec._bfly_kernel over `_F2`).
+__global__ void fq2_butterfly_kernel(Curve C, const uint4* a, const uint4* b,
+                                     const uint4* tw, uint4* o0, uint4* o1,
+                                     long long n) {
+  const long long i = lane();
+  if (i >= n) return;
+  const crescent::Mod& M = C.M;
+  const Fe2 t = crescent::fe_mont_mul(Row2::load(b + 4 * i), Row2::load(tw + 4 * i), M);
+  const Fe2 x = Row2::load(a + 4 * i);
+  Row2::store(o0 + 4 * i, crescent::fe_add(x, t, M));
+  Row2::store(o1 + 4 * i, crescent::fe_sub(x, t, M));
 }
 
 }  // namespace
@@ -156,4 +178,26 @@ extern "C" int crescent_fq2_jdbl(const uint32_t* curve26, const void* x,
                                  const void* y, const void* z, void* ox,
                                  void* oy, void* oz, long long n, void* stream) {
   return crescent::launch_jdbl<Fe2>(curve26, x, y, z, ox, oy, oz, n, stream);
+}
+
+extern "C" int crescent_fq2_bucket_reduce(const uint32_t* curve26,
+                                          const void* x, const void* y,
+                                          const void* z, void* scratch,
+                                          void* ox, void* oy, void* oz,
+                                          long long W, long long B,
+                                          void* stream) {
+  return crescent::launch_bucket_reduce<Fe2, 256>(curve26, x, y, z, scratch,
+                                                  ox, oy, oz, W, B, stream);
+}
+
+extern "C" int crescent_fq2_butterfly(const uint32_t* curve26, const void* a,
+                                      const void* b, const void* tw, void* o0,
+                                      void* o1, long long n, void* stream) {
+  if (n > 0) {
+    fq2_butterfly_kernel<<<grid_for(n, kThreads), kThreads, 0,
+                           (cudaStream_t)stream>>>(make_curve(curve26), (In)a,
+                                                   (In)b, (In)tw, (Out)o0,
+                                                   (Out)o1, n);
+  }
+  return (int)cudaGetLastError();
 }

@@ -11,15 +11,18 @@ switches ``CRESCENT_PROVE_MSM`` and ``CRESCENT_NATIVE``:
   (groth16.py:876-931); under ``CRESCENT_NATIVE=0`` the G2 MSM runs on the
   device too, enqueued behind the fold (groth16.py:943-958);
 * ``native``: all five MSMs on the native host backend (groth16.py:868-875);
-* ``auto`` (the default): ``device`` on a CUDA device, ``native`` on the CPU.
+* ``auto`` (the default) and any other value: ``device`` on a CUDA device,
+  ``native`` on the CPU.
 
 ``CRESCENT_NATIVE=0`` (default 1) turns the native host backend off where
-the reference does in ``prove``: the MSMs take the device route on any
-device (the CPU runs the kernels' plain versions), whatever
-``CRESCENT_PROVE_MSM`` says.  One difference from the reference: the port
-has no pure-Python route for the witness matvec Az/Bz/Cz, verify's
-public-input MSM or setup's native branch, so those stay on the native
-backend even then.
+the reference does in ``prove`` and ``verify``: the MSMs take the device
+route on any device (the CPU runs the kernels' plain versions), whatever
+``CRESCENT_PROVE_MSM`` says, and so does verify's public-input MSM.  One
+difference from the reference: the port has no pure-Python route for the
+witness matvec Az/Bz/Cz or setup's native branch, so those stay on the
+native backend even then.  ``CRESCENT_MSM_FUSED_AGG=1`` (the reference's
+switch) aggregates each chunk of the device MSMs by one ``bucket_reduce``
+launch; the proof is the same.
 
 ``setup`` draws the same randomness in the same order as the reference
 (gamma == 1) and then, by the reference's switch ``CRESCENT_SETUP_TPU``,
@@ -75,16 +78,14 @@ def _require_native() -> None:
 
 def _setup_device_enabled(device: torch.device) -> bool:
     """Whether `setup` builds the SRS on `device` (else on the native host
-    backend), by CRESCENT_SETUP_TPU (the reference's switch): auto / 1 on a
-    CUDA device, 0 never, force on any device (the CPU tests run the plain
-    versions of the kernels this way)."""
+    backend), by CRESCENT_SETUP_TPU (the reference's switch): 0 never, force
+    on any device (the CPU tests run the plain versions of the kernels this
+    way), any other value (auto, 1, ...) on a CUDA device."""
     env = os.environ.get("CRESCENT_SETUP_TPU", "auto")
     if env == "0":
         return False
     if env == "force":
         return True
-    if env not in ("auto", "1"):
-        raise ValueError(f"CRESCENT_SETUP_TPU={env!r}: expected auto, 1, 0 or force")
     return device.type == "cuda"
 
 
@@ -98,12 +99,11 @@ def _native_ok() -> bool:
 
 def _device_msm_prove(device: torch.device) -> bool:
     """Whether `prove` runs the G1 MSMs on `device` (else on the native
-    host backend), by CRESCENT_PROVE_MSM = auto | device | native; with the
-    native backend off (CRESCENT_NATIVE=0), always (the reference's
-    `_native_msm_prove`, groth16.py:102-110)."""
+    host backend), by CRESCENT_PROVE_MSM: native never, device always, any
+    other value (auto, ...) on a CUDA device; with the native backend off
+    (CRESCENT_NATIVE=0), always (the reference's `_native_msm_prove`,
+    groth16.py:102-110)."""
     env = os.environ.get("CRESCENT_PROVE_MSM", "auto")
-    if env not in ("auto", "device", "native"):
-        raise ValueError(f"CRESCENT_PROVE_MSM={env!r}: expected auto, device or native")
     if not _native_ok():
         return True
     if env == "native":
@@ -679,14 +679,20 @@ def prove(
     return Proof(A, B2, C)
 
 
-def prepare_inputs(vk: VerifyingKey, public_inputs: list[int]):
-    """gamma_abc[0] + sum_i pub_i * gamma_abc[i+1]  (verifier.rs:25)."""
-    _require_native()
+def prepare_inputs(vk: VerifyingKey, public_inputs: list[int], device="cuda"):
+    """gamma_abc[0] + sum_i pub_i * gamma_abc[i+1]  (verifier.rs:25): the
+    MSM on the native host backend, or with it off (CRESCENT_NATIVE=0) by
+    ``get_msm(G1).run_host`` on `device`, as the reference does."""
     assert len(public_inputs) == len(vk.gamma_abc_g1) - 1
     acc = vk.gamma_abc_g1[0]
     if public_inputs:
-        acc = G1.add(acc, nb.msm("bn254_g1", [x % R for x in public_inputs],
-                                 vk.gamma_abc_g1[1:]))
+        if _native_ok():
+            _require_native()
+            acc = G1.add(acc, nb.msm("bn254_g1", [x % R for x in public_inputs],
+                                     vk.gamma_abc_g1[1:]))
+        else:
+            acc = G1.add(acc, get_msm(G1).run_host(public_inputs, vk.gamma_abc_g1[1:],
+                                                   device))
     return acc
 
 
@@ -704,5 +710,9 @@ def verify_with_prepared_inputs(pvk: PreparedVerifyingKey, proof: Proof,
     return f == pvk.alpha_beta
 
 
-def verify(pvk: PreparedVerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
-    return verify_with_prepared_inputs(pvk, proof, prepare_inputs(pvk.vk, public_inputs))
+def verify(pvk: PreparedVerifyingKey, proof: Proof, public_inputs: list[int],
+           device="cuda") -> bool:
+    """The pairing check; `device` is where `prepare_inputs` runs its MSM
+    when the native backend is off."""
+    return verify_with_prepared_inputs(
+        pvk, proof, prepare_inputs(pvk.vk, public_inputs, device))

@@ -47,6 +47,7 @@ SIGNATURES = {
         "crescent_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
         "crescent_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
         "crescent_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
+        "crescent_bucket_reduce": [_u32p] + [_vp] * 7 + [_ll, _ll, _vp],
     },
     "ec2": {
         "crescent_fq2_mul": [_u32p, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _vp],
@@ -57,6 +58,8 @@ SIGNATURES = {
         "crescent_fq2_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],
         "crescent_fq2_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
         "crescent_fq2_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
+        "crescent_fq2_bucket_reduce": [_u32p] + [_vp] * 7 + [_ll, _ll, _vp],
+        "crescent_fq2_butterfly": [_u32p] + [_vp] * 5 + [_ll, _vp],
     },
 }
 

@@ -23,12 +23,15 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
 * ``madd(x1, y1, z1, qx, qy, valid, sign)``: mixed Jacobian + affine
   addition P + (sign ? -Q : Q), P passed through where valid == 0
   (``_madd_kernel``).
+* ``bucket_reduce(x, y, z, W, B)``: per-window weighted sums of a dense
+  Jacobian bucket table, one launch (``_bucket_reduce_kernel``).
 
-``CudaQuadEC`` is the counterpart of ``QuadPallasEC``: ``mul``, ``inv`` and
-the six point ops over Fq2 (``csrc/ec2.cu``; ``ops/quadratic.py`` for the
-layout), for setup's G2 fixed base and the G2 MSM of ``prove``.  The point
-ops of both classes share their wrappers (``_Kernels``), their plain
-versions (the formula bodies below) and their CUDA bodies (``csrc/point.cuh``).
+``CudaQuadEC`` is the counterpart of ``QuadPallasEC``: ``mul``, ``inv``,
+``butterfly`` and the seven point ops over Fq2 (``csrc/ec2.cu``;
+``ops/quadratic.py`` for the layout), for setup's G2 fixed base and the G2
+MSM of ``prove``.  The point ops of both classes share their wrappers
+(``_Kernels``), their plain versions (the formula bodies below) and their
+CUDA bodies (``csrc/point.cuh``).
 
 Tensors are packed (N, 8) int32 word rows (``ops/limb.py``), (N, 16) over
 Fq2, canonical, Montgomery form where the op needs it; validity flags are
@@ -93,9 +96,9 @@ def _words32(x: int) -> list[int]:
 
 
 KERNELS = ("mul", "butterfly", "inv", "affine_denom", "affine_add", "jadd",
-           "jdbl_n", "jdbl", "madd")
+           "jdbl_n", "jdbl", "madd", "bucket_reduce")
 QUAD_KERNELS = ("mul", "inv", "affine_denom", "affine_add", "jadd", "jdbl_n",
-                "jdbl", "madd")
+                "jdbl", "madd", "bucket_reduce", "butterfly")
 
 
 # -- formula bodies shared by the prime-field and Fq2 plain versions ---------
@@ -242,6 +245,36 @@ def affine_add_plain(f, a, lx, ly, lv, rx, ry, rv, inv):
     return x, y, v.to(torch.int32)
 
 
+def bucket_levels(jadd, x, y, z, W: int, B: int):
+    """Per-window weighted bucket sums of a dense (W * B, WIDTH) Jacobian
+    table, level by level through `jadd` (one call a level): the suffix
+    sums running_b = sum_{b' >= b} S_b' by shift-adds (j = 1, 2, 4, ...,
+    the identity, zero rows, shifted in past column B - 1), then
+    sum_{d >= 1} running_d by a halving tree over columns 1..B - 1 (B - 1 a
+    power of two).  Returns three (W, WIDTH) planes.  The reference's
+    unfused aggregate (``AffineMSM._aggregate_dense``) and its fused kernel
+    (``_bucket_reduce_kernel``) add the same pairs in the same order."""
+    nw = x.shape[-1]
+
+    def flat(a):
+        return a.reshape(-1, nw).contiguous()
+
+    run = [a.reshape(W, B, nw) for a in (x, y, z)]
+    j = 1
+    while j < B:
+        hi = [torch.cat([a[:, j:], torch.zeros_like(a[:, :j])], dim=1) for a in run]
+        run = [o.reshape(W, B, nw) for o in jadd(*map(flat, run), *map(flat, hi))]
+        j *= 2
+    acc = [a[:, 1:] for a in run]
+    n = B - 1
+    while n > 1:
+        h = n // 2
+        acc = [o.reshape(W, h, nw) for o in
+               jadd(*(flat(a[:, :h]) for a in acc), *(flat(a[:, h:]) for a in acc))]
+        n = h
+    return tuple(a[:, 0].contiguous() for a in acc)
+
+
 class _Kernels:
     """Launch counts, the device rule, and the point ops shared by the
     prime-field and Fq2 kernel sets: each subclass names its library
@@ -334,6 +367,13 @@ class _Kernels:
     def madd_plain(self, x1, y1, z1, qx, qy, valid, sign):
         return madd_plain(self.ctx, self._a(x1.device), x1, y1, z1, qx, qy,
                           valid, sign)
+
+    def butterfly_plain(self, a, b, tw):
+        t = self.ctx.mont_mul(b, tw)
+        return self.ctx.add_mod(a, t), self.ctx.sub_mod(a, t)
+
+    def bucket_reduce_plain(self, x, y, z, W: int, B: int):
+        return bucket_levels(self.jadd_plain, x, y, z, W, B)
 
     # -- ops ------------------------------------------------------------------
     def inv(self, x: torch.Tensor) -> torch.Tensor:
@@ -434,6 +474,36 @@ class _Kernels:
             sign.data_ptr(), *(t.data_ptr() for t in outs), n, _stream(dev)))
         return tuple(outs)
 
+    @staticmethod
+    def bucket_stride(B: int) -> int:
+        """Rows between windows of the table ``bucket_reduce`` reads: B.  The
+        reference pads a window to a multiple of 128 lanes
+        (``PallasEC.bucket_stride``) for the TPU's block widths; a CUDA
+        block takes any width, so the port keeps the dense table as it is."""
+        return B
+
+    def bucket_reduce(self, x, y, z, W: int, B: int):
+        """Dense (W * B, WIDTH) Jacobian bucket table, window w in rows
+        w * B .. w * B + B - 1 (bucket 0 first) -> three (W, WIDTH) planes:
+        sum_{b >= 1} b * S_{w, b} for every window, one launch (one block a
+        window).  Requires B - 1 a power of two.  Bit-identical to
+        ``bucket_levels`` over ``jadd``."""
+        if B < 2 or (B - 1) & (B - 2):
+            raise ValueError(f"bucket_reduce needs B - 1 a power of two, got B = {B}")
+        if self._device(x) == "cpu":
+            return self.bucket_reduce_plain(x, y, z, W, B)
+        n, dev = self._planes("x y z", [x, y, z])
+        if n != W * B:
+            raise ValueError(f"bucket table has {n} rows, expected W * B = {W * B}")
+        # the levels' two ping-pong tables (point.cuh bucket_reduce_kernel)
+        scratch = torch.empty((6, n, self.WIDTH), dtype=torch.int32, device=dev)
+        outs = [torch.empty((W, self.WIDTH), dtype=torch.int32, device=dev)
+                for _ in range(3)]
+        self._launched("bucket_reduce", self._entry("bucket_reduce")(
+            self._curve26, x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            scratch.data_ptr(), *(t.data_ptr() for t in outs), W, B, _stream(dev)))
+        return tuple(outs)
+
 
 def _curve26(modulus: int, one_mont: int, a_mont: int):
     """The kernels' curve constants: modulus words, -p^-1 mod 2^32,
@@ -465,11 +535,6 @@ class CudaEC(_Kernels):
     def _a(self, device):
         """a as a Montgomery row for the plain versions, None when 0."""
         return None if self.a_is_zero else self.ctx.const_words(self.a_mont, device)
-
-    # -- plain versions -----------------------------------------------------
-    def butterfly_plain(self, a, b, tw):
-        t = self.ctx.mont_mul(b, tw)
-        return self.ctx.add_mod(a, t), self.ctx.sub_mod(a, t)
 
     # -- ops ----------------------------------------------------------------
     def mul(self, x: torch.Tensor, y: torch.Tensor, out=None) -> torch.Tensor:
@@ -524,9 +589,9 @@ class CudaEC(_Kernels):
 
 
 class CudaQuadEC(_Kernels):
-    """``mul``, ``inv`` and the point ops over Fq2 = Fq[u]/(u^2 + 1) on
-    (N, 16) int32 rows (``QuadPallasEC``); the curve's a is 0, as
-    ``QuadPallasEC.__init__`` requires."""
+    """``mul``, ``inv``, ``butterfly`` and the point ops over
+    Fq2 = Fq[u]/(u^2 + 1) on (N, 16) int32 rows (``QuadPallasEC``); the
+    curve's a is 0, as ``QuadPallasEC.__init__`` requires."""
 
     KERNELS = QUAD_KERNELS
     LIB, PREFIX, WIDTH = "ec2", "crescent_fq2_", QWORD
@@ -553,6 +618,18 @@ class CudaQuadEC(_Kernels):
             self._curve26, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
             xs, ys, os_, _stream(x.device)))
         return out
+
+    def butterfly(self, a, b, tw):
+        """(a + b*tw, a - b*tw) on (N, 16) planes, as new tensors
+        (``QuadPallasEC.butterfly``; no path of the reference calls it)."""
+        if self._device(a) == "cpu":
+            return self.butterfly_plain(a, b, tw)
+        n, dev = self._planes("a b tw", [a, b, tw])
+        o0, o1 = torch.empty_like(a), torch.empty_like(a)
+        self._launched("butterfly", self._entry("butterfly")(
+            self._curve26, a.data_ptr(), b.data_ptr(), tw.data_ptr(),
+            o0.data_ptr(), o1.data_ptr(), n, _stream(dev)))
+        return o0, o1
 
 
 @functools.lru_cache(maxsize=None)

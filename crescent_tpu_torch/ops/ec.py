@@ -7,8 +7,10 @@ Z == 0.  ``CurveCtx`` carries the curve's field context, its kernels
 (``ops/cuda_ec.py``: ``CudaEC`` or ``CudaQuadEC``) and the conversions
 between host points and device batches.
 
-The group law itself (``double``, ``add``, ``add_mixed``, ``scalar_mul``) is
-not here yet: the MSM and fixed-base paths call the point kernels directly.
+The group law (``double``, ``add``, ``add_mixed``, ``scalar_mul``) runs on
+the point kernels (``jdbl``, ``jadd``, ``madd``) over batches of any shape;
+the MSM and fixed-base paths call the kernels directly.  (The reference's
+``reduce_sum`` has no caller and is not here.)
 """
 
 from __future__ import annotations
@@ -118,6 +120,53 @@ class CurveCtx:
         one = f.one_mont(device).reshape(f.nword).expand(full).contiguous()
         zero = torch.zeros(full, dtype=torch.int32, device=device)
         return JPoints(zero, one, zero.clone())
+
+    # -- group law ----------------------------------------------------------
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A (..., W) batch as the packed (N, W) plane the kernels take."""
+        return t.reshape(-1, self.fctx.nword).contiguous()
+
+    def _batch(self, outs, shape) -> JPoints:
+        return JPoints(*(o.reshape(shape) for o in outs))
+
+    def double(self, P: JPoints) -> JPoints:
+        """2P (dbl-2007-bl, ``jdbl``); the identity stays the identity."""
+        return self._batch(self.ec.jdbl(*map(self._rows, P)), P.x.shape)
+
+    def add(self, P: JPoints, Q: JPoints) -> JPoints:
+        """Complete addition (``jadd``): the identity, P == Q and P == -Q
+        included."""
+        return self._batch(self.ec.jadd(*map(self._rows, P), *map(self._rows, Q)),
+                           P.x.shape)
+
+    def add_mixed(self, P: JPoints, qx: torch.Tensor, qy: torch.Tensor,
+                  q_valid: torch.Tensor) -> JPoints:
+        """P (Jacobian) + Q (affine, Montgomery) by ``madd`` with no sign;
+        lanes with q_valid == 0 return P unchanged."""
+        valid = q_valid.reshape(-1).to(torch.int32).contiguous()
+        sign = torch.zeros_like(valid)
+        outs = self.ec.madd(*map(self._rows, P), self._rows(qx), self._rows(qy),
+                            valid, sign)
+        return self._batch(outs, P.x.shape)
+
+    def scalar_mul(self, k_words: torch.Tensor, P: JPoints) -> JPoints:
+        """Batched double-and-add, least significant bit first: k (..., 8)
+        standard-form words (Fr words whatever the curve's field), P a batch
+        of the same shape.  Each of the 256 steps adds the running base to
+        the sum, keeps the sum where the scalar's bit is 0 (``torch.where``
+        per lane) and doubles the base."""
+        batch = k_words.shape[:-1]
+        u = k_words.to(torch.int64) & 0xFFFFFFFF
+        i = torch.arange(limb.NWORD * 32, device=k_words.device)
+        bits = ((u[..., i // 32] >> (i % 32)) & 1).bool()  # (..., 256)
+        acc = self.identity(batch, P.x.device)
+        base = P
+        for b in range(bits.shape[-1]):
+            added = self.add(acc, base)
+            bit = bits[..., b, None]
+            acc = JPoints(*(torch.where(bit, n, o) for n, o in zip(added, acc)))
+            base = self.double(base)
+        return acc
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,14 +1,15 @@
 """Multi-scalar multiplication on one device.
 
 Counterpart of ``crescent_tpu/ops/msm.py`` for the paths Groth16 ``prove``
-takes: MSMs over G1 (``get_msm``) or over G2, whose field is Fq2
-(``get_g2_msm``), through the sorted-segment batched-affine accumulator
-(``ops/msm_affine.py``), one problem at a time (``run_device``) or several
+and ``verify`` take: MSMs over G1 (``get_msm``) or over G2, whose field is
+Fq2 (``get_g2_msm``), one problem at a time (``run_device``) or several
 QAP-scale problems as one fold over fixed-shape chunks
-(``run_device_fold``).
+(``run_device_fold``).  Problems of at most ``small_cutoff`` points take
+the direct path (``_small_msm``: a batched double-and-add, then a tree of
+``jadd``), larger ones the sorted-segment batched-affine accumulator
+(``ops/msm_affine.py``).
 
-Not here yet: the direct path for small N (``run_device`` raises below
-``small_cutoff``), ``run_device_many`` and the scan-based Pippenger.
+Not here yet: ``run_device_many`` and the scan-based Pippenger.
 
 Scalars on the device are (N, 8) int32 word planes in standard form, the
 bytes of the reference's (N, 16) 16-bit limbs, whatever the curve's field.
@@ -69,11 +70,37 @@ def scalar_digits_signed(scalars: torch.Tensor, c: int):
     return torch.stack(digs, dim=-1), torch.stack(signs, dim=-1)
 
 
+def _jadd_tree(jadd, acc) -> JPoints:
+    """Sum of a batch of Jacobian points (three (n, W) planes) by a tree of
+    ``jadd`` levels: the first half plus the second, an odd last row carried
+    to the next level."""
+    acc = list(acc)
+    while acc[0].shape[0] > 1:
+        h = acc[0].shape[0] // 2
+        lo = jadd(*(a[:h] for a in acc), *(a[h : 2 * h] for a in acc))
+        acc = [torch.cat([l, a[2 * h :]]) for l, a in zip(lo, acc)]
+    return JPoints(acc[0][0], acc[1][0], acc[2][0])
+
+
+def _small_msm(ctx: CurveCtx, px, py, pvalid, scalars) -> JPoints:
+    """The direct path for small N (the reference's ``_small_msm_impl``,
+    msm.py:300-314): every product k_i * P_i by ``ctx.scalar_mul``, then
+    their sum.  The reference folds the products with N sequential adds;
+    here a ``jadd`` tree adds them (the same affine point, another Jacobian
+    representative)."""
+    one = ctx.fctx.one_mont(px.device)
+    z = torch.where(pvalid[:, None] != 0, one,
+                    torch.zeros((), dtype=torch.int32, device=px.device))
+    prods = ctx.scalar_mul(scalars, JPoints(px, py, z))
+    return _jadd_tree(ctx.ec.jadd, prods)
+
+
 class MSM:
     """MSM executor for one curve context, over a prime field (G1) or Fq2
     (G2): the context's kernel set and row width carry the difference.
 
-    Problems above `small_cutoff` points go to the sorted-segment
+    Problems of at most `small_cutoff` points (after padding) take the
+    direct path (``_small_msm``); larger ones go to the sorted-segment
     batched-affine accumulator with window width `affine_c`; problems above
     `max_chunk` points run as chunks of that size, whose Jacobian results
     are added up.  ``CRESCENT_MSM_CHUNK`` overrides `max_chunk`.  (The
@@ -104,16 +131,15 @@ class MSM:
         Jacobian point.  N is padded with invalid lanes to a power of two,
         or above `max_chunk` to whole chunks (the reference pads to a power
         of two there too, to share compiled programs; chunks of padding
-        alone add nothing to the sum)."""
+        alone add nothing to the sum).  At most `small_cutoff` padded
+        points take the direct path, as in the reference."""
         n = px.shape[0]
         npad = 1 << (n - 1).bit_length() if n > 1 else 1
         if npad > self.max_chunk:
             npad = -(-n // self.max_chunk) * self.max_chunk
-        if npad <= self.small_cutoff:
-            raise NotImplementedError(
-                f"MSM of {n} points: the direct path for N <= "
-                f"{self.small_cutoff} is not ported yet")
         px, py, pvalid, scalars = self._pad_to(npad, px, py, pvalid, scalars)
+        if npad <= self.small_cutoff:
+            return _small_msm(self.ctx, px, py, pvalid, scalars)
         am = self._affine_msm()
         if npad <= self.max_chunk:
             return am.run(px, py, pvalid, scalars)
@@ -123,13 +149,8 @@ class MSM:
                    scalars[i : i + ck])
             for i in range(0, npad, ck)
         ]
-        acc = [torch.stack([p[k] for p in parts]) for k in range(3)]
-        jadd = self.ctx.ec.jadd
-        while acc[0].shape[0] > 1:
-            h = acc[0].shape[0] // 2
-            lo = jadd(*(a[:h] for a in acc), *(a[h : 2 * h] for a in acc))
-            acc = [torch.cat([l, a[2 * h :]]) for l, a in zip(lo, acc)]
-        return JPoints(acc[0][0], acc[1][0], acc[2][0])
+        return _jadd_tree(self.ctx.ec.jadd,
+                          [torch.stack([p[k] for p in parts]) for k in range(3)])
 
     def run_device_fold(self, problems) -> list[JPoints]:
         """Several QAP-scale MSMs as one fold over chunks of `max_chunk`

@@ -17,8 +17,9 @@ reference's (x, y, z) bit for bit.
      schedule (``_round_schedule``), so no shape depends on the data;
   4. the survivors scatter into a dense (W, B) bucket table; per-window
      suffix sums are shift-add rounds of ``jadd``, the bucket weighting a
-     halving tree, and the windows combine by a doubling tree whose chains
-     are single ``jdbl_n`` launches.
+     halving tree (both one ``bucket_reduce`` launch under
+     ``CRESCENT_MSM_FUSED_AGG=1``), and the windows combine by a doubling
+     tree whose chains are single ``jdbl_n`` launches.
 
 Everything outside the point kernels and ``mul`` is plain PyTorch, as it is
 plain XLA in the reference.  Where the reference compiles the whole MSM into
@@ -39,6 +40,7 @@ import os
 
 import torch
 
+from .cuda_ec import bucket_levels
 from .ec import CurveCtx, JPoints
 
 I64 = torch.int64
@@ -200,14 +202,24 @@ class AffineMSM:
         return self._next_keys(in_r, kseg, nv), nx, ny
 
     # -- bucket aggregation -----------------------------------------------------
-    def _scatter_dense(self, pk, ex, ey):
+    def _scatter_dense(self, pk, ex, ey, fused: bool = False):
         """Survivors -> dense Jacobian bucket tables, three (W*B, nword)
-        planes.  A survivor that is not valid writes to one spare row, which
-        is cut off."""
-        WB = self.W * self.B
+        planes; for the fused aggregate, windows ``pec.bucket_stride(B)``
+        rows apart (the rows past B of a window stay the identity).  A
+        survivor that is not valid writes to one spare row, which is cut
+        off."""
+        W, B = self.W, self.B
         dev = pk.device
         ev = pk & 1
-        idx = torch.where(ev != 0, pk >> 1, torch.full_like(pk, WB))
+        keys = pk >> 1
+        if fused:
+            Bp = self.pec.bucket_stride(B)
+            kw = keys // B
+            tgt = kw * Bp + (keys - kw * B)
+        else:
+            Bp, tgt = B, keys
+        WB = W * Bp
+        idx = torch.where(ev != 0, tgt, torch.full_like(pk, WB))
         dx = torch.zeros((WB + 1, self.nword), dtype=torch.int32, device=dev)
         dy = torch.zeros((WB + 1, self.nword), dtype=torch.int32, device=dev)
         dv = torch.zeros(WB + 1, dtype=I64, device=dev)
@@ -221,50 +233,27 @@ class AffineMSM:
 
     def _aggregate(self, pk, ex, ey):
         """Dense (W, B) table -> suffix sums -> bucket weighting -> window
-        combine.  Returns one Jacobian point as three (nword,) rows."""
-        if os.environ.get("CRESCENT_MSM_FUSED_AGG", "0") == "1":
-            raise NotImplementedError(
-                "CRESCENT_MSM_FUSED_AGG=1 needs the bucket_reduce kernel, "
-                "which is not ported yet")
-        return self._aggregate_dense(*self._scatter_dense(pk, ex, ey))
+        combine.  Returns one Jacobian point as three (nword,) rows.  Under
+        CRESCENT_MSM_FUSED_AGG=1 the suffix sums and the weighting are one
+        ``bucket_reduce`` launch, else one ``jadd`` launch a level."""
+        fused = os.environ.get("CRESCENT_MSM_FUSED_AGG", "0") == "1"
+        return self._aggregate_dense(*self._scatter_dense(pk, ex, ey, fused), fused)
 
-    def _aggregate_dense(self, dx, dy, dz):
-        W, B, c = self.W, self.B, self.c
+    def _aggregate_dense(self, dx, dy, dz, fused: bool = False):
+        W, c = self.W, self.c
         pec = self.pec
-        WB = W * B
         nw = self.nword
-
-        def x3(a):
-            return a.reshape(W, -1, nw)
-
-        # per-window suffix sums: running_b = sum_{b' >= b} S_b' (shift-add)
-        run = (dx, dy, dz)
-        j = 1
-        while j < B:
-            def shift(a, j=j):
-                a = x3(a)
-                pad = torch.zeros((W, j, nw), dtype=a.dtype, device=a.device)
-                return torch.cat([a[:, j:], pad], dim=1).reshape(WB, nw)
-
-            run = pec.jadd(*run, *(shift(a) for a in run))
-            j *= 2
-
-        # acc_w = sum_{d=1}^{B-1} running_d (B - 1 is a power of two)
-        acc = [x3(a)[:, 1:] for a in run]
-        n = B - 1
-        while n > 1:
-            h = n // 2
-            lo = [a[:, :h].reshape(W * h, nw).contiguous() for a in acc]
-            hi = [a[:, h:].reshape(W * h, nw).contiguous() for a in acc]
-            acc = [x3(a) for a in pec.jadd(*lo, *hi)]
-            n = h
+        if fused:
+            acc = pec.bucket_reduce(dx, dy, dz, W, self.B)
+        else:
+            acc = bucket_levels(pec.jadd, dx, dy, dz, W, self.B)
 
         # window combine: sum_w acc_w * 2^(c*w) by a doubling tree: level j
         # pairs (2t, 2t+1) with the odd half doubled c*2^j times (padded
         # with the identity up to a power of two)
         Wp = 1 << (W - 1).bit_length()
         pad = torch.zeros((Wp - W, nw), dtype=torch.int32, device=dx.device)
-        acc = [torch.cat([a.reshape(W, nw), pad]) for a in acc]
+        acc = [torch.cat([a, pad]) for a in acc]
         shift_bits = c
         while Wp > 1:
             odd = pec.jdbl_n(*(a[1::2].contiguous() for a in acc), count=shift_bits)

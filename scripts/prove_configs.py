@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Groth16 prove on the card in its two device configurations, in turns.
+"""Groth16 prove on the card in its three device configurations, in turns.
 
-    python3 scripts/prove_configs.py [log2_size] [pairs]
+    python3 scripts/prove_configs.py [log2_size] [rounds]
 
 Builds the CUDA kernels and the native backend, makes dummy_circuit(log2_size)
 (default 21: the reference's proof-benchmark circuit) and sets it up on the
-card.  Then, after one warm prove of each, runs `pairs` (default 6) pairs of
-proves with fixed r and s, alternating which goes first:
+card.  Then, after one warm prove of each, runs `rounds` (default 6)
+rounds of proves with fixed r and s, the order reversed every other round:
 
 * default: h(x) and the G1 fold on the card, the G2 MSM on the native host
   backend on a worker thread beside the fold;
-* CRESCENT_NATIVE=0: the G2 MSM on the card too, enqueued behind the fold.
+* CRESCENT_NATIVE=0: the G2 MSM on the card too, enqueued behind the fold;
+* CRESCENT_MSM_FUSED_AGG=1 CRESCENT_NATIVE=0: the same, each chunk's suffix
+  sums and bucket weighting in one ``bucket_reduce`` launch.
 
 The proofs must be equal.  Prints every prove's total and MSM phases, the
 median and quartiles of each configuration, and, for one prove of each under
@@ -33,9 +35,11 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-CONFIGS = {"default": {}, "CRESCENT_NATIVE=0": {"CRESCENT_NATIVE": "0"}}
-PORT_KERNELS = ("affine_denom", "affine_add", "jadd", "jdbl_n", "jdbl", "madd", "mul",
-                "inv", "butterfly")
+CONFIGS = {"default": {}, "CRESCENT_NATIVE=0": {"CRESCENT_NATIVE": "0"},
+           "fused, CRESCENT_NATIVE=0": {"CRESCENT_MSM_FUSED_AGG": "1",
+                                        "CRESCENT_NATIVE": "0"}}
+PORT_KERNELS = ("bucket_reduce", "affine_denom", "affine_add", "jadd", "jdbl_n", "jdbl",
+                "madd", "mul", "inv", "butterfly")
 
 
 def _group(name: str) -> str:
@@ -61,7 +65,7 @@ def main() -> None:
     from crescent_tpu_torch.ops import _build
 
     logn = int(sys.argv[1]) if len(sys.argv) > 1 else 21
-    pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 6
+    rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 6
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), flush=True)
@@ -87,16 +91,17 @@ def main() -> None:
         return proof
 
     want = prove("default")  # warm: tables on the card, libraries loaded
-    assert prove("CRESCENT_NATIVE=0") == want, "the configurations' proofs differ"
+    for cfg in list(CONFIGS)[1:]:
+        assert prove(cfg) == want, "the configurations' proofs differ"
     walls = {cfg: [] for cfg in CONFIGS}
-    for i in range(pairs):
+    for i in range(rounds):
         for cfg in (list(CONFIGS) if i % 2 == 0 else list(CONFIGS)[::-1]):
             timings: dict = {}
             t0 = time.perf_counter()
             assert prove(cfg, timings) == want, "the configurations' proofs differ"
             wall = time.perf_counter() - t0
             walls[cfg].append(wall)
-            print(f"pair {i} {cfg}: total {wall:.3f} s; "
+            print(f"round {i} {cfg}: total {wall:.3f} s; "
                   + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()), flush=True)
     for cfg, w in walls.items():
         q1, med, q3 = statistics.quantiles(w, n=4) if len(w) > 1 else (w[0],) * 3

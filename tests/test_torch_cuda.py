@@ -1,6 +1,6 @@
 """The port's CUDA kernels (crescent_tpu_torch/csrc/ntt.cu, ec.cu, ec2.cu)
 against their plain PyTorch versions on a card, bit for bit, and the fixed
-base on the card against the native host backend.
+base and the small-N MSM on the card against the native host backend.
 
 Needs a CUDA card and imports nothing of JAX, so it runs on a machine
 without JAX; the repo's conftest imports jax, so there run it with
@@ -320,3 +320,75 @@ def test_cuda_fixed_base_matches_native(cuda):
         out = fb.run(table, limb.ints_to_limbs(ks), cuda)
         assert list(out) == native(base, ks)
         assert ctx.ec.madd_launches == before + 3 * 32
+
+
+def _bucket_table(ec, W: int, B: int, seed: int, device):
+    """A dense (W * B) Jacobian bucket table of seeded rows with the cases
+    planted in every window: empty buckets (zero rows), a bucket equal to
+    the next one (P == Q at the first level) and one the negative of the
+    next (P == -Q)."""
+    elems = (lambda s: _elems2(W * B, s, device)) if ec.WIDTH == 16 else (
+        lambda s: _elems(ec.modulus, W * B + 16, s, device)[16:].contiguous())
+    x, y, z = (elems(seed + k).view(W, B, -1) for k in range(3))
+    for a in (x, y, z):
+        a[:, 2] = a[:, 1]
+        a[:, 3] = 0
+        a[:, B - 1] = 0
+    if B > 6:
+        x[:, 5], z[:, 5] = x[:, 4], z[:, 4]
+        y[:, 5] = ec.ctx.neg_mod(y[:, 4].contiguous())
+    return tuple(a.view(W * B, -1) for a in (x, y, z))
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_reduce_matches_plain(cuda):
+    """bucket_reduce over Fq and Fq2, one launch, against its plain version
+    (bucket_levels over jadd_plain) at the prove path's B = 1025 and at
+    B = 5, the cases planted."""
+    for ec in (get_cuda_ec(fields.BN254_FQ), get_cuda_quad_ec(fields.BN254_FQ)):
+        for W, B in ((3, 1025), (2, 5)):
+            table = _bucket_table(ec, W, B, 71, cuda)
+            before = ec.bucket_reduce_launches
+            got = ec.bucket_reduce(*table, W, B)
+            assert _equal(got, ec.bucket_reduce_plain(*table, W, B))
+            assert ec.bucket_reduce_launches == before + 1
+            assert got[0].shape == (W, ec.WIDTH)
+        with pytest.raises(ValueError):
+            ec.bucket_reduce(*table, W + 1, B)  # not W * B rows
+
+
+@pytest.mark.cuda
+def test_cuda_fq2_butterfly_matches_plain(cuda):
+    ec = get_cuda_quad_ec(fields.BN254_FQ)
+    a, b, tw = (_elems2(4096, s, cuda) for s in (81, 83, 85))
+    before = ec.butterfly_launches
+    assert _equal(ec.butterfly(a, b, tw), ec.butterfly_plain(a, b, tw))
+    assert ec.butterfly_launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_small_msm_matches_native(cuda):
+    """run_device below small_cutoff on the card (the direct path: jdbl,
+    jadd and torch.where over 256 steps, then a jadd tree) for G1 and G2,
+    against the native MSMs; the identity, 0 and n - 1 planted."""
+    import random
+
+    from crescent_tpu_torch.core.curves import BN254_G1, BN254G2
+    from crescent_tpu_torch.native import backend as nb
+    from crescent_tpu_torch.ops.msm import get_g2_msm, get_msm
+
+    rng = random.Random(9)
+    for m, make, native in (
+            (get_msm(BN254_G1), lambda ks: nb.fixed_base("bn254_g1", BN254_G1.generator, ks),
+             lambda ks, pts: nb.msm("bn254_g1", ks, pts)),
+            (get_g2_msm(), lambda ks: nb.fixed_base_g2(BN254G2.generator(), ks), nb.msm_g2)):
+        n = 100
+        pts = make([rng.randrange(1, m.ctx.n) for _ in range(n)])
+        ks = [rng.randrange(m.ctx.n) for _ in range(n)]
+        pts[3] = None
+        ks[4], ks[5] = 0, m.ctx.n - 1
+        before = m.ctx.ec.launches()
+        assert m.run_host(ks, pts, cuda) == native(ks, pts)
+        after = m.ctx.ec.launches()
+        assert after["jdbl"] - before["jdbl"] == 256
+        assert after["jadd"] - before["jadd"] == 256 + 7  # and a tree over 128 rows

@@ -1,7 +1,8 @@
-"""Plain versions of the port's seven point kernels
+"""Plain versions of the port's eight point kernels
 (crescent_tpu_torch/ops/cuda_ec.py: inv, affine_denom, affine_add, jadd,
-jdbl_n, jdbl, madd) against the reference's XLA adapter and its Pallas kernels in
-interpret mode (the CUDA kernels against the plain versions:
+jdbl_n, jdbl, madd, bucket_reduce) against the reference's XLA adapter and
+its Pallas kernels in interpret mode (bucket_reduce against the Pallas
+kernel only, about a minute to compile: the adapter has none) (the CUDA kernels against the plain versions:
 tests/test_torch_cuda.py and chip_smoke.py).
 
 Planes: the reference takes (16, N) limb-major u32 Montgomery planes and
@@ -274,9 +275,47 @@ def test_plain_madd_matches_reference(a):
     assert ec.madd_launches == 0
 
 
+def test_plain_bucket_reduce_matches_reference_interpret():
+    """bucket_reduce_plain at W = 2 windows of B = 5 buckets against
+    PallasEC.bucket_reduce in interpret mode (the case of the reference's
+    tests/test_pallas_ec.py:334), whose table is lane-padded to 128 columns
+    a window: the Jacobian planes are equal, and each window's point is
+    sum_b b * S_b.  Window 0 holds P == Q and P == -Q in neighbouring
+    buckets (the doubling and the identity at the first level), window 1
+    empty buckets (zero rows, as the scatter leaves them)."""
+    W, B = 2, 5
+    g0, p1, q, r, t = _points(13)[:5]
+    cols = [g0, p1, p1, q, BN254_G1.neg(q), None, r, None, t, None]
+    ec = get_cuda_ec(P)
+    ctx = ec.ctx
+    xs, ys = ([0 if pt is None else pt[i] for pt in cols] for i in (0, 1))
+    planes = [_mont(xs), _mont(ys), _mont([0 if pt is None else 1 for pt in cols])]
+    got = _port(lambda x, y, z: ec.bucket_reduce(x, y, z, W, B), *planes)
+    pec = _ref_pec("pallas_interpret")
+    Bp = pec.bucket_stride(B)
+    padded = []
+    for a in planes:
+        table = np.zeros((W * Bp, 16), np.uint32)
+        for w in range(W):
+            table[w * Bp : w * Bp + B] = a[w * B : (w + 1) * B]
+        padded.append(table)
+    _assert_same(got, _ref(lambda x, y, z: pec.bucket_reduce(x, y, z, W, B), *padded))
+    xs, ys, zs = (ctx.from_mont_host(g) for g in got)
+    for w in range(W):
+        want = None
+        for b in range(1, B):
+            if cols[w * B + b] is not None:
+                want = BN254_G1.add(want, BN254_G1.mul(b, cols[w * B + b]))
+        zi = pow(zs[w], -1, P)
+        assert (xs[w] * zi * zi % P, ys[w] * zi ** 3 % P) == want, w
+    assert ec.bucket_reduce_launches == 0
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     ec = get_cuda_ec(P)
     x = limb.limbs_to_words(_mont(_seeded(9)))
+    with pytest.raises(ValueError):
+        ec.bucket_reduce(x, x, x, 2, 4)  # B - 1 not a power of two
     with pytest.raises(ValueError):
         ec.jdbl_n(x, x, x, -1)
     with pytest.raises(ValueError):

@@ -7,7 +7,8 @@ Pallas kernels in interpret mode.  The port's `prove` runs in both of its
 MSM configurations (CRESCENT_PROVE_MSM=native and =device, the latter through
 the plain versions of the MSM kernels at a small window width), and with
 the native backend off (CRESCENT_NATIVE=0), where the G2 MSM joins the G1
-fold on the device.  Exact
+fold on the device (below `small_cutoff` points by its direct path) and
+verify's public-input MSM runs on the device too.  Exact
 comparisons (tolerance 0); proofs are compared as tuples of ints, since the
 two packages define their own field classes.
 """
@@ -138,9 +139,11 @@ def test_prove_device_msm_matches_reference_and_native(bundle, monkeypatch):
     assert proofs["device"] == proofs["native"] == want
     assert set(ppk._dev) == {("a_query", "cpu"), ("b_g1_query", "cpu"),
                              ("h_query", "cpu"), ("l_query", "cpu"), "b_g2_query:u64"}
+    # a value the switch does not name is auto, as in the reference: on the
+    # CPU the native MSMs
     monkeypatch.setenv("CRESCENT_PROVE_MSM", "host")
-    with pytest.raises(ValueError):
-        port.prove(ppk, pr1cs, zu, random.Random(0), device="cpu")
+    assert _proof_ints(port.prove(ppk, pr1cs, zu, random.Random(0), r=r, s=s,
+                                  device="cpu")) == want
 
 
 class _NativeChunk:
@@ -185,7 +188,56 @@ def test_prove_with_native_off_matches_reference(bundle, monkeypatch):
     assert timings["msm_g1"] > 0 and timings["msm_g2"] > 0
     assert set(ppk._dev) == {("a_query", "cpu"), ("b_g1_query", "cpu"), ("h_query", "cpu"),
                              ("l_query", "cpu"), ("b_g2_query", "cpu")}
+    monkeypatch.setenv("CRESCENT_NATIVE", "1")  # verify natively (off: the test below)
     assert port.verify(ppk.vk.prepare(), got, z[1 : r1cs.num_instance])
+
+
+def test_prove_with_native_off_at_small_n_matches_default(monkeypatch):
+    """CRESCENT_NATIVE=0 with num_vars <= 1024: the G2 MSM of
+    dummy_circuit(4)'s 17 points (padded to 32) takes get_g2_msm()'s direct
+    path (scalar_mul over Fq2, then a jadd tree), where the port used to
+    raise.  The proof equals the default one for the same r and s.  The G1
+    fold's chunks are answered by the native MSM, as above."""
+    r1cs, z = port.dummy_circuit(4, random.Random(21))
+    pk = port.setup(r1cs, random.Random(22), device="cpu")
+    r, s = 0x1A2B3C4, 0x4C3B2A1
+    want = _proof_ints(port.prove(pk, r1cs, z, random.Random(0), r=r, s=s, device="cpu"))
+    g1 = port_msm.MSM(port.G1, max_chunk=64)
+    g1._affine = _NativeChunk(g1.ctx)
+    monkeypatch.setattr(port, "get_msm", lambda curve: g1)
+    g2 = port_msm.MSM(port_ec.get_g2_ctx())
+    assert r1cs.num_vars <= g2.small_cutoff
+    monkeypatch.setattr(port, "get_g2_msm", lambda: g2)
+    monkeypatch.setenv("CRESCENT_NATIVE", "0")
+    got = port.prove(pk, r1cs, z, random.Random(0), r=r, s=s, device="cpu")
+    assert _proof_ints(got) == want
+    assert g2._affine is None  # no chunk MSM was made for G2
+
+
+def test_prepare_inputs_with_native_off_matches_native(monkeypatch):
+    """prepare_inputs under CRESCENT_NATIVE=0: get_msm(G1).run_host on the
+    device (its direct path) gives the native backend's point, for six
+    public inputs (0, one >= r, r - 1 among them) over gamma_abc points one
+    of which is the identity; and verify, which takes that route, accepts a
+    proof of a circuit with six public inputs."""
+    import dataclasses
+
+    r1cs, z = port.dummy_circuit(3, random.Random(31), num_public=6)
+    pk = port.setup(r1cs, random.Random(32), device="cpu")
+    proof = port.prove(pk, r1cs, z, random.Random(0), device="cpu")
+    abc = list(pk.vk.gamma_abc_g1)
+    abc[4] = None
+    wide = dataclasses.replace(pk.vk, gamma_abc_g1=abc)
+    xs = [0, port.R + 5, port.R - 1, 12345, 2**200 + 1, 77]
+    want = port.prepare_inputs(wide, xs)
+    acc = abc[0]
+    for x, p in zip(xs, abc[1:]):
+        acc = port.G1.add(acc, None if p is None else port.G1.mul(x % port.R, p))
+    assert want == acc
+    monkeypatch.setenv("CRESCENT_NATIVE", "0")
+    monkeypatch.setattr(nb, "msm", None)  # the native MSM may not be reached
+    assert port.prepare_inputs(wide, xs, "cpu") == want
+    assert port.verify(pk.vk.prepare(), proof, z[1 : r1cs.num_instance], device="cpu")
 
 
 def test_native_switch(monkeypatch):
@@ -197,12 +249,9 @@ def test_native_switch(monkeypatch):
     assert port._native_ok()
     monkeypatch.setenv("CRESCENT_NATIVE", "0")
     assert not port._native_ok()
-    for mode in ("auto", "device", "native"):
+    for mode in ("auto", "device", "native", "host"):
         monkeypatch.setenv("CRESCENT_PROVE_MSM", mode)
         assert port._device_msm_prove(cpu) and port._device_msm_prove(cuda)
-    monkeypatch.setenv("CRESCENT_PROVE_MSM", "host")
-    with pytest.raises(ValueError):
-        port._device_msm_prove(cpu)
 
 
 def test_device_table_of_g2_matches_reference(bundle):
@@ -272,6 +321,9 @@ def test_msm_configuration_switch(monkeypatch):
     assert not port._device_msm_prove(cpu) and not port._device_msm_prove(cuda)
     monkeypatch.setenv("CRESCENT_PROVE_MSM", "device")
     assert port._device_msm_prove(cpu) and port._device_msm_prove(cuda)
+    # any other value is auto, as in the reference (groth16.py:105-110)
+    monkeypatch.setenv("CRESCENT_PROVE_MSM", "host")
+    assert not port._device_msm_prove(cpu) and port._device_msm_prove(cuda)
 
 
 _NO_JAX = """

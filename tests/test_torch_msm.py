@@ -17,8 +17,18 @@ its planes to one fixed lane count with zeros, runs (``mul``, ``inv``,
 back.  The ops are lane-wise, so the values are the adapter's own.  Its
 ``jdbl_n`` (a compiled loop for every count) is its ``jdbl`` applied count
 times, which has the same body.  ``_aggregate_dense`` is held on a table of
-three windows.  G2's MSM is also held against the native host G2 MSM,
-through ``run_device`` (one chunk and two) and the repaired ``run_host``.
+three windows, unfused and fused (``bucket_reduce``).  G2's MSM is also
+held against the native host G2 MSM, through ``run_device`` (one chunk and
+two) and the repaired ``run_host``.
+
+The group law of ``CurveCtx`` (``double``, ``add``, ``add_mixed``,
+``scalar_mul``) and the direct path of ``run_device`` for small N run
+through the plain versions of ``jdbl``, ``jadd`` and ``madd``: over G1
+against the reference's ``CurveCtx`` (one jitted program) and the host,
+over G2 against the host group law and the native G2 MSM (the reference's
+Fq2 group law compiles for over a minute on a CPU, its ``_small`` for two;
+its formula bodies are held against the port's Fq2 point ops in
+tests/test_torch_quadratic.py).
 """
 
 
@@ -316,9 +326,14 @@ def test_g2_round1_and_round_match_reference(pair_g2, sorted_entries_g2):
     _check_rounds(pair_g2, sorted_entries_g2)
 
 
-def _check_aggregate(ctx, ref_ctx, ref_pec, curve, pts):
+_REF_AGGREGATE = {}  # the reference's aggregate, once per group and process
+
+
+def _check_aggregate(ctx, ref_ctx, ref_pec, curve, pts, fused=False):
     """Scatter and aggregate of a three-window table (c = 3, five buckets a
-    window), seeded survivors in some buckets and none in others."""
+    window), seeded survivors in some buckets and none in others; `fused`:
+    the port's through ``bucket_reduce``, which must also equal its own
+    unfused aggregate, in Jacobian form."""
     port = port_affine.AffineMSM(ctx, ctx.ec, c=3)
     ref = ref_affine.AffineMSM(ref_ctx, ref_pec, c=3)
     port.W = ref.W = 3
@@ -327,14 +342,19 @@ def _check_aggregate(ctx, ref_ctx, ref_pec, curve, pts):
     # survivors: key << 1 | valid; two lanes hold nothing
     keys = [1, 2, 4, 6, 8, 9, 13, 15]
     pk = torch.tensor([k * 2 + 1 for k in keys[:6]] + [2 * port.sentinel] * 2)
-    dense = port._scatter_dense(pk, Pd.x, Pd.y)
-    rdense = ref._scatter_dense(_to_ref(pk), _to_ref(Pd.x), _to_ref(Pd.y))
-    for got, want in zip(dense, rdense):
-        _same(got, want)
-    got = port._aggregate_dense(*dense)
-    want = ref._aggregate_dense(*rdense)
+    dense = port._scatter_dense(pk, Pd.x, Pd.y, fused)
+    if ctx.name not in _REF_AGGREGATE:
+        rdense = ref._scatter_dense(_to_ref(pk), _to_ref(Pd.x), _to_ref(Pd.y))
+        _REF_AGGREGATE[ctx.name] = rdense, ref._aggregate_dense(*rdense)
+    rdense, want = _REF_AGGREGATE[ctx.name]
+    for got, w in zip(dense, rdense):
+        _same(got, w)
+    got = port._aggregate_dense(*dense, fused)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_limbs(g[None])[0], np.asarray(w).reshape(-1))
+    if fused:
+        for g, w in zip(got, port._aggregate_dense(*dense)):
+            assert torch.equal(g, w)
     # sum over windows w and buckets b of b * 2^(3w) * S[w, b]
     host = None
     for k, p in zip(keys[:6], pts):
@@ -356,11 +376,32 @@ def test_g2_aggregate_dense_matches_reference():
                      nb.fixed_base_g2(BN254G2.generator(), [3, 5, 7, 11, 13, 17, 19, 23]))
 
 
-def test_fused_aggregate_is_not_ported(pair, monkeypatch):
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_fused_aggregate_matches_unfused_and_reference(group):
+    """``_aggregate_dense(fused=True)``: the suffix sums and the weighting
+    by ``bucket_reduce`` (its plain version here) equal the port's unfused
+    aggregate and the reference's, bit for bit in Jacobian form."""
+    ks = [3, 5, 7, 11, 13, 17, 19, 23]
+    if group == "g1":
+        _check_aggregate(get_curve_ctx(BN254_G1), ref_ec.get_curve_ctx(REF_G1),
+                         _PaddedPEC(15, 15, jit=False), BN254_G1,
+                         nb.fixed_base("bn254_g1", BN254_G1.generator, ks), fused=True)
+    else:
+        _check_aggregate(get_g2_ctx(), ref_ec.get_g2_ctx(), _PortQuadPEC(), BN254G2,
+                         nb.fixed_base_g2(BN254G2.generator(), ks), fused=True)
+
+
+def test_fused_aggregate_switch(pair, monkeypatch):
+    """CRESCENT_MSM_FUSED_AGG=1 sends a chunk's scatter and aggregate the
+    fused way (the reference's switch, msm_affine.py:284-297)."""
     port, _ = pair
-    monkeypatch.setenv("CRESCENT_MSM_FUSED_AGG", "1")
-    with pytest.raises(NotImplementedError):
-        port._aggregate(None, None, None)
+    seen = []
+    monkeypatch.setattr(port, "_scatter_dense", lambda pk, ex, ey, fused: (pk, ex, fused))
+    monkeypatch.setattr(port, "_aggregate_dense", lambda *a: seen.append(a))
+    for env in ("0", "1"):
+        monkeypatch.setenv("CRESCENT_MSM_FUSED_AGG", env)
+        port._aggregate(1, 2, 3)
+    assert seen == [(1, 2, False, False), (1, 2, True, True)]
 
 
 def test_affine_msm_run_matches_native(pair):
@@ -453,8 +494,10 @@ def test_run_device_fold_of_three_chunks_matches_native(pair, monkeypatch):
     fold = m.run_device_fold([(Pd.x, Pd.y, valid, sc)])
     got = ctx.points_to_host(JPoints(*(torch.stack(c) for c in zip(*fold))))
     assert got == [nb.msm("bn254_g1", ks, pts)]
-    with pytest.raises(NotImplementedError):
-        m.run_device(Pd.x[:8], Pd.y[:8], valid[:8], sc[:8])
+    # eight points, at the cutoff: the direct path
+    res = m.run_device(Pd.x[:8], Pd.y[:8], valid[:8], sc[:8])
+    assert ctx.points_to_host(JPoints(*(a[None] for a in res))) == [
+        nb.msm("bn254_g1", ks[:8], pts[:8])]
 
 
 def test_points_round_trip_and_identity():
@@ -470,3 +513,129 @@ def test_points_round_trip_and_identity():
     rP = ref_ec.get_curve_ctx(REF_G1).points_to_device(pts)
     for g, w in zip(Pd, rP):
         np.testing.assert_array_equal(limb.words_to_limbs(g), np.asarray(w))
+
+
+# -- the group law of CurveCtx and the direct path for small N -------------------
+
+def _group(name: str):
+    """(port ctx, host curve, seeded affine points) of G1 or G2."""
+    if name == "g1":
+        return (get_curve_ctx(BN254_G1), BN254_G1,
+                lambda ks: nb.fixed_base("bn254_g1", BN254_G1.generator, ks))
+    return get_g2_ctx(), BN254G2, lambda ks: nb.fixed_base_g2(BN254G2.generator(), ks)
+
+
+def _zoo(name: str):
+    """Eight lanes of each group law's cases, as the port's batches.
+
+    P, Q Jacobian, each lane scaled to another Z: generic, P == Q (the same
+    triple), P == -Q, P the identity, Q the identity, both, P == Q through
+    another Z, generic.  Q's affine rows and q_valid for add_mixed: lane 7
+    has q_valid == 0.  Scalars for scalar_mul of P: 0, 1, n - 1, the rest
+    seeded."""
+    ctx, curve, make = _group(name)
+    f = ctx.fctx
+    pp = make([k or 1 for k in _ints(301, 8, curve.n)])
+    qq = make([k or 1 for k in _ints(302, 8, curve.n)])
+    qq[1] = qq[6] = None
+    qq[2] = curve.neg(pp[2])
+    pp[3] = None
+    qq[4] = None
+    pp[5] = qq[5] = None
+    qq[1], qq[6] = pp[1], pp[6]
+    lams = [ctx.points_to_device(make([k or 1 for k in _ints(s, 8, curve.n)]), "cpu").x
+            for s in (303, 304)]
+
+    def scaled(pts, lam):
+        A = ctx.points_to_device(pts, "cpu")
+        l2 = f.mont_sqr(lam)
+        return JPoints(f.mont_mul(A.x, l2), f.mont_mul(A.y, f.mont_mul(l2, lam)),
+                       f.mont_mul(A.z, lam))
+
+    P, Q = scaled(pp, lams[0]), scaled(qq, lams[1])
+    for t in Q:
+        t[1] = 0
+    Q = JPoints(*(torch.where(torch.arange(8)[:, None] == 1, p, q) for p, q in zip(P, Q)))
+    A = ctx.points_to_device(qq, "cpu")
+    qv = torch.from_numpy(points_valid(qq))
+    qv[7] = 0
+    ks = [0, 1, curve.n - 1] + _ints(305, 5, curve.n)
+    return ctx, curve, pp, qq, P, Q, A, qv, ks
+
+
+def _affine(ctx, P) -> list:
+    return ctx.points_to_host(P)
+
+
+@pytest.fixture(scope="module")
+def ref_g1():
+    """The reference's CurveCtx group law over G1 on the zoo, as one jitted
+    program: (double, add, add_mixed, scalar_mul) as the port's word
+    tensors."""
+    ctx, _, _, _, P, Q, A, qv, ks = _zoo("g1")
+    rctx = ref_ec.get_curve_ctx(REF_G1)
+
+    def lim(t):
+        return jnp.asarray(_limbs(t))
+
+    @jax.jit
+    def run(P, Q, ax, ay, av, k):
+        P, Q = ref_ec.JPoints(*P), ref_ec.JPoints(*Q)
+        return (rctx.double(P), rctx.add(P, Q), rctx.add_mixed(P, ax, ay, av),
+                rctx.scalar_mul(k, P))
+
+    k = jnp.asarray(limb.ints_to_limbs(ks))
+    outs = run(tuple(map(lim, P)), tuple(map(lim, Q)), lim(A.x), lim(A.y),
+               jnp.asarray(qv.numpy().astype(np.uint32)), k)
+    return [JPoints(*(limb.limbs_to_words(np.asarray(c).reshape(-1, 16)) for c in o))
+            for o in outs]
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_group_law_matches_reference(group, request):
+    """double, add, add_mixed and scalar_mul of the port's CurveCtx (the
+    plain jdbl, jadd and madd) on the zoo: in affine form against the host
+    group law; over G1 also against the reference's CurveCtx, bit for bit
+    in Jacobian form."""
+    ctx, curve, pp, qq, P, Q, A, qv, ks = _zoo(group)
+    sc = limb.limbs_to_words(limb.ints_to_limbs(ks))
+    got = [ctx.double(P), ctx.add(P, Q), ctx.add_mixed(P, A.x, A.y, qv),
+           ctx.scalar_mul(sc, P)]
+    qm = [q if v else None for q, v in zip(qq, qv.tolist())]
+    want = [[curve.add(p, p) for p in pp], [curve.add(p, q) for p, q in zip(pp, qq)],
+            [curve.add(p, q) for p, q in zip(pp, qm)],
+            [None if p is None else curve.mul(k, p) for p, k in zip(pp, ks)]]
+    for g, w in zip(got, want):
+        assert _affine(ctx, g) == w
+    assert _affine(ctx, got[1])[2] is None and _affine(ctx, got[3])[0] is None
+    # batches of any shape: a (2, 4) batch gives the same rows
+    two = JPoints(*(t.reshape(2, 4, -1) for t in P))
+    assert all(torch.equal(a.reshape(8, -1), b) for a, b in zip(ctx.double(two), got[0]))
+    if group == "g1":
+        for g, w in zip(got, request.getfixturevalue("ref_g1")):
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+    ec = ctx.ec
+    assert ec.launches() == dict.fromkeys(ec.launches(), 0)  # CPU: no kernel
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_small_run_device_matches_reference(group, request):
+    """run_device at N <= small_cutoff: the zoo's eight points P (two of
+    them the identity; scalars 0, 1 and n - 1 among them) take the direct
+    path (scalar_mul, then a jadd tree).  The point equals the native MSM
+    and, over G1, the sum of the reference's scalar_mul products of the
+    same points (what the reference's ``_small`` folds), in affine form."""
+    ctx, curve, pp, _, P, _, _, _, ks = _zoo(group)
+    m = port_msm.get_msm(BN254_G1) if group == "g1" else port_msm.get_g2_msm()
+    assert m.small_cutoff == 1024
+    A = ctx.points_to_device(pp, "cpu")
+    valid = torch.from_numpy(points_valid(pp))
+    res = m.run_device(A.x, A.y, valid, limb.limbs_to_words(limb.ints_to_limbs(ks)))
+    got = _affine(ctx, JPoints(*(a[None] for a in res)))
+    native = nb.msm("bn254_g1", ks, pp) if group == "g1" else nb.msm_g2(ks, pp)
+    assert got == [native] and native is not None
+    if group == "g1":
+        acc = None
+        for p in _affine(ctx, request.getfixturevalue("ref_g1")[3]):
+            acc = curve.add(acc, p)
+        assert got == [acc]

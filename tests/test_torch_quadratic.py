@@ -1,8 +1,11 @@
 """The port's Fq2 layer (crescent_tpu_torch/ops/quadratic.py) and the plain
 versions of its Fq2 kernels (crescent_tpu_torch/ops/cuda_ec.py CudaQuadEC:
-mul, inv, madd, affine_denom, affine_add, jadd, jdbl_n, jdbl) against the
-reference's QuadCtx and its XLA adapter QuadXlaPEC, which runs the Pallas
-kernels' formula bodies over `_F2`.  (The CUDA kernels against the plain
+mul, inv, butterfly, madd, affine_denom, affine_add, jadd, jdbl_n, jdbl)
+against the reference's QuadCtx and its XLA adapter QuadXlaPEC, which runs
+the Pallas kernels' formula bodies over `_F2`.  (bucket_reduce over Fq2:
+tests/test_torch_msm.py, against the reference's unfused aggregate; its
+Pallas kernel over `_F2` takes over ten minutes to compile in interpret
+mode.)  (The CUDA kernels against the plain
 versions: tests/test_torch_cuda.py and chip_smoke.py.)
 
 Layouts: the reference's QuadCtx takes (n, 2, 16) u32 Montgomery limbs, its
@@ -143,6 +146,24 @@ def test_plain_fq2_mul_and_inv_match_reference():
     assert ctx.from_mont_host(_limbs(got)) == [zero if v == zero else v.inv() for v in vals]
     assert (vals[0], vals[4], vals[12]) == (EDGES[0], EDGES[1], EDGES[3])
     assert ec.launches() == dict.fromkeys(QUAD_KERNELS, 0)  # CPU: no kernel
+
+
+def test_plain_fq2_butterfly_matches_reference():
+    """(a + b*tw, a - b*tw) over Fq2 against QuadXlaPEC.butterfly (the
+    `_bfly_kernel` body over `_F2`): rows 0..15 of b and tw hold every pair
+    of 0, 1, p-1 and u, and a those values too."""
+    ec = get_cuda_quad_ec(P)
+    pec = get_quad_xla_pec(P)
+    a, b, tw = _mont(_operands(8, False)), _mont(_operands(9, True)), _mont(_operands(10, False))
+    got = ec.butterfly(_words(a), _words(b), _words(tw))
+    want = pec.butterfly(_plane(a), _plane(b), _plane(tw))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_limbs(g), _from_plane(w))
+    ctx = get_fq2_ctx()
+    av, bv, tv = (ctx.from_mont_host(v) for v in (a, b, tw))
+    assert ctx.from_mont_host(_limbs(got[0])) == [x + y * t for x, y, t in zip(av, bv, tv)]
+    assert ctx.from_mont_host(_limbs(got[1])) == [x - y * t for x, y, t in zip(av, bv, tv)]
+    assert ec.butterfly_launches == 0
 
 
 def _madd_inputs(seed: int):
