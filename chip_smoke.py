@@ -13,13 +13,17 @@
    L == -R, one side only, neither; P + P, P + (-P), the identity on either
    side and on both; for madd also valid == 0 and sign == 1; for
    bucket_reduce, at the fused aggregate's 25 windows of 1025 buckets, empty
-   buckets, P == Q and P == -Q in neighbouring buckets), and once over a
-   curve with a != 0.  Tolerance: none, the results must be bit-identical
-   (exact integer arithmetic).  Prints the kernel's and the plain version's
-   times (CUDA events) and the least time the card could take (`bound_ms`:
-   bytes over 3.35 TB/s against 32-bit multiply-adds over 16.75e12/s,
-   whichever is larger, counted for this run's data), and nvcc's register
-   count.
+   buckets, P == Q and P == -Q in neighbouring buckets; Fq `inv` at 512
+   lanes with 0, 1, p-1, Montgomery 1 and 2^k among them, x * inv(x) == 1;
+   `jdbl_n` at the window combine's five launches, 16 lanes x 11 down to 1
+   lane x 176 doublings, identities among the lanes, then 100 lanes x 0, 1
+   and 3), and once over a curve with a != 0 (2^14 lanes).  Tolerance:
+   none, the results must be bit-identical (exact integer arithmetic).
+   Prints the kernel's and the plain version's times (CUDA events) and the
+   least time the card could take (`bound_ms`: bytes over 3.35 TB/s
+   against 32-bit multiply-adds over 16.75e12/s, and for Fq `inv` the
+   divsteps' integer operations too, whichever is larger, counted for this
+   run's data), and nvcc's register count.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -83,6 +87,15 @@ HBM_BYTES_PER_S = 3.35e12
 # float32 ones: half of the data sheet's 67 TFLOP/s (33.5e12 FMA/s)
 IMAD_PER_S = 16.75e12
 MONT_MUL_MADS = 136  # 8 x (8 + 8 + 1) in fe_mont_mul
+# Fq `inv` a lane (csrc/field.cuh fe_inv_divsteps): 25 batches, each of 30
+# divsteps of 28 integer operations and two matrix updates of 90 32x32->64
+# products (two multiply-adds each) and two 32-bit products, then one
+# Montgomery product by R^3
+DIVSTEP_INV_OPS = 25 * (30 * 28 + 2 * 90 + 2) + MONT_MUL_MADS
+# jdbl_n's launches in a chunk's window combine at c = 11 (W = 25 padded to
+# 32): (lanes, doublings)
+FOLD_DBL_SHAPES = ((16, AFFINE_C), (8, 2 * AFFINE_C), (4, 4 * AFFINE_C),
+                   (2, 8 * AFFINE_C), (1, 16 * AFFINE_C))
 
 
 def _registers(reports: dict) -> dict:
@@ -116,7 +129,10 @@ def _kernel_registers(regs: dict, name: str):
     if name.startswith("fq2_"):
         lib, key = "ec2", (name if base in ("mul", "inv", "butterfly") else base) + "_kernel"
     else:
-        lib, key = ("ntt" if base in ("mul", "butterfly") else "ec"), base + "_kernel"
+        lib = "ntt" if base in ("mul", "butterfly") else "ec"
+        # the redesigned two by their own names; jdbl_n's a == 0 instance
+        key = {"inv": "divstep_inv_kernel",
+               "jdbl_n": "warp_jdbl_n_kernelILb1E"}.get(base, base + "_kernel")
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
     return hits[0] if len(hits) == 1 else None
 
@@ -175,6 +191,17 @@ def _bound(nbytes: float, mads: float) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = mads / IMAD_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _timed_once(torch, fn):
+    """(fn(), its milliseconds on the card by CUDA events), one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
 
 
 def _record(out: dict, name: str, label: str, shape: str, err: int, ms: float,
@@ -340,7 +367,8 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
     """The MSM path's point kernels of one field against their plain
     versions, with the cases planted: affine_denom and affine_add at 2^21
     lanes (the first pair level of a chunk), jadd at the dense table's W*B
-    lanes and at 2^17, jdbl at 2^17, jdbl_n at 16 lanes x 11 and x 176,
+    lanes and at 2^17, jdbl at 2^17, jdbl_n at the window combine's five
+    shapes (16 lanes x 11 .. 1 lane x 176; then 100 lanes x 0, 1 and 3),
     bucket_reduce on the fused aggregate's (W * B)-row table.
     Bounds count an element's bytes (32 over Fq, 64 over Fq2) and its base
     products (a square and a product are 1 and 1 over Fq, 2 and 3 over
@@ -398,7 +426,7 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
                _time_ms(torch, lambda: ec.jadd_plain(*pq), 2),
                9 * e * lanes, (5 * sqr + 11 * mul) * MONT_MUL_MADS * lanes)
 
-    # -- jdbl: 2^17 lanes; jdbl_n: 16 lanes, 11 and 176 doublings --------------
+    # -- jdbl: 2^17 lanes; jdbl_n: the window combine's shapes ----------------
     dbl = (7 * sqr + mul) * MONT_MUL_MADS
     pt = _point_inputs(torch, ec, nck, seed + 20)[:3]
     got = ec.jdbl(*pt)
@@ -410,15 +438,22 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
     err = max(err, _errs(torch, tuple(a[8:] for a in got), ec.jadd(*tail, *tail)))
     record("jdbl", f"2^{CHUNK_LOG} lanes", err, _time_ms(torch, lambda: ec.jdbl(*pt), REPS),
            _time_ms(torch, lambda: ec.jdbl_plain(*pt), 2), 6 * e * nck, dbl * nck)
-    p16 = tuple(a[:16].contiguous() for a in pt)
-    for count in (AFFINE_C, 16 * AFFINE_C):
-        got = ec.jdbl_n(*p16, count)
+    # the window combine's five launches a chunk: 16 lanes x c doublings down
+    # to 1 lane x 16c (lanes 3 and 5 are identities, Z = 0, as the
+    # combine's padding rows are); then counts 0 and 1, and 100 lanes
+    for lanes, count in FOLD_DBL_SHAPES:
+        pl = tuple(a[:lanes].contiguous() for a in pt)
+        got = ec.jdbl_n(*pl, count)
         torch.cuda.synchronize()
-        err = _errs(torch, got, ec.jdbl_n_plain(*p16, count))
-        record("jdbl_n", f"16 lanes x {count}", err,
-               _time_ms(torch, lambda: ec.jdbl_n(*p16, count), 20),
-               _time_ms(torch, lambda: ec.jdbl_n_plain(*p16, count), 1),
-               6 * e * 16, dbl * 16 * count)
+        want, plain_ms = _timed_once(torch, lambda: ec.jdbl_n_plain(*pl, count))
+        record("jdbl_n", f"{lanes} lanes x {count}", _errs(torch, got, want),
+               _time_ms(torch, lambda: ec.jdbl_n(*pl, count), 20), plain_ms,
+               6 * e * lanes, dbl * lanes * count)
+    p100 = tuple(a[:100].contiguous() for a in pt)
+    err = max(_errs(torch, ec.jdbl_n(*p100, count), ec.jdbl_n_plain(*p100, count))
+              for count in (0, 1, 3))
+    if err:
+        fail(f"{prefix}jdbl_n differs from its plain version at 100 lanes x 0, 1 or 3")
 
     # -- bucket_reduce: the fused aggregate's table, W = 25 windows of B = 1025
     W = (256 + AFFINE_C - 1) // AFFINE_C + 1
@@ -455,7 +490,8 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
 
     # -- inv: 512 lanes, the root of every batch_inv --------------------------
     x = _rand_elems(torch, 512, p, SEED + 20)
-    x[:4] = ctx.words([0, 1, p - 1, ctx.r_mod_n], "cuda")
+    x[:10] = ctx.words([0, 1, p - 1, ctx.r_mod_n] + [1 << k for k in (1, 31, 32, 64, 128, 253)],
+                       "cuda")
     got = ec.inv(x)
     torch.cuda.synchronize()
     want = ec.inv_plain(x)
@@ -464,10 +500,8 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     prod = ec.mul(x, got)
     if not (prod[1:] == one).all().item() or prod[0].any().item():
         fail("inv: x * inv(x) is not Montgomery 1 (or inv(0) is not 0)")
-    e = p - 2
     _record(out, "inv", "BN254 Fq", "512 lanes", err, _time_ms(torch, lambda: ec.inv(x), 20),
-            _time_ms(torch, lambda: ec.inv_plain(x), 1), 64 * 512,
-            512 * (256 + bin(e).count("1")) * MONT_MUL_MADS)
+            _time_ms(torch, lambda: ec.inv_plain(x), 1), 64 * 512, 512 * DIVSTEP_INV_OPS)
 
     _point_kernel_checks(torch, ec, "BN254 Fq", "", SEED + 30, batch_inv, out)
 
@@ -1252,6 +1286,9 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes these
         })
+        if len(rows) > 1:  # every shape the kernel phase timed
+            kernels[-1]["shapes"] = [
+                {"shape": r[0], "ms": r[2], "plain_ms": r[3], "bound_ms": r[4]} for r in rows]
     say(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,11 +16,11 @@
 // validity flags are (N,) int32.  Every result is canonical, so it is
 // bit-equal to the TPU kernel's on the same inputs.
 //
-// One thread per lane: it loads its rows with 128-bit accesses (adjacent
-// threads on adjacent rows), keeps every intermediate of the formula in
-// registers and stores the result rows.  No lane padding (a bounds check),
-// the curve constants arrive by value in the constant bank, `inv` reads
-// its exponent p - 2 from there, and `jdbl_n`'s count is a kernel argument.
+// One thread per lane but for `jdbl_n` (a warp a lane): it loads its rows
+// with 128-bit accesses (adjacent threads on adjacent rows), keeps every
+// intermediate of the formula in registers and stores the result rows.  No
+// lane padding (a bounds check), the curve constants arrive by value in the
+// constant bank, and `jdbl_n`'s count is a kernel argument.
 //
 // What bounds them on this card.  `affine_denom` (4 rows in, 1 out, a few
 // subtractions) is bound by bytes.  `affine_add` (5 rows in, 2 out, three
@@ -28,19 +28,40 @@
 // where integer multiply-adds overtake bytes; `jadd` is the register-heavy
 // one, so its rare doubling case is a branch taken only by lanes with
 // P == Q instead of a second formula evaluated by every lane (the value is
-// the same).  `inv` and `jdbl_n` run a long dependent chain on few lanes
-// (512 lanes x ~380 products; at most 16 lanes x 176 doublings): they are
-// bound by latency, so they launch small blocks that spread the lanes over
-// many SMs, and `inv` skips the product for a zero exponent bit (uniform
-// over the grid).  `madd` (5 rows in, 3 out, eleven products) is bound by
+// the same).  `madd` (5 rows in, 3 out, eleven products) is bound by
 // operations, with `jadd`'s branch for the doubling.  `bucket_reduce`
 // (one window of the dense bucket table a block, 12,298 dependent-level
 // jadds a window at c = 11) is bound by operations in principle; with one
 // block per window it runs on W of the card's SMs, 44 jadds in a row a
 // thread (point.cuh).
 //
-// Every kernel but `inv` is a template of point.cuh instantiated here over
-// Fe; ec2.cu instantiates the same bodies over Fe2.
+// `inv` and `jdbl_n` run a long dependent chain on few lanes, so they are
+// bound by latency, not by the card's throughput:
+//   * `inv` (pallas_ec.py:527-543, `_inv_kernel` and `_inv_core`; op :698)
+//     inverts batch_inv's 512-lane root.  The Fermat chain it replaces was
+//     about 381 dependent Montgomery products a thread, each a 64-bit carry
+//     chain one thread cannot hide (0.25 ms a launch).  This one is
+//     field.cuh's constant-time divstep inversion: 25 batches of 30
+//     divsteps on the low words, each followed by two short 2x2 matrix
+//     updates of nine signed 30-bit limbs, about 25.7k integer operations
+//     a thread against the chain's 51.8k multiply-adds, with no branch on
+//     the data (the 32 lanes of a warp never diverge), then one product by
+//     R^3 mod p (an argument) back to Montgomery form.  One thread a lane,
+//     one warp a block, so the 16 warps of the root spread over 16 SMs.  64
+//     registers, no spills (nvcc -Xptxas -v, sm_90a).
+//   * `jdbl_n` (pallas_ec.py:550, `_dbln_kernel`; op :744) runs the window
+//     combine's chains, 16 down to 1 lanes of 11 to 176 doublings.  One
+//     thread a lane ran dbl-2007-bl's eight products in a row.  This one is
+//     warp.cuh's warp a lane: each doubling in three stages of independent
+//     products, each product shared by 8 threads, one word a thread, with
+//     shuffles and warp votes for the carries, and the sums between the
+//     stages as PTX carry chains; an instance for a == 0 (the BN254 curves)
+//     and one for a != 0.  63 and 58 registers, no spills.
+//
+// Every kernel but `inv` and `jdbl_n` is a template of point.cuh
+// instantiated here over Fe; ec2.cu instantiates the same bodies over Fe2,
+// `jdbl_n`'s one thread a lane included, and inverts by the Fermat chain
+// of the norm.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -52,6 +73,7 @@
 
 #include "field.cuh"
 #include "point.cuh"
+#include "warp.cuh"
 
 using crescent::Curve;
 using crescent::Fe;
@@ -66,21 +88,29 @@ using crescent::make_curve;
 
 namespace {
 
-// out = x^(p-2) (field.cuh fe_inv); 0 -> 0.
-__global__ void inv_kernel(Curve C, const uint4* x, uint4* out, long long n) {
+struct Words8 {
+  uint32_t w[8];
+};
+
+// out = 1/x (field.cuh fe_inv_divsteps); 0 -> 0.  r3 = R^3 mod p.
+__global__ void divstep_inv_kernel(Curve C, Words8 r3, const uint4* x,
+                                   uint4* out, long long n) {
   const long long i = lane();
   if (i >= n) return;
-  fe_store(out + 2 * i, crescent::fe_inv(fe_load(x + 2 * i), C.one, C.M));
+  fe_store(out + 2 * i, crescent::fe_inv_divsteps(fe_load(x + 2 * i), r3.w, C.M));
 }
 
 }  // namespace
 
-extern "C" int crescent_inv(const uint32_t* curve26, const void* x, void* out,
-                            long long n, void* stream) {
+extern "C" int crescent_inv(const uint32_t* curve26, const uint32_t* r3,
+                            const void* x, void* out, long long n,
+                            void* stream) {
   if (n > 0) {
-    inv_kernel<<<grid_for(n, kChainThreads), kChainThreads, 0,
-                 (cudaStream_t)stream>>>(make_curve(curve26), (In)x, (Out)out,
-                                         n);
+    Words8 r;
+    for (int j = 0; j < 8; ++j) r.w[j] = r3[j];
+    divstep_inv_kernel<<<grid_for(n, kChainThreads), kChainThreads, 0,
+                         (cudaStream_t)stream>>>(make_curve(curve26), r, (In)x,
+                                                 (Out)out, n);
   }
   return (int)cudaGetLastError();
 }
@@ -115,8 +145,14 @@ extern "C" int crescent_jadd(const uint32_t* curve26, const void* x1,
 extern "C" int crescent_jdbl_n(const uint32_t* curve26, const void* x,
                                const void* y, const void* z, void* ox, void* oy,
                                void* oz, long long n, int count, void* stream) {
-  return crescent::launch_jdbl_n<Fe>(curve26, x, y, z, ox, oy, oz, n, count,
-                                     stream);
+  if (n > 0) {  // one warp a lane (warp.cuh)
+    const Curve C = make_curve(curve26);
+    auto kernel = C.a_is_zero ? crescent::warp_jdbl_n_kernel<true>
+                              : crescent::warp_jdbl_n_kernel<false>;
+    kernel<<<(unsigned)n, 32, 0, (cudaStream_t)stream>>>(
+        C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, count);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int crescent_jdbl(const uint32_t* curve26, const void* x,

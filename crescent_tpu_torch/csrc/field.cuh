@@ -217,6 +217,181 @@ __device__ __forceinline__ Fe fe_inv(const Fe& v, const uint32_t* one,
 }
 
 // ---------------------------------------------------------------------------
+// Constant-time inversion by divsteps (Bernstein and Yang, "Fast
+// constant-time gcd computation and modular inversion", 2019), in the 32-bit
+// form of libsecp256k1's modinv32: values in nine signed 30-bit limbs (limbs
+// 0..7 in [0, 2^30), limb 8 signed), 30 divsteps a batch applied to the low
+// words of f and g, each batch's 2x2 matrix then applied to (f, g) and,
+// modulo p, to (d, e).  This is the original divstep (delta starts at 1;
+// eta = -delta here), not libsecp256k1's delta = 1/2 variant, so its count
+// is Bernstein and Yang's proven bound for 256-bit inputs (Theorem 11.2):
+// floor((49 * 256 + 57) / 17) = 741 divsteps, run as 25 batches of 30 =
+// 750.  No branch and no loop bound depends on the data.
+// ---------------------------------------------------------------------------
+
+// The schedule (tests/test_torch_inv_divsteps.py reads these three lines):
+// a batch's divsteps scale its matrix by 2^kS30Bits, which the limbs divide
+// out exactly, so the batch length is the limb width.
+constexpr int kS30Bits = 30;
+constexpr int kDivstepBatch = kS30Bits;
+constexpr int kDivstepBatches = 25;
+constexpr int32_t kM30 = (int32_t)((1u << kS30Bits) - 1);
+
+struct S30 {
+  int32_t v[9];
+};
+
+// canonical element (8 words) -> 9 limbs of 30 bits
+__device__ __forceinline__ S30 s30_from(const uint32_t* w) {
+  S30 r;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int bit = kS30Bits * i, k = bit / 32, s = bit % 32;
+    uint64_t x = w[k];
+    if (k + 1 < 8) x |= (uint64_t)w[k + 1] << 32;
+    r.v[i] = (int32_t)((x >> s) & (uint64_t)kM30);
+  }
+  return r;
+}
+
+// limbs in [0, 2^30) with a value below 2^256 -> 8 words
+__device__ __forceinline__ Fe fe_from_s30(const S30& a) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int bit = 32 * j, i = bit / kS30Bits, s = bit % kS30Bits;  // s <= 14
+    const uint64_t x = (uint64_t)(uint32_t)a.v[i] | ((uint64_t)(uint32_t)a.v[i + 1] << kS30Bits);
+    r.w[j] = (uint32_t)(x >> s);
+  }
+  return r;
+}
+
+// 30 divsteps on the low words f0, g0 of f and g.  Returns the new eta and
+// the matrix t = (u, v, q, r) with u f0 + v g0 = f 2^30, q f0 + r g0 = g 2^30
+// (f, g the new values); |u| + |v| and |q| + |r| stay <= 2^30.
+__device__ __forceinline__ int32_t divsteps_30(int32_t eta, uint32_t f0,
+                                               uint32_t g0, int32_t t[4]) {
+  uint32_t u = 1, v = 0, q = 0, r = 1, f = f0, g = g0;
+#pragma unroll
+  for (int i = 0; i < kDivstepBatch; ++i) {
+    uint32_t c1 = (uint32_t)(eta >> 31);  // delta > 0
+    const uint32_t c2 = 0u - (g & 1u);    // g odd
+    const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    c1 &= c2;  // both: (delta, f, g) -> (1 - delta, g, (g - f) / 2)
+    eta = (int32_t)((((uint32_t)eta ^ c1) - c1) - 1u);
+    f += g & c1;
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t[0] = (int32_t)u;
+  t[1] = (int32_t)v;
+  t[2] = (int32_t)q;
+  t[3] = (int32_t)r;
+  return eta;
+}
+
+// (f, g) <- t (f, g) / 2^30 (exact).
+__device__ __forceinline__ void update_fg_30(S30& f, S30& g, const int32_t t[4]) {
+  const int64_t u = t[0], v = t[1], q = t[2], r = t[3];
+  int64_t cf = u * f.v[0] + v * g.v[0];
+  int64_t cg = q * f.v[0] + r * g.v[0];
+  cf >>= kS30Bits;
+  cg >>= kS30Bits;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cf += u * f.v[i] + v * g.v[i];
+    cg += q * f.v[i] + r * g.v[i];
+    f.v[i - 1] = (int32_t)cf & kM30;
+    g.v[i - 1] = (int32_t)cg & kM30;
+    cf >>= kS30Bits;
+    cg >>= kS30Bits;
+  }
+  f.v[8] = (int32_t)cf;
+  g.v[8] = (int32_t)cg;
+}
+
+// (d, e) <- (t (d, e) + p (md, me)) / 2^30, md and me chosen so the division
+// is exact (pinv30 = p^-1 mod 2^30) and the values stay in (-2p, p).
+__device__ __forceinline__ void update_de_30(S30& d, S30& e, const int32_t t[4],
+                                             const S30& p30, uint32_t pinv30) {
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (t[0] & sd) + (t[1] & se);
+  int32_t me = (t[2] & sd) + (t[3] & se);
+  const int64_t u = t[0], v = t[1], q = t[2], r = t[3];
+  int64_t cd = u * d.v[0] + v * e.v[0];
+  int64_t ce = q * d.v[0] + r * e.v[0];
+  md -= (int32_t)((pinv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)kM30);
+  me -= (int32_t)((pinv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)kM30);
+  cd += (int64_t)p30.v[0] * md;
+  ce += (int64_t)p30.v[0] * me;
+  cd >>= kS30Bits;
+  ce >>= kS30Bits;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cd += u * d.v[i] + v * e.v[i] + (int64_t)p30.v[i] * md;
+    ce += q * d.v[i] + r * e.v[i] + (int64_t)p30.v[i] * me;
+    d.v[i - 1] = (int32_t)cd & kM30;
+    e.v[i - 1] = (int32_t)ce & kM30;
+    cd >>= kS30Bits;
+    ce >>= kS30Bits;
+  }
+  d.v[8] = (int32_t)cd;
+  e.v[8] = (int32_t)ce;
+}
+
+// d in (-2p, p) -> sign(f) d in [0, p): add p if negative, negate if f < 0,
+// carry; add p again if still negative, carry.
+__device__ __forceinline__ void normalize_30(S30& d, int32_t fsign,
+                                             const S30& p30) {
+  int32_t add = d.v[8] >> 31;
+  const int32_t neg = fsign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d.v[i] = ((d.v[i] + (p30.v[i] & add)) ^ neg) - neg;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    d.v[i + 1] += d.v[i] >> kS30Bits;
+    d.v[i] &= kM30;
+  }
+  add = d.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d.v[i] += p30.v[i] & add;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    d.v[i + 1] += d.v[i] >> kS30Bits;
+    d.v[i] &= kM30;
+  }
+}
+
+// 1/x in Montgomery form (0 -> 0): the divsteps invert the row xR into
+// x^-1 R^-1 in [0, p), and one Montgomery product by r3 = R^3 mod p makes
+// it x^-1 R.  Canonical, so bit-equal to fe_inv's Fermat chain.
+__device__ __forceinline__ Fe fe_inv_divsteps(const Fe& x, const uint32_t* r3,
+                                              const Mod& M) {
+  const uint32_t pinv30 = (0u - M.inv) & (uint32_t)kM30;  // p^-1 mod 2^30
+  const S30 p30 = s30_from(M.p);
+  S30 f = p30, g = s30_from(x.w), d, e;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d.v[i] = e.v[i] = 0;
+  e.v[0] = 1;
+  int32_t eta = -1;  // delta = 1
+#pragma unroll 1
+  for (int b = 0; b < kDivstepBatches; ++b) {
+    int32_t t[4];
+    eta = divsteps_30(eta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+    update_de_30(d, e, t, p30, pinv30);
+    update_fg_30(f, g, t);
+  }
+  normalize_30(d, f.v[8], p30);  // f = +-1 (p where x = 0, and then d = 0)
+  return fe_mont_mul(fe_from_s30(d), fe_from(r3), M);
+}
+
+// ---------------------------------------------------------------------------
 // Fq2 = Fq[u]/(u^2 + 1): two base elements (c0 + c1 u), both Montgomery
 // form.  In memory a 64-byte row: c0's eight words, then c1's (the bytes of
 // the reference's (n, 2, 16) limbs and of ArrayPointVec(g2=True) rows).

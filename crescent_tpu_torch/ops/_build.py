@@ -40,7 +40,7 @@ SIGNATURES = {
         "crescent_butterfly": [_u32p, _vp, _vp, _vp, _ll, _int, _vp],
     },
     "ec": {
-        "crescent_inv": [_u32p, _vp, _vp, _ll, _vp],
+        "crescent_inv": [_u32p, _u32p, _vp, _vp, _ll, _vp],
         "crescent_affine_denom": [_u32p] + [_vp] * 7 + [_ll, _vp],
         "crescent_affine_add": [_u32p] + [_vp] * 10 + [_ll, _vp],
         "crescent_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],
@@ -116,11 +116,12 @@ def _finish(name: str, started) -> str:
     return out
 
 
-def build_all() -> dict[str, str]:
-    """Build every library not yet built, one nvcc per source, all at once.
-    Returns nvcc's output (register and spill report) per source built."""
+def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
+    """Build every library of `names` (default: all) not yet built, one nvcc
+    per source, all at once.  Returns nvcc's output (register and spill
+    report) per source built."""
     with _lock:
-        started = {n: _start(n) for n in SIGNATURES}
+        started = {n: _start(n) for n in names}
         return {n: _finish(n, s) for n, s in started.items() if s is not None}
 
 

@@ -11,7 +11,9 @@ Field ops (``csrc/ntt.cu``):
 
 Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
 
-* ``inv(x)``: x^(p-2), 0 -> 0 (``PallasEC.inv`` / ``_inv_kernel``).
+* ``inv(x)``: 1/x, 0 -> 0 (``PallasEC.inv`` / ``_inv_kernel``, a Fermat
+  chain there, a constant-time divstep inversion here; the plain version
+  is x^(p-2)).
 * ``affine_denom(lx, ly, lv, rx, ry, rv)``: the denominator of the affine
   sum L + R (``_adenom_kernel``).
 * ``affine_add(lx, ly, lv, rx, ry, rv, inv)``: affine L + R from
@@ -284,6 +286,7 @@ class _Kernels:
     KERNELS: tuple = ()
     LIB = PREFIX = ""
     WIDTH = NWORD
+    _inv_consts: tuple = ()  # `inv`'s arguments after the curve's
 
     def reset_launches(self) -> None:
         for k in self.KERNELS:
@@ -377,14 +380,16 @@ class _Kernels:
 
     # -- ops ------------------------------------------------------------------
     def inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Inverse of every row (Montgomery form; the Fermat chain, over Fq2
-        the norm map); 0 -> 0."""
+        """Inverse of every row (Montgomery form; over a prime field the
+        divstep inversion, over Fq2 the Fermat chain of the norm map);
+        0 -> 0."""
         if self._device(x) == "cpu":
             return self.inv_plain(x)
         n, dev = self._planes("x", [x])
         out = torch.empty_like(x)
         self._launched("inv", self._entry("inv")(
-            self._curve26, x.data_ptr(), out.data_ptr(), n, _stream(dev)))
+            self._curve26, *self._inv_consts, x.data_ptr(), out.data_ptr(), n,
+            _stream(dev)))
         return out
 
     def affine_denom(self, lx, ly, lv, rx, ry, rv) -> torch.Tensor:
@@ -505,6 +510,14 @@ class _Kernels:
         return tuple(outs)
 
 
+def divstep_r3(modulus: int) -> int:
+    """R^3 mod p, R = 2^256, for the Fq `inv` kernel (csrc/field.cuh
+    fe_inv_divsteps): the divsteps invert a Montgomery row xR into
+    x^-1 R^-1, and one Montgomery product by R^3 turns that into x^-1 R.
+    The kernel reads p^-1 mod 2^30 off the curve's -p^-1 mod 2^32."""
+    return pow(1 << 256, 3, modulus)
+
+
 def _curve26(modulus: int, one_mont: int, a_mont: int):
     """The kernels' curve constants: modulus words, -p^-1 mod 2^32,
     Montgomery 1, Montgomery a, a_is_zero."""
@@ -530,6 +543,8 @@ class CudaEC(_Kernels):
         ninv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
         self._mod9 = (ctypes.c_uint32 * 9)(*_words32(modulus), ninv32)
         self._curve26 = _curve26(modulus, self.ctx.r_mod_n, self.a_mont)
+        self._inv_consts = ((ctypes.c_uint32 * NWORD)(
+            *_words32(divstep_r3(modulus))),)
         self.reset_launches()
 
     def _a(self, device):

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Groth16 prove of this checkout against another tree's, in alternating
+pairs, on one card.
+
+    python3 scripts/prove_pairs.py OTHER_ROOT [--log2 21] [--pairs 10]
+        [--configs default CRESCENT_NATIVE=0] [--device cuda]
+
+Starts one worker process a tree (this checkout and OTHER_ROOT, for example
+the parent commit unpacked under the gitignored `build/`).  Each builds its
+kernels, makes dummy_circuit(log2) from the same seeds, sets it up on the
+card and proves once in each configuration to warm up; then it proves on
+request, with fixed r and s.  The driver asks for `pairs` pairs in each
+configuration (by default both: default, and CRESCENT_NATIVE=0 with G2 on
+the card too), the tree that goes first alternating from pair to pair, and checks that every
+proof of both trees is the same.  It prints every prove's wall time, each
+tree's median and quartiles, the median of the pairs' differences (this -
+other) and in how many pairs this checkout was the faster, and the same
+medians for each phase of prove's `timings`.
+
+Needs a CUDA card (`--device cpu --configs default` checks the script
+itself at a small log2 on a machine without one); imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = {"default": {}, "CRESCENT_NATIVE=0": {"CRESCENT_NATIVE": "0"}}
+
+
+def worker(root: str, logn: int, device: str, configs: list[str]) -> None:
+    """Set up dummy_circuit(logn) with the port in `root`, then answer one
+    line a configuration name with one JSON line: wall seconds and proof."""
+    sys.path.insert(0, root)
+    import random
+
+    import torch
+    from crescent_tpu_torch.models import groth16
+    from crescent_tpu_torch.ops import _build
+
+    if device == "cuda":
+        _build.build_all()
+    r1cs, z = groth16.dummy_circuit(logn, random.Random(1))
+    pk = groth16.setup(r1cs, random.Random(2), device=device)
+
+    def prove(cfg: str) -> dict:
+        env = CONFIGS[cfg]
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            timings: dict = {}
+            t0 = time.perf_counter()
+            pr = groth16.prove(pk, r1cs, z, random.Random(0), r=0x1234567, s=0x7654321,
+                               device=device, timings=timings)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        b = pr.b
+        proof = repr((tuple(pr.a), (b[0].c0, b[0].c1, b[1].c0, b[1].c1), tuple(pr.c)))
+        return {"wall": wall, "proof": proof, "timings": timings}
+
+    for cfg in configs:
+        prove(cfg)
+    print(json.dumps({"ready": root}), flush=True)
+    for line in sys.stdin:
+        print(json.dumps(prove(line.strip())), flush=True)
+
+
+def _ask(proc, cfg: str) -> dict:
+    proc.stdin.write(cfg + "\n")
+    proc.stdin.flush()
+    line = proc.stdout.readline()
+    if not line:
+        sys.exit("prove_pairs: a worker ended")
+    return json.loads(line)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", nargs="?")
+    ap.add_argument("--log2", type=int, default=21)
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--configs", nargs="+", choices=list(CONFIGS), default=list(CONFIGS))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--worker", metavar="ROOT")
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker, args.log2, args.device, args.configs)
+        return
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        sys.exit("prove_pairs: needs a CUDA card")
+    if args.device == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip(), flush=True)
+    trees = {"other": os.path.abspath(args.other), "this": HERE}
+    procs = {}
+    try:
+        for name, root in trees.items():  # one at a time: set-ups do not overlap
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker", root,
+                 "--log2", str(args.log2), "--device", args.device,
+                 "--configs", *args.configs],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            if not procs[name].stdout.readline():
+                sys.exit(f"prove_pairs: the worker in {root} failed")
+            print(f"{name} ready: {root}", flush=True)
+        walls = {(cfg, t): [] for cfg in args.configs for t in trees}
+        phases = {(cfg, t): [] for cfg in args.configs for t in trees}
+        proofs = set()
+        for i in range(args.pairs):
+            for cfg in args.configs:
+                for t in (("other", "this") if i % 2 == 0 else ("this", "other")):
+                    res = _ask(procs[t], cfg)
+                    walls[cfg, t].append(res["wall"])
+                    phases[cfg, t].append(res["timings"])
+                    proofs.add(res["proof"])
+                    print(f"pair {i} {cfg} {t}: {res['wall']:.3f} s", flush=True)
+        if len(proofs) != 1:
+            sys.exit("prove_pairs: the proofs differ")
+        for cfg in args.configs:
+            for t in trees:
+                w = walls[cfg, t]
+                q1, med, q3 = statistics.quantiles(w, n=4)
+                print(f"{cfg} {t}: median {med:.3f} s, quartiles {q1:.3f} / {q3:.3f} s "
+                      f"over {len(w)} proves")
+            diff = [b - a for a, b in zip(walls[cfg, "other"], walls[cfg, "this"])]
+            print(f"{cfg}: this - other, median of {len(diff)} pairs {statistics.median(diff):+.3f} s; "
+                  f"this faster in {sum(d < 0 for d in diff)} of {len(diff)}")
+            for ph in phases[cfg, "this"][0]:
+                med = {t: statistics.median(p[ph] for p in phases[cfg, t]) for t in trees}
+                d = statistics.median(b[ph] - a[ph] for a, b in
+                                      zip(phases[cfg, "other"], phases[cfg, "this"]))
+                print(f"  {ph}: other {med['other']:.3f} s, this {med['this']:.3f} s, "
+                      f"median pair difference {d:+.3f} s")
+        print(json.dumps({f"{cfg} {t}": w for (cfg, t), w in walls.items()}))
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+
+
+if __name__ == "__main__":
+    main()

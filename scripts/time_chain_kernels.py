@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Times the two latency-bound Fq kernels of the G1 fold, `inv` and
+`jdbl_n`, at the prove path's shapes, and compares two trees in turns.
+
+    python3 scripts/time_chain_kernels.py [--root DIR]
+    python3 scripts/time_chain_kernels.py --turns ROOT [ROOT ...] [--rounds N]
+
+The first form builds the kernels of the port in DIR (default: this
+checkout), checks Fq `inv` at batch_inv's 512-lane root and `jdbl_n` at the
+window combine's five launches of a chunk (16 lanes x 11, 8 x 22, 4 x 44,
+2 x 88, 1 x 176 doublings) bit-equal to their plain versions on the card,
+times each by CUDA events (a mean over many launches, after a warm-up) and
+prints one JSON line.  The second runs the first form in subprocesses on
+this checkout and on each ROOT in turns (N rounds, default 2, the order
+rotated and reversed from round to round), so every build is measured on
+one card, and prints the medians side by side with the card's name and
+power limit.
+
+Needs a CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEED = 20261017
+SHAPES = ((16, 11), (8, 22), (4, 44), (2, 88), (1, 176))
+INV_LANES = 512
+REPS = 200
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def measure(root: str) -> dict:
+    """Build the port in `root`, check and time its Fq inv and jdbl_n."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("time_chain_kernels: needs a CUDA card")
+    sys.path.insert(0, root)
+    from crescent_tpu_torch.core import fields
+    from crescent_tpu_torch.ops import _build
+    from crescent_tpu_torch.ops.cuda_ec import get_cuda_ec
+
+    _build.library("ec")
+    p = fields.BN254_FQ
+    ec = get_cuda_ec(p)
+    rng = np.random.default_rng(SEED)
+
+    def elems(n: int) -> torch.Tensor:
+        w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+        w[:, 7] = rng.integers(0, p >> 224, size=n, dtype=np.uint64)
+        return torch.from_numpy(w.astype(np.uint32).view(np.int32)).cuda()
+
+    def time_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / REPS
+
+    out = {"root": root, "card": _card()}
+    x = elems(INV_LANES)
+    x[0] = 0
+    if not torch.equal(ec.inv(x), ec.inv_plain(x)):
+        sys.exit(f"time_chain_kernels: inv differs from its plain version in {root}")
+    out["inv 512 lanes"] = time_ms(lambda: ec.inv(x))
+    pt = [elems(16) for _ in range(3)]
+    pt[2][3] = 0  # an identity lane, as the combine's padding rows are
+    for lanes, count in SHAPES:
+        pl = [a[:lanes].contiguous() for a in pt]
+        got = ec.jdbl_n(*pl, count)
+        if not all(torch.equal(g, w) for g, w in zip(got, ec.jdbl_n_plain(*pl, count))):
+            sys.exit(f"time_chain_kernels: jdbl_n {lanes} x {count} differs in {root}")
+        out[f"jdbl_n {lanes} x {count}"] = time_ms(lambda: ec.jdbl_n(*pl, count))
+    return out
+
+
+def turns(others: list[str], rounds: int) -> None:
+    roots = [HERE] + others
+    runs = {root: [] for root in roots}
+    for r in range(rounds):
+        order = roots[r % len(roots):] + roots[:r % len(roots)]
+        for root in (order if r % 2 == 0 else order[::-1]):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                sys.exit(f"time_chain_kernels: the run in {root} failed:\n{res.stdout}{res.stderr}")
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            print(json.dumps(line), flush=True)
+            runs[root].append(line)
+    print(runs[HERE][0]["card"])
+    for k in (k for k in runs[HERE][0] if k not in ("root", "card")):
+        this = statistics.median(r[k] for r in runs[HERE])
+        cols = [f"this {this:.5f} ms {[r[k] for r in runs[HERE]]}"]
+        for root in others:
+            t = [r[k] for r in runs[root]]
+            m = statistics.median(t)
+            cols.append(f"{os.path.relpath(root, HERE)} {m:.5f} ms {t}, / this {m / this:.2f}")
+        print(f"{k}: " + "; ".join(cols))
+    print(json.dumps({os.path.relpath(root, HERE): runs[root] for root in roots}))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--turns", metavar="ROOT", nargs="+")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if args.turns:
+        turns([os.path.abspath(t) for t in args.turns], args.rounds)
+    else:
+        print(json.dumps(measure(os.path.abspath(args.root))), flush=True)
+
+
+if __name__ == "__main__":
+    main()

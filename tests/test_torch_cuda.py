@@ -392,3 +392,73 @@ def test_cuda_small_msm_matches_native(cuda):
         after = m.ctx.ec.launches()
         assert after["jdbl"] - before["jdbl"] == 256
         assert after["jadd"] - before["jadd"] == 256 + 7  # and a tree over 128 rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_cuda_inv_divsteps_matches_plain(cuda, name):
+    """The divstep `inv` against x^(p-2) at batch_inv's 512-lane root and
+    at 3 lanes: 0, 1, p - 1, R mod p (rows 0..15), 2^k, x * inv(x) == 1."""
+    p = FIELDS[name]
+    ec = get_cuda_ec(p)
+    ctx = ec.ctx
+    x = _elems(p, 512, 9, cuda)
+    x[16:26] = ctx.words([1 << k for k in (1, 29, 30, 31, 32, 60, 64, 128, 200, 253)], cuda)
+    before = ec.inv_launches
+    got = ec.inv(x)
+    assert _equal(got, ec.inv_plain(x))
+    nz = ~ctx.is_zero(x)
+    assert torch.equal(ec.mul(x, got)[nz], ctx.one_mont(cuda).expand(int(nz.sum()), 8))
+    assert not got[~nz].any()
+    x3 = x[1:4].contiguous()  # 1, p - 1, R mod p
+    assert _equal(ec.inv(x3), ec.inv_plain(x3))
+    assert ec.inv_launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [0, 0x1234567], ids=["a0", "a_nonzero"])
+def test_cuda_jdbl_n_fold_shapes_match_plain(cuda, a):
+    """The warp-a-lane `jdbl_n` over BN254 Fq at the window combine's five
+    shapes (16 lanes x 11 .. 1 lane x 176), identities (Z = 0) planted in
+    lanes 3 and 5, on a = 0 and a != 0."""
+    ec = get_cuda_ec(fields.BN254_FQ, a)
+    pt = _planted_points(ec, 16 + 16, 17, cuda)[:3]
+    before = ec.jdbl_n_launches
+    shapes = ((16, 11), (8, 22), (4, 44), (2, 88), (1, 176))
+    for lanes, count in shapes:
+        pl = tuple(t[:lanes].contiguous() for t in pt)
+        assert _equal(ec.jdbl_n(*pl, count), ec.jdbl_n_plain(*pl, count)), (lanes, count)
+    assert ec.jdbl_n_launches == before + len(shapes)
+
+
+@pytest.mark.cuda
+def test_cuda_prove_matches_native(cuda, monkeypatch):
+    """A small circuit proved with the fold on the card (one 512-point chunk
+    a problem at c = 11: the divstep `inv` and the warp `jdbl_n` among its
+    kernels) equals the native configuration's proof, and verifies."""
+    import random
+
+    from crescent_tpu_torch.models import groth16
+    from crescent_tpu_torch.ops import msm
+
+    def proof_ints(pr):
+        b = pr.b
+        return (tuple(pr.a), (b[0].c0, b[0].c1, b[1].c0, b[1].c1), tuple(pr.c))
+
+    r1cs, z = groth16.dummy_circuit(8, random.Random(3))
+    pk = groth16.setup(r1cs, random.Random(4), device="cuda")
+    ec = get_cuda_ec(fields.BN254_FQ)
+    monkeypatch.setenv("CRESCENT_MSM_CHUNK", "512")
+    msm.get_msm.cache_clear()  # an MSM reads its chunk size when it is made
+    try:
+        monkeypatch.setenv("CRESCENT_PROVE_MSM", "device")
+        before = ec.launches()
+        fold = groth16.prove(pk, r1cs, z, random.Random(7), device="cuda")
+        after = ec.launches()
+    finally:
+        msm.get_msm.cache_clear()
+    assert after["inv"] > before["inv"] and after["jdbl_n"] > before["jdbl_n"]
+    monkeypatch.setenv("CRESCENT_PROVE_MSM", "native")
+    native = groth16.prove(pk, r1cs, z, random.Random(7), device="cuda")
+    assert proof_ints(fold) == proof_ints(native)
+    assert groth16.verify(pk.vk.prepare(), fold, z[1 : r1cs.num_instance])
