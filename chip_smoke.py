@@ -14,16 +14,19 @@
    side and on both; for madd also valid == 0 and sign == 1; for
    bucket_reduce, at the fused aggregate's 25 windows of 1025 buckets, empty
    buckets, P == Q and P == -Q in neighbouring buckets; Fq `inv` at 512
-   lanes with 0, 1, p-1, Montgomery 1 and 2^k among them, x * inv(x) == 1;
-   `jdbl_n` at the window combine's five launches, 16 lanes x 11 down to 1
-   lane x 176 doublings, identities among the lanes, then 100 lanes x 0, 1
-   and 3), and once over a curve with a != 0 (2^14 lanes).  Tolerance:
+   lanes with 0, 1, p-1, Montgomery 1 and 2^k among them, and Fq2 `inv`
+   with the norm's edges, (1, 0), (0, 1), (p-1, 0), (a, a) and 2^k in c0
+   and in c1, x * inv(x) == 1; `jdbl_n` over Fq and Fq2 at the window
+   combine's five launches, 16 lanes x 11 down to 1 lane x 176 doublings,
+   identities among the lanes, then 100 lanes x 0, 1 and 3), and once over
+   a curve with a != 0 (2^14 lanes).  Tolerance:
    none, the results must be bit-identical (exact integer arithmetic).
    Prints the kernel's and the plain version's times (CUDA events) and the
    least time the card could take (`bound_ms`: bytes over 3.35 TB/s
-   against 32-bit multiply-adds over 16.75e12/s, and for Fq `inv` the
-   divsteps' integer operations too, whichever is larger, counted for this
-   run's data), and nvcc's register count.
+   against 32-bit multiply-adds over 16.75e12/s, and for `inv` over Fq and
+   Fq2 the divsteps' integer operations too, whichever is larger, counted
+   for this run's data), and nvcc's register count; fails if either
+   `jdbl_n` kernel (warp.cuh) spills.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -126,13 +129,17 @@ def _kernel_registers(regs: dict, name: str):
     import re
 
     base = name[4:] if name.startswith("fq2_") else name
+    # jdbl_n: warp.cuh's warp_jdbl_n_kernel<Fe or Fe2, a == 0> (the template
+    # arguments as the mangled name spells them)
+    warp = r"warp_jdbl_n_kernelI(?:NS_|N8crescent){}ELb1E"
     if name.startswith("fq2_"):
-        lib, key = "ec2", (name if base in ("mul", "inv", "butterfly") else base) + "_kernel"
+        lib = "ec2"
+        key = {"jdbl_n": warp.format("3Fe2")}.get(
+            base, (name if base in ("mul", "inv", "butterfly") else base) + "_kernel")
     else:
         lib = "ntt" if base in ("mul", "butterfly") else "ec"
-        # the redesigned two by their own names; jdbl_n's a == 0 instance
         key = {"inv": "divstep_inv_kernel",
-               "jdbl_n": "warp_jdbl_n_kernelILb1E"}.get(base, base + "_kernel")
+               "jdbl_n": warp.format("2Fe")}.get(base, base + "_kernel")
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
     return hits[0] if len(hits) == 1 else None
 
@@ -440,7 +447,10 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
            _time_ms(torch, lambda: ec.jdbl_plain(*pt), 2), 6 * e * nck, dbl * nck)
     # the window combine's five launches a chunk: 16 lanes x c doublings down
     # to 1 lane x 16c (lanes 3 and 5 are identities, Z = 0, as the
-    # combine's padding rows are); then counts 0 and 1, and 100 lanes
+    # combine's padding rows are); then counts 0 and 1, and 100 lanes.  The
+    # Fq2 doubling of warp.cuh takes 16 base products (five squares and
+    # two products: Z3 = 2 Y Z, as a == 0 allows)
+    dbl_n = (5 * sqr + 2 * mul) * MONT_MUL_MADS if fq2 else dbl
     for lanes, count in FOLD_DBL_SHAPES:
         pl = tuple(a[:lanes].contiguous() for a in pt)
         got = ec.jdbl_n(*pl, count)
@@ -448,7 +458,7 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
         want, plain_ms = _timed_once(torch, lambda: ec.jdbl_n_plain(*pl, count))
         record("jdbl_n", f"{lanes} lanes x {count}", _errs(torch, got, want),
                _time_ms(torch, lambda: ec.jdbl_n(*pl, count), 20), plain_ms,
-               6 * e * lanes, dbl * lanes * count)
+               6 * e * lanes, dbl_n * lanes * count)
     p100 = tuple(a[:100].contiguous() for a in pt)
     err = max(_errs(torch, ec.jdbl_n(*p100, count), ec.jdbl_n_plain(*p100, count))
               for count in (0, 1, 3))
@@ -660,18 +670,26 @@ def setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv) 
            192 * nq, 3 * MONT_MUL_MADS * nq)
     del x, y, got, half
 
+    # the divsteps on the norm x0^2 + x1^2: (0, 0) first, then the norm's
+    # edges (1, 0), (0, 1), (p-1, 0), (0, p-1), Montgomery 1, (a, a),
+    # (a, p-a) and 2^k in c0 and in c1
     z = elems2(512, SEED + 110)
-    z[:4] = f2.words([fields.Fq2(0, 0), fields.Fq2(1, 0), fields.Fq2(p - 1, 0),
-                      fields.Fq2(0, 1)], "cuda")
+    a = 0x1234567890ABCDEF
+    ks = (1, 31, 32, 64, 128, 253)
+    z[:20] = f2.words([fields.Fq2(0, 0), fields.Fq2(1, 0), fields.Fq2(0, 1),
+                       fields.Fq2(p - 1, 0), fields.Fq2(0, p - 1),
+                       fields.Fq2(f2.base.r_mod_n, 0), fields.Fq2(a, a), fields.Fq2(a, p - a)]
+                      + [fields.Fq2(1 << k, 0) for k in ks]
+                      + [fields.Fq2(0, 1 << k) for k in ks], "cuda")
     got = ec2.inv(z)
     torch.cuda.synchronize()
     err = _errs(torch, got, ec2.inv_plain(z))
     if got[0].any().item() or not (ec2.mul(z[1:], got[1:]) == f2.one_mont("cuda")).all().item():
         fail("fq2_inv: x * inv(x) is not Montgomery 1 (or inv(0) is not 0)")
-    e = p - 2
+    # a lane: the divsteps on the norm, and its two squares and two products
     _record(out, "fq2_inv", label, "512 lanes", err, _time_ms(torch, lambda: ec2.inv(z), 20),
            _time_ms(torch, lambda: ec2.inv_plain(z), 1), 128 * 512,
-           512 * (256 + bin(e).count("1") + 4) * MONT_MUL_MADS)
+           512 * (DIVSTEP_INV_OPS + 4 * MONT_MUL_MADS))
     d = elems2(1 << 14, SEED + 111)
     if not (ec2.mul(d, batch_inv(ec2, d)) == f2.one_mont("cuda")).all().item():
         fail("batch_inv over Fq2: d * inv(d) is not Montgomery 1")
@@ -1254,6 +1272,10 @@ def main() -> None:
                 "fq2_jadd": 670, "fq2_jdbl_n": 744, "fq2_jdbl": 735,
                 "fq2_bucket_reduce": 790, "fq2_butterfly": 689}
     regs = _registers(reports)
+    for name in ("jdbl_n", "fq2_jdbl_n"):  # warp.cuh's doublings keep P in registers
+        spill = (_kernel_registers(regs, name) or (None, None))[1]
+        if spill:
+            fail(f"{name}'s kernel spills {spill} bytes (nvcc -Xptxas -v)")
     runs = (setup_launches, prove_launches, native0_launches, fused_launches,
             verify_launches)
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}

@@ -60,8 +60,8 @@
 //
 // Every kernel but `inv` and `jdbl_n` is a template of point.cuh
 // instantiated here over Fe; ec2.cu instantiates the same bodies over Fe2,
-// `jdbl_n`'s one thread a lane included, and inverts by the Fermat chain
-// of the norm.
+// warp.cuh's `jdbl_n` over Fe2 too (two warps a lane), and inverts by the
+// divsteps on the norm.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -88,13 +88,9 @@ using crescent::make_curve;
 
 namespace {
 
-struct Words8 {
-  uint32_t w[8];
-};
-
 // out = 1/x (field.cuh fe_inv_divsteps); 0 -> 0.  r3 = R^3 mod p.
-__global__ void divstep_inv_kernel(Curve C, Words8 r3, const uint4* x,
-                                   uint4* out, long long n) {
+__global__ void divstep_inv_kernel(Curve C, crescent::Words8 r3,
+                                   const uint4* x, uint4* out, long long n) {
   const long long i = lane();
   if (i >= n) return;
   fe_store(out + 2 * i, crescent::fe_inv_divsteps(fe_load(x + 2 * i), r3.w, C.M));
@@ -106,10 +102,9 @@ extern "C" int crescent_inv(const uint32_t* curve26, const uint32_t* r3,
                             const void* x, void* out, long long n,
                             void* stream) {
   if (n > 0) {
-    Words8 r;
-    for (int j = 0; j < 8; ++j) r.w[j] = r3[j];
     divstep_inv_kernel<<<grid_for(n, kChainThreads), kChainThreads, 0,
-                         (cudaStream_t)stream>>>(make_curve(curve26), r, (In)x,
+                         (cudaStream_t)stream>>>(make_curve(curve26),
+                                                 crescent::words8(r3), (In)x,
                                                  (Out)out, n);
   }
   return (int)cudaGetLastError();
@@ -147,8 +142,8 @@ extern "C" int crescent_jdbl_n(const uint32_t* curve26, const void* x,
                                void* oz, long long n, int count, void* stream) {
   if (n > 0) {  // one warp a lane (warp.cuh)
     const Curve C = make_curve(curve26);
-    auto kernel = C.a_is_zero ? crescent::warp_jdbl_n_kernel<true>
-                              : crescent::warp_jdbl_n_kernel<false>;
+    auto kernel = C.a_is_zero ? crescent::warp_jdbl_n_kernel<Fe, true>
+                              : crescent::warp_jdbl_n_kernel<Fe, false>;
     kernel<<<(unsigned)n, 32, 0, (cudaStream_t)stream>>>(
         C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, count);
   }

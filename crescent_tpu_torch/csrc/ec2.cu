@@ -24,26 +24,30 @@
 // words, then c1's (field.cuh Fe2).  Results are canonical, so they equal
 // the TPU kernels' bit for bit.
 //
-// One thread per lane, as in ec.cu.  `mul` (3 base products, 192 bytes a
-// lane) is bound by bytes; it takes row strides, so the product tree of
-// batch_inv multiplies the even rows of a level by the odd ones and writes
-// interleaved rows without copies.  `inv` is the norm map: a 256-bit
-// Fermat chain over the base field on the norm x0^2 + x1^2, then two
-// products; on batch_inv's 512-lane root it is latency, so it launches one
-// warp a block.  The six point kernels are point.cuh's templates over Fe2,
-// with ec.cu's launch shapes: `affine_denom` (328 bytes a lane, no
-// product) is bound by bytes, `affine_add` (460 bytes, 10 base products)
-// near the line where products overtake bytes, `madd` (29 base products
-// on the addition path), `jadd` (43) and `jdbl` (17) by operations, and
-// `jdbl_n` (16 lanes of a doubling chain in the window combine) by
-// latency.  An Fq2 element is twice an Fq one in registers, so `jadd` and
-// `madd` run at the 255-register limit and spill; their doubling stays a
-// branch that only lanes with P == Q take.  `bucket_reduce` is point.cuh's
-// one block a window over the jadd body, 256 threads a block (the most the
-// 255-register body allows; 66 jadds in a row a thread at c = 11).
-// `butterfly` (a, b, tw in, two rows out: 320 bytes and 3 base products a
-// lane) is bound by bytes; no path of the reference calls it.  BN254 G2
-// has a = 0, which the wrapper requires.
+// One thread per lane, as in ec.cu, but for `jdbl_n`.  `mul` (3 base
+// products, 192 bytes a lane) is bound by bytes; it takes row strides, so
+// the product tree of batch_inv multiplies the even rows of a level by the
+// odd ones and writes interleaved rows without copies.  `inv` is the norm
+// map: the norm x0^2 + x1^2, its inverse by field.cuh's constant-time
+// divsteps (`fe_inv_divsteps`, as Fq `inv` in ec.cu; the reference runs a
+// Fermat chain there), then two products; on batch_inv's 512-lane root it
+// is latency, so it launches one warp a block and the root's 16 warps
+// spread over 16 SMs.  `jdbl_n` (16 down to 1 lanes of 11 to 176
+// doublings in the window combine) is latency too: warp.cuh's two warps a
+// lane, each doubling's 16 base products in three rounds of side-by-side
+// 8-thread products.  The other point kernels are point.cuh's templates
+// over Fe2, with ec.cu's launch shapes: `affine_denom` (328 bytes a lane,
+// no product) is bound by bytes, `affine_add` (460 bytes, 10 base
+// products) near the line where products overtake bytes, `madd` (29 base
+// products on the addition path), `jadd` (43) and `jdbl` (17) by
+// operations.  An Fq2 element is twice an Fq one in registers, so `jadd`
+// and `madd` run at the 255-register limit and spill; their doubling stays
+// a branch that only lanes with P == Q take.  `bucket_reduce` is
+// point.cuh's one block a window over the jadd body, 256 threads a block
+// (the most the 255-register body allows; 66 jadds in a row a thread at
+// c = 11).  `butterfly` (a, b, tw in, two rows out: 320 bytes and 3 base
+// products a lane) is bound by bytes; no path of the reference calls it.
+// BN254 G2 has a = 0, which the wrapper requires and `jdbl_n` checks.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -55,6 +59,7 @@
 
 #include "field.cuh"
 #include "point.cuh"
+#include "warp.cuh"
 
 using crescent::Curve;
 using crescent::Fe2;
@@ -83,12 +88,12 @@ __global__ void fq2_mul_kernel(Curve C, const uint4* x, const uint4* y,
                                     C.M));
 }
 
-// out = 1/x, 0 -> 0.
-__global__ void fq2_inv_kernel(Curve C, const uint4* x, uint4* out,
-                               long long n) {
+// out = 1/x (field.cuh fe_inv over Fe2); 0 -> 0.  r3 = R^3 mod p.
+__global__ void fq2_inv_kernel(Curve C, crescent::Words8 r3, const uint4* x,
+                               uint4* out, long long n) {
   const long long i = lane();
   if (i >= n) return;
-  Row2::store(out + 4 * i, crescent::fe_inv(Row2::load(x + 4 * i), C.one, C.M));
+  Row2::store(out + 4 * i, crescent::fe_inv(Row2::load(x + 4 * i), r3.w, C.M));
 }
 
 // (o0, o1) = (a + b*tw, a - b*tw): b*tw the Karatsuba product of
@@ -119,11 +124,13 @@ extern "C" int crescent_fq2_mul(const uint32_t* curve26, const void* x,
   return (int)cudaGetLastError();
 }
 
-extern "C" int crescent_fq2_inv(const uint32_t* curve26, const void* x,
-                                void* out, long long n, void* stream) {
+extern "C" int crescent_fq2_inv(const uint32_t* curve26, const uint32_t* r3,
+                                const void* x, void* out, long long n,
+                                void* stream) {
   if (n > 0) {
     fq2_inv_kernel<<<grid_for(n, kChainThreads), kChainThreads, 0,
-                     (cudaStream_t)stream>>>(make_curve(curve26), (In)x,
+                     (cudaStream_t)stream>>>(make_curve(curve26),
+                                             crescent::words8(r3), (In)x,
                                              (Out)out, n);
   }
   return (int)cudaGetLastError();
@@ -170,8 +177,14 @@ extern "C" int crescent_fq2_jdbl_n(const uint32_t* curve26, const void* x,
                                    const void* y, const void* z, void* ox,
                                    void* oy, void* oz, long long n, int count,
                                    void* stream) {
-  return crescent::launch_jdbl_n<Fe2>(curve26, x, y, z, ox, oy, oz, n, count,
-                                      stream);
+  const Curve C = make_curve(curve26);
+  if (!C.a_is_zero) return (int)cudaErrorInvalidValue;  // a = 0 only
+  if (n > 0) {  // two warps a lane (warp.cuh)
+    crescent::warp_jdbl_n_kernel<Fe2, true><<<(unsigned)n, crescent::kLaneThreads<Fe2>,
+                                              0, (cudaStream_t)stream>>>(
+        C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, count);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int crescent_fq2_jdbl(const uint32_t* curve26, const void* x,

@@ -189,33 +189,6 @@ __device__ __forceinline__ Fe fe_neg(const Fe& a, const Mod& M) {
   return fe_sub(fe_zero(), a, M);
 }
 
-// a^(p-2) = 1/a (0 -> 0), Montgomery form: 256 squarings MSB first and a
-// product where the bit of p - 2 is set (a zero bit is skipped: the branch
-// is uniform over the grid).  `one` is Montgomery 1.
-__device__ __forceinline__ Fe fe_inv(const Fe& v, const uint32_t* one,
-                                     const Mod& M) {
-  // e = p - 2 (p is odd and > 2)
-  uint32_t e[8];
-  uint64_t br = 2;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint64_t s = (uint64_t)M.p[j] - br;
-    e[j] = (uint32_t)s;
-    br = s >> 63;
-  }
-  Fe acc = fe_from(one);
-#pragma unroll 1
-  for (int w = 7; w >= 0; --w) {
-    const uint32_t word = e[w];
-#pragma unroll 1
-    for (int b = 31; b >= 0; --b) {
-      acc = fe_sqr(acc, M);
-      if ((word >> b) & 1u) acc = fe_mont_mul(acc, v, M);
-    }
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
 // Constant-time inversion by divsteps (Bernstein and Yang, "Fast
 // constant-time gcd computation and modular inversion", 2019), in the 32-bit
@@ -370,7 +343,8 @@ __device__ __forceinline__ void normalize_30(S30& d, int32_t fsign,
 
 // 1/x in Montgomery form (0 -> 0): the divsteps invert the row xR into
 // x^-1 R^-1 in [0, p), and one Montgomery product by r3 = R^3 mod p makes
-// it x^-1 R.  Canonical, so bit-equal to fe_inv's Fermat chain.
+// it x^-1 R.  Canonical, so bit-equal to the reference's Fermat chain
+// x^(p-2).
 __device__ __forceinline__ Fe fe_inv_divsteps(const Fe& x, const uint32_t* r3,
                                               const Mod& M) {
   const uint32_t pinv30 = (0u - M.inv) & (uint32_t)kM30;  // p^-1 mod 2^30
@@ -453,12 +427,14 @@ __device__ __forceinline__ Fe2 fe_sqr(const Fe2& x, const Mod& M) {
   return fe2_make(c0, fe_add(t, t, M));
 }
 
-// 1/(x0 + x1 u) = (x0 - x1 u) / (x0^2 + x1^2): the norm, one base Fermat
-// chain and two products (QuadPallasEC._inv_core).  0 -> 0.
-__device__ __forceinline__ Fe2 fe_inv(const Fe2& x, const uint32_t* one,
+// 1/(x0 + x1 u) = (x0 - x1 u) / (x0^2 + x1^2): the norm, its divstep
+// inversion (r3 = R^3 mod p, as for fe_inv_divsteps) and two products
+// (QuadPallasEC._inv_core, whose norm takes a Fermat chain).  0 -> 0: the
+// norm is 0 only at x = 0, since p = 3 (mod 4) makes -1 a non-residue.
+__device__ __forceinline__ Fe2 fe_inv(const Fe2& x, const uint32_t* r3,
                                       const Mod& M) {
   const Fe nrm = fe_add(fe_sqr(x.c0, M), fe_sqr(x.c1, M), M);
-  const Fe ninv = fe_inv(nrm, one, M);
+  const Fe ninv = fe_inv_divsteps(nrm, r3, M);
   return fe2_make(fe_mont_mul(x.c0, ninv, M),
                   fe_mont_mul(fe_neg(x.c1, M), ninv, M));
 }

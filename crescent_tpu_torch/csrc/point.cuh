@@ -250,19 +250,6 @@ __global__ void jadd_kernel(Curve C, const uint4* x1, const uint4* y1,
               pt_jadd<F>(C, pt_load<F>(x1, y1, z1, i), pt_load<F>(x2, y2, z2, i)));
 }
 
-// `count` chained doublings.
-template <class F>
-__global__ void jdbl_n_kernel(Curve C, const uint4* x, const uint4* y,
-                              const uint4* z, uint4* ox, uint4* oy, uint4* oz,
-                              long long n, int count) {
-  const long long i = lane();
-  if (i >= n) return;
-  PtT<F> P = pt_load<F>(x, y, z, i);
-#pragma unroll 1
-  for (int k = 0; k < count; ++k) P = pt_double(C, P);
-  pt_store<F>(ox, oy, oz, i, P);
-}
-
 // One doubling.
 template <class F>
 __global__ void jdbl_kernel(Curve C, const uint4* x, const uint4* y,
@@ -356,10 +343,21 @@ inline unsigned grid_for(long long n, int threads) {
 constexpr int kThreads = 128;      // wide kernels
 constexpr int kChainThreads = 32;  // latency-bound chains: one warp a block
 
+// A kernel argument of eight words (R^3 mod p for the inversions).
+struct Words8 {
+  uint32_t w[8];
+};
+
+inline Words8 words8(const uint32_t* w) {
+  Words8 r;
+  for (int j = 0; j < 8; ++j) r.w[j] = w[j];
+  return r;
+}
+
 // Host-side launches of the point kernels over F, behind the C entry points
 // of ec.cu (Fe) and ec2.cu (Fe2): pointers to device memory, the caller's
-// stream; each returns cudaGetLastError().  Wide kernels run kThreads a
-// block; `jdbl_n`, a chain on few lanes, one warp a block.
+// stream; each returns cudaGetLastError().  They run kThreads a block
+// (`jdbl_n`, a warp a lane, is warp.cuh's).
 typedef const uint4* In;
 typedef uint4* Out;
 
@@ -400,19 +398,6 @@ int launch_jadd(const uint32_t* curve26, const void* x1, const void* y1,
                      (cudaStream_t)stream>>>(
         make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)x2, (In)y2, (In)z2,
         (Out)ox, (Out)oy, (Out)oz, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class F>
-int launch_jdbl_n(const uint32_t* curve26, const void* x, const void* y,
-                  const void* z, void* ox, void* oy, void* oz, long long n,
-                  int count, void* stream) {
-  if (n > 0) {
-    jdbl_n_kernel<F><<<grid_for(n, kChainThreads), kChainThreads, 0,
-                       (cudaStream_t)stream>>>(
-        make_curve(curve26), (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n,
-        count);
   }
   return (int)cudaGetLastError();
 }

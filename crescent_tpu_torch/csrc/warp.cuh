@@ -1,12 +1,15 @@
-// Fq `jdbl_n` as a warp per lane: the window combine's doubling chains
-// (16, 8, 4, 2 and 1 lanes of 11 to 176 doublings in a G1 chunk) are too
-// few lanes to fill the card and too long a dependent chain for one thread
-// a lane, so they are bound by latency.  Here one warp runs one lane's
-// chain, and each doubling runs its products side by side in three stages
-// instead of eight in a row; each product is itself shared by a group of 8
-// threads, one 32-bit word a thread (the threads-per-instance scheme of
-// NVIDIA's CGBN library).  Fe only: Fq2's `jdbl_n` keeps point.cuh's
-// `jdbl_n_kernel<Fe2>`.
+// `jdbl_n` over Fq and over Fq2 with a warp or two per lane: the window
+// combine's doubling chains (16, 8, 4, 2 and 1 lanes of 11 to 176
+// doublings in a chunk) are too few lanes to fill the card and too long a
+// dependent chain for one thread a lane, so they are bound by latency.
+// Here one block runs one lane's chain, and each doubling runs its base
+// products side by side in rounds instead of one after another; each
+// product is itself shared by a group of 8 threads, one 32-bit word a
+// thread (the threads-per-instance scheme of NVIDIA's CGBN library).  An Fq
+// doubling is 8 products in three rounds on one warp (four groups, the
+// products passed on by shuffles); an Fq2 one (a = 0 only, as BN254 G2) 16
+// base products in three rounds on two warps (eight groups, the products
+// passed on through shared memory).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -153,7 +156,7 @@ __device__ __forceinline__ void warp_products(const Fe (&a)[N], const Fe (&b)[N]
   }
 }
 
-// One doubling by the whole warp, every thread holding P whole: pt_double's
+// One Fq doubling by the whole warp, every thread holding P whole: pt_double's
 // dbl-2007-bl with its products in stages of independent ones, (1) XX, YY,
 // ZZ, (Y + Z)^2; (2) YYYY, (X + YY)^2, M^2 (M = 3 XX); (3) M (S - X3).  With
 // a != 0 (kAZero false), stage 2 takes ZZ^2 in M^2's place, then a ZZ^2
@@ -205,21 +208,134 @@ __device__ __forceinline__ PtT<Fe> warp_double(const Curve& C, const PtT<Fe>& P,
   return R;
 }
 
-// `count` chained doublings of lane blockIdx.x, one warp a block and a lane;
-// kAZero must be C.a_is_zero (the launch picks the instance).
+// The Fq2 sums between the rounds: the carry chains above on each
+// component.
+__device__ __forceinline__ Fe2 fe2_add_cc(const Fe2& a, const Fe2& b, const Mod& M) {
+  return fe2_make(fe_add_cc(a.c0, b.c0, M), fe_add_cc(a.c1, b.c1, M));
+}
+
+__device__ __forceinline__ Fe2 fe2_sub_cc(const Fe2& a, const Fe2& b, const Mod& M) {
+  return fe2_make(fe_sub_cc(a.c0, b.c0, M), fe_sub_cc(a.c1, b.c1, M));
+}
+
+// N <= 8 products a[j] b[j] on the two warps of the block, group j (lanes
+// 8 (j % 4) .. 8 (j % 4) + 7 of warp j / 4) computing product j (the other
+// groups repeat product 0 and are not read), passed on through `buf` with
+// one barrier; every thread gets every product whole.
+template <int N>
+__device__ __forceinline__ void block_products(const Fe (&a)[N], const Fe (&b)[N],
+                                               Fe (&out)[N], uint32_t (*buf)[8],
+                                               const Mod& M, int g, int k,
+                                               uint32_t pk) {
+  Fe x = a[0], y = b[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    x = fe_select(g == j, a[j], x);
+    y = fe_select(g == j, b[j], y);
+  }
+  const uint32_t w = group_mont_mul(fe_word(x, k), y, pk, M, k, 8 * (g & 3));
+  if (g < N) buf[g][k] = w;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[j].w[i] = buf[j][i];
+  }
+}
+
+// One Fq2 doubling by two warps, every thread holding P whole, for a = 0
+// (BN254 G2).  pt_double over Fe2 takes 17 base products: seven Fq2
+// squares of two ((x0 + x1)(x0 - x1) and x0 x1) and one Karatsuba product
+// of three.  With a = 0, ZZ enters only Z3 = (Y + Z)^2 - YY - ZZ, which is
+// 2 Y Z: one Karatsuba product (3) in place of two squares (4), so 16
+// products in three rounds, the doubling's dependent depth, on eight
+// groups:
+//   1. XX, YY and Y Z (y0 z0, y1 z1, (y0 + y1)(z0 + z1)): 7;
+//   2. YYYY, (X + YY)^2 and M^2 (M = 3 XX): 6;
+//   3. M (S - X3) as m0 d0, m1 d1 and (m0 + m1)(d0 + d1): 3.
+// Each round has its own buffer, so one barrier a round also keeps a warp
+// from overwriting products the other has still to read.  Every value is
+// the field element pt_double computes, canonical, so the result is
+// bit-equal to it (tests/test_torch_warp_fq2.py models the plan).
 template <bool kAZero>
-__global__ void __launch_bounds__(32)
+__device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& P,
+                                                int g, int k, uint32_t pk) {
+  static_assert(kAZero, "the Fq2 doubling serves a = 0 only");
+  __shared__ uint32_t buf[3][8][8];
+  const Mod& M = C.M;
+  const Fe ys = fe_add_cc(P.y.c0, P.y.c1, M);  // y0 + y1
+  Fe r1[7];
+  {
+    const Fe a[7] = {fe_add_cc(P.x.c0, P.x.c1, M), P.x.c0, ys, P.y.c0,
+                     P.y.c0, P.y.c1, ys};
+    const Fe b[7] = {fe_sub_cc(P.x.c0, P.x.c1, M), P.x.c1, fe_sub_cc(P.y.c0, P.y.c1, M),
+                     P.y.c1, P.z.c0, P.z.c1, fe_add_cc(P.z.c0, P.z.c1, M)};
+    block_products<7>(a, b, r1, buf[0], M, g, k, pk);
+  }
+  const Fe2 XX = fe2_make(r1[0], fe_add_cc(r1[1], r1[1], M));
+  const Fe2 YY = fe2_make(r1[2], fe_add_cc(r1[3], r1[3], M));
+  // Karatsuba: u v = (u0 v0 - u1 v1) + ((u0 + u1)(v0 + v1) - u0 v0 - u1 v1) u
+  const Fe2 YZ = fe2_make(fe_sub_cc(r1[4], r1[5], M),
+                          fe_sub_cc(fe_sub_cc(r1[6], r1[4], M), r1[5], M));
+  const Fe2 T = fe2_add_cc(P.x, YY, M);
+  const Fe2 Mm = fe2_add_cc(fe2_add_cc(XX, XX, M), XX, M);
+  Fe r2[6];
+  {
+    const Fe a[6] = {fe_add_cc(YY.c0, YY.c1, M), YY.c0, fe_add_cc(T.c0, T.c1, M), T.c0,
+                     fe_add_cc(Mm.c0, Mm.c1, M), Mm.c0};
+    const Fe b[6] = {fe_sub_cc(YY.c0, YY.c1, M), YY.c1, fe_sub_cc(T.c0, T.c1, M), T.c1,
+                     fe_sub_cc(Mm.c0, Mm.c1, M), Mm.c1};
+    block_products<6>(a, b, r2, buf[1], M, g, k, pk);
+  }
+  const Fe2 YYYY = fe2_make(r2[0], fe_add_cc(r2[1], r2[1], M));
+  const Fe2 TT = fe2_make(r2[2], fe_add_cc(r2[3], r2[3], M));
+  Fe2 S = fe2_sub_cc(fe2_sub_cc(TT, XX, M), YYYY, M);
+  S = fe2_add_cc(S, S, M);
+  PtT<Fe2> R;
+  R.x = fe2_sub_cc(fe2_make(r2[4], fe_add_cc(r2[5], r2[5], M)), fe2_add_cc(S, S, M), M);
+  const Fe2 D = fe2_sub_cc(S, R.x, M);
+  Fe r3[3];
+  {
+    const Fe a[3] = {Mm.c0, Mm.c1, fe_add_cc(Mm.c0, Mm.c1, M)};
+    const Fe b[3] = {D.c0, D.c1, fe_add_cc(D.c0, D.c1, M)};
+    block_products<3>(a, b, r3, buf[2], M, g, k, pk);
+  }
+  const Fe2 MD = fe2_make(fe_sub_cc(r3[0], r3[1], M),
+                          fe_sub_cc(fe_sub_cc(r3[2], r3[0], M), r3[1], M));
+  Fe2 e8 = fe2_add_cc(YYYY, YYYY, M);
+  e8 = fe2_add_cc(e8, e8, M);
+  R.y = fe2_sub_cc(MD, fe2_add_cc(e8, e8, M), M);
+  R.z = fe2_add_cc(YZ, YZ, M);
+  return R;
+}
+
+// Threads that run one lane's chain: one warp over Fe, two over Fe2.
+template <class F>
+constexpr int kLaneThreads = 32;
+template <>
+constexpr int kLaneThreads<Fe2> = 64;
+
+// `count` chained doublings of lane blockIdx.x over F (Fe or Fe2), a block
+// of kLaneThreads<F> a lane; kAZero must be C.a_is_zero (the launch picks
+// the instance; over Fe2 only a = 0 exists).
+template <class F, bool kAZero>
+__global__ void __launch_bounds__(kLaneThreads<F>)
     warp_jdbl_n_kernel(Curve C, const uint4* x, const uint4* y, const uint4* z,
                        uint4* ox, uint4* oy, uint4* oz, long long n, int count) {
   const long long i = blockIdx.x;
-  if (i >= n) return;  // the whole warp
+  if (i >= n) return;  // the whole block
   const int g = threadIdx.x >> 3, k = threadIdx.x & 7;
   const uint32_t pk = fe_word(fe_from(C.M.p), k);
-  PtT<Fe> P = pt_load<Fe>(x, y, z, i);
+  PtT<F> P = pt_load<F>(x, y, z, i);
 #pragma unroll 1
   for (int c = 0; c < count; ++c) P = warp_double<kAZero>(C, P, g, k, pk);
-  __syncwarp();  // every lane has read its rows: outputs may alias inputs
-  if (threadIdx.x == 0) pt_store<Fe>(ox, oy, oz, i, P);
+  // every thread has read its rows: outputs may alias inputs
+  if (kLaneThreads<F> > 32) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  if (threadIdx.x == 0) pt_store<F>(ox, oy, oz, i, P);
 }
 
 }  // namespace crescent

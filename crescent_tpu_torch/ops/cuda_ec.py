@@ -33,7 +33,9 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
 ``ops/quadratic.py`` for the layout), for setup's G2 fixed base and the G2
 MSM of ``prove``.  The point ops of both classes share their wrappers
 (``_Kernels``), their plain versions (the formula bodies below) and their
-CUDA bodies (``csrc/point.cuh``).
+CUDA bodies (``csrc/point.cuh``; ``jdbl_n`` a warp a lane over Fq, two
+over Fq2, in ``csrc/warp.cuh``, and ``inv`` the divsteps of
+``csrc/field.cuh``, over Fq2 on the norm).
 
 Tensors are packed (N, 8) int32 word rows (``ops/limb.py``), (N, 16) over
 Fq2, canonical, Montgomery form where the op needs it; validity flags are
@@ -281,12 +283,12 @@ class _Kernels:
     """Launch counts, the device rule, and the point ops shared by the
     prime-field and Fq2 kernel sets: each subclass names its library
     (`LIB`), its entry points' prefix (`PREFIX`), its row width (`WIDTH`),
-    and sets `ctx`, `_curve26` and `_a`."""
+    and sets `ctx`, `_curve26`, `_inv_consts` (`inv`'s arguments after the
+    curve's) and `_a`."""
 
     KERNELS: tuple = ()
     LIB = PREFIX = ""
     WIDTH = NWORD
-    _inv_consts: tuple = ()  # `inv`'s arguments after the curve's
 
     def reset_launches(self) -> None:
         for k in self.KERNELS:
@@ -380,9 +382,8 @@ class _Kernels:
 
     # -- ops ------------------------------------------------------------------
     def inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Inverse of every row (Montgomery form; over a prime field the
-        divstep inversion, over Fq2 the Fermat chain of the norm map);
-        0 -> 0."""
+        """Inverse of every row (Montgomery form; the divstep inversion,
+        over Fq2 of the norm x0^2 + x1^2); 0 -> 0."""
         if self._device(x) == "cpu":
             return self.inv_plain(x)
         n, dev = self._planes("x", [x])
@@ -511,11 +512,17 @@ class _Kernels:
 
 
 def divstep_r3(modulus: int) -> int:
-    """R^3 mod p, R = 2^256, for the Fq `inv` kernel (csrc/field.cuh
-    fe_inv_divsteps): the divsteps invert a Montgomery row xR into
-    x^-1 R^-1, and one Montgomery product by R^3 turns that into x^-1 R.
-    The kernel reads p^-1 mod 2^30 off the curve's -p^-1 mod 2^32."""
+    """R^3 mod p, R = 2^256, for the `inv` kernels over Fq and Fq2
+    (csrc/field.cuh fe_inv_divsteps; over Fq2 on the norm): the divsteps
+    invert a Montgomery row xR into x^-1 R^-1, and one Montgomery product by
+    R^3 turns that into x^-1 R.  The kernel reads p^-1 mod 2^30 off the
+    curve's -p^-1 mod 2^32."""
     return pow(1 << 256, 3, modulus)
+
+
+def _r3_words(modulus: int) -> tuple:
+    """`inv`'s arguments after the curve's: R^3 mod p as 8 words."""
+    return ((ctypes.c_uint32 * NWORD)(*_words32(divstep_r3(modulus))),)
 
 
 def _curve26(modulus: int, one_mont: int, a_mont: int):
@@ -543,8 +550,7 @@ class CudaEC(_Kernels):
         ninv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
         self._mod9 = (ctypes.c_uint32 * 9)(*_words32(modulus), ninv32)
         self._curve26 = _curve26(modulus, self.ctx.r_mod_n, self.a_mont)
-        self._inv_consts = ((ctypes.c_uint32 * NWORD)(
-            *_words32(divstep_r3(modulus))),)
+        self._inv_consts = _r3_words(modulus)
         self.reset_launches()
 
     def _a(self, device):
@@ -616,6 +622,7 @@ class CudaQuadEC(_Kernels):
         self.modulus = modulus
         self.ctx = get_quad_ctx(modulus)
         self._curve26 = _curve26(modulus, self.ctx.base.r_mod_n, 0)
+        self._inv_consts = _r3_words(modulus)
         self.reset_launches()
 
     @staticmethod

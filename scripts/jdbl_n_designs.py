@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Times design alternatives of the Fq `jdbl_n` kernel (csrc/warp.cuh)
-against this checkout's, in turns, on one card.
+"""Times design alternatives of the `jdbl_n` kernels over Fq and Fq2
+(csrc/warp.cuh) against this checkout's, in turns, on one card.
 
-    python3 scripts/jdbl_n_designs.py [--rounds N]
+    python3 scripts/jdbl_n_designs.py [--rounds N] [--designs NAME ...]
 
 Each design is a copy of this checkout's `crescent_tpu_torch/` under
 `build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh`:
 
-* `field_sums`: the sums and differences between the doubling's stages by
-  field.cuh's `fe_add` / `fe_sub` (64-bit accumulators, the other kernels'
-  sums) in place of warp.cuh's PTX carry chains `fe_add_cc` / `fe_sub_cc`;
-* `thread_product`: each product of a stage computed whole by every thread
-  of its group (`fe_mont_mul`, one thread a product, the stage split kept)
-  in place of the group's 8-thread product, one word a thread.
+* `field_sums`: the sums and differences between the rounds of both
+  doublings by field.cuh's `fe_add` / `fe_sub` (64-bit accumulators, the
+  other kernels' sums) in place of warp.cuh's PTX carry chains
+  `fe_add_cc` / `fe_sub_cc`;
+* `thread_product`: each product of an Fq round computed whole by every
+  thread of its group (`fe_mont_mul`, one thread a product, the rounds
+  kept) in place of the group's 8-thread product, one word a thread;
+* `one_warp`: the Fq2 doubling on one warp a lane (four 8-thread groups)
+  in four rounds of four products (XX and YY; YYYY and (X + YY)^2; M^2,
+  y0 z0 and y1 z1; M (S - X3) and (y0 + y1)(z0 + z1)), passed on by
+  shuffles, in place of two warps' three rounds through shared memory.
 
-The designs are built at once (one nvcc each), then
+The designs are built at once with this checkout (one nvcc a source), then
 `scripts/time_chain_kernels.py --turns` checks every build bit-equal to the
-plain versions and times `jdbl_n` (and `inv`, unchanged) at the window
-combine's five shapes, this checkout and the designs in turns.
+plain versions and times `jdbl_n` (and `inv`, unchanged) over Fq and Fq2
+at the window combine's five shapes, this checkout and the designs in
+turns.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -62,6 +68,68 @@ def _replace_function(src: str, head: str, new: str) -> str:
     return src[:a] + new + src[b:]
 
 
+ONE_WARP = """// One Fq2 doubling by one warp (a = 0): 16 base products in four rounds
+// on the warp's four groups, passed on by shuffles:
+//   1. XX and YY;
+//   2. YYYY and (X + YY)^2;
+//   3. M^2 (M = 3 XX), y0 z0 and y1 z1;
+//   4. M (S - X3) as m0 d0, m1 d1 and (m0 + m1)(d0 + d1), and
+//      (y0 + y1)(z0 + z1).
+template <bool kAZero>
+__device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& P,
+                                                int g, int k, uint32_t pk) {
+  static_assert(kAZero, "the Fq2 doubling serves a = 0 only");
+  const Mod& M = C.M;
+  const Fe ys = fe_add_cc(P.y.c0, P.y.c1, M);
+  Fe r1[4];
+  {
+    const Fe a[4] = {fe_add_cc(P.x.c0, P.x.c1, M), P.x.c0, ys, P.y.c0};
+    const Fe b[4] = {fe_sub_cc(P.x.c0, P.x.c1, M), P.x.c1,
+                     fe_sub_cc(P.y.c0, P.y.c1, M), P.y.c1};
+    warp_products<4>(a, b, r1, M, g, k, pk);
+  }
+  const Fe2 XX = fe2_make(r1[0], fe_add_cc(r1[1], r1[1], M));
+  const Fe2 YY = fe2_make(r1[2], fe_add_cc(r1[3], r1[3], M));
+  const Fe2 T = fe2_add_cc(P.x, YY, M);
+  Fe r2[4];
+  {
+    const Fe a[4] = {fe_add_cc(YY.c0, YY.c1, M), YY.c0, fe_add_cc(T.c0, T.c1, M), T.c0};
+    const Fe b[4] = {fe_sub_cc(YY.c0, YY.c1, M), YY.c1, fe_sub_cc(T.c0, T.c1, M), T.c1};
+    warp_products<4>(a, b, r2, M, g, k, pk);
+  }
+  const Fe2 YYYY = fe2_make(r2[0], fe_add_cc(r2[1], r2[1], M));
+  const Fe2 TT = fe2_make(r2[2], fe_add_cc(r2[3], r2[3], M));
+  Fe2 S = fe2_sub_cc(fe2_sub_cc(TT, XX, M), YYYY, M);
+  S = fe2_add_cc(S, S, M);
+  const Fe2 Mm = fe2_add_cc(fe2_add_cc(XX, XX, M), XX, M);
+  Fe r3[4];
+  {
+    const Fe a[4] = {fe_add_cc(Mm.c0, Mm.c1, M), Mm.c0, P.y.c0, P.y.c1};
+    const Fe b[4] = {fe_sub_cc(Mm.c0, Mm.c1, M), Mm.c1, P.z.c0, P.z.c1};
+    warp_products<4>(a, b, r3, M, g, k, pk);
+  }
+  PtT<Fe2> R;
+  R.x = fe2_sub_cc(fe2_make(r3[0], fe_add_cc(r3[1], r3[1], M)), fe2_add_cc(S, S, M), M);
+  const Fe2 D = fe2_sub_cc(S, R.x, M);
+  Fe r4[4];
+  {
+    const Fe a[4] = {Mm.c0, Mm.c1, fe_add_cc(Mm.c0, Mm.c1, M), ys};
+    const Fe b[4] = {D.c0, D.c1, fe_add_cc(D.c0, D.c1, M), fe_add_cc(P.z.c0, P.z.c1, M)};
+    warp_products<4>(a, b, r4, M, g, k, pk);
+  }
+  const Fe2 MD = fe2_make(fe_sub_cc(r4[0], r4[1], M),
+                          fe_sub_cc(fe_sub_cc(r4[2], r4[0], M), r4[1], M));
+  Fe2 e8 = fe2_add_cc(YYYY, YYYY, M);
+  e8 = fe2_add_cc(e8, e8, M);
+  R.y = fe2_sub_cc(MD, fe2_add_cc(e8, e8, M), M);
+  const Fe2 YZ = fe2_make(fe_sub_cc(r3[2], r3[3], M),
+                          fe_sub_cc(fe_sub_cc(r4[3], r3[2], M), r3[3], M));
+  R.z = fe2_add_cc(YZ, YZ, M);
+  return R;
+}
+"""
+
+
 def _field_sums(src: str) -> str:
     body = src[src.index("__device__ __forceinline__ PtT<Fe> warp_double("):]
     assert "fe_add_cc(" in body and "fe_sub_cc(" in body
@@ -74,7 +142,14 @@ def _thread_product(src: str) -> str:
                              THREAD_PRODUCT)
 
 
-DESIGNS = {"field_sums": _field_sums, "thread_product": _thread_product}
+def _one_warp(src: str) -> str:
+    src = _replace_function(
+        src, "template <bool kAZero>\n__device__ __forceinline__ PtT<Fe2> warp_double(",
+        ONE_WARP)
+    return src.replace("constexpr int kLaneThreads<Fe2> = 64;", "constexpr int kLaneThreads<Fe2> = 32;")
+
+
+DESIGNS = {"field_sums": _field_sums, "thread_product": _thread_product, "one_warp": _one_warp}
 
 
 def make(name: str) -> str:
@@ -97,19 +172,16 @@ def make(name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--designs", nargs="+", choices=sorted(DESIGNS), default=sorted(DESIGNS))
     args = ap.parse_args()
-    roots = [make(name) for name in DESIGNS]
-    build = "import sys; sys.path.insert(0, sys.argv[1]); " \
-            "from crescent_tpu_torch.ops import _build; print(_build.build_all(['ec']).get('ec', ''))"
-    procs = [subprocess.Popen([sys.executable, "-c", build, root], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for root in [HERE] + roots]
-    for root, proc in zip([HERE] + roots, procs):
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            sys.exit(f"jdbl_n_designs: the build in {root} failed:\n{out}")
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from time_chain_kernels import build
+
+    roots = [make(name) for name in args.designs]
+    for root, out in build([HERE] + roots).items():
         lines = out.splitlines()
         for i, line in enumerate(lines):  # the warp kernels' registers and spills
-            if "Compiling entry" in line and "warp_jdbl_n" in line:
+            if "Compiling entry" in line and "jdbl_n" in line:
                 info = " ".join(lines[i + 1:i + 4])
                 regs = re.search(r"Used (\d+) registers", info)
                 spill = re.search(r"(\d+) bytes spill stores", info)

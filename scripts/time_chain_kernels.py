@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Times the two latency-bound Fq kernels of the G1 fold, `inv` and
-`jdbl_n`, at the prove path's shapes, and compares two trees in turns.
+"""Times the latency-bound chain kernels of the fold, `inv` and `jdbl_n`
+over Fq (G1) and over Fq2 (G2), at the prove path's shapes, and compares
+trees in turns.
 
     python3 scripts/time_chain_kernels.py [--root DIR]
     python3 scripts/time_chain_kernels.py --turns ROOT [ROOT ...] [--rounds N]
 
 The first form builds the kernels of the port in DIR (default: this
-checkout), checks Fq `inv` at batch_inv's 512-lane root and `jdbl_n` at the
-window combine's five launches of a chunk (16 lanes x 11, 8 x 22, 4 x 44,
-2 x 88, 1 x 176 doublings) bit-equal to their plain versions on the card,
-times each by CUDA events (a mean over many launches, after a warm-up) and
-prints one JSON line.  The second runs the first form in subprocesses on
-this checkout and on each ROOT in turns (N rounds, default 2, the order
-rotated and reversed from round to round), so every build is measured on
-one card, and prints the medians side by side with the card's name and
-power limit.
+checkout), checks `inv` at batch_inv's 512-lane root (over Fq and Fq2) and
+`jdbl_n` at the window combine's five launches of a chunk (16 lanes x 11,
+8 x 22, 4 x 44, 2 x 88, 1 x 176 doublings; over Fq and Fq2) bit-equal to
+their plain versions on the card, times each by CUDA events (a mean over
+many launches, after a warm-up) and prints one JSON line.  The second
+builds this checkout and every ROOT at once (one nvcc a source), then runs
+the first form in subprocesses on each in turns (N rounds, default 2, the
+order rotated and reversed from round to round), so every build is
+measured on one card, and prints the medians side by side with the card's
+name and power limit.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -42,7 +44,8 @@ def _card() -> str:
 
 
 def measure(root: str) -> dict:
-    """Build the port in `root`, check and time its Fq inv and jdbl_n."""
+    """Build the port in `root`, check and time its inv and jdbl_n over Fq
+    and Fq2."""
     import numpy as np
     import torch
 
@@ -51,16 +54,17 @@ def measure(root: str) -> dict:
     sys.path.insert(0, root)
     from crescent_tpu_torch.core import fields
     from crescent_tpu_torch.ops import _build
-    from crescent_tpu_torch.ops.cuda_ec import get_cuda_ec
+    from crescent_tpu_torch.ops.cuda_ec import get_cuda_ec, get_cuda_quad_ec
 
-    _build.library("ec")
+    _build.build_all(("ec", "ec2"))
     p = fields.BN254_FQ
-    ec = get_cuda_ec(p)
     rng = np.random.default_rng(SEED)
 
-    def elems(n: int) -> torch.Tensor:
-        w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
-        w[:, 7] = rng.integers(0, p >> 224, size=n, dtype=np.uint64)
+    def elems(n: int, width: int) -> torch.Tensor:
+        """n seeded rows of `width` words: elements of Fq (8) or Fq2 (16)."""
+        w = rng.integers(0, 1 << 32, size=(n, width), dtype=np.uint64)
+        for top in range(7, width, 8):
+            w[:, top] = rng.integers(0, p >> 224, size=n, dtype=np.uint64)
         return torch.from_numpy(w.astype(np.uint32).view(np.int32)).cuda()
 
     def time_ms(fn) -> float:
@@ -76,24 +80,42 @@ def measure(root: str) -> dict:
         return start.elapsed_time(end) / REPS
 
     out = {"root": root, "card": _card()}
-    x = elems(INV_LANES)
-    x[0] = 0
-    if not torch.equal(ec.inv(x), ec.inv_plain(x)):
-        sys.exit(f"time_chain_kernels: inv differs from its plain version in {root}")
-    out["inv 512 lanes"] = time_ms(lambda: ec.inv(x))
-    pt = [elems(16) for _ in range(3)]
-    pt[2][3] = 0  # an identity lane, as the combine's padding rows are
-    for lanes, count in SHAPES:
-        pl = [a[:lanes].contiguous() for a in pt]
-        got = ec.jdbl_n(*pl, count)
-        if not all(torch.equal(g, w) for g, w in zip(got, ec.jdbl_n_plain(*pl, count))):
-            sys.exit(f"time_chain_kernels: jdbl_n {lanes} x {count} differs in {root}")
-        out[f"jdbl_n {lanes} x {count}"] = time_ms(lambda: ec.jdbl_n(*pl, count))
+    for prefix, ec, width in (("", get_cuda_ec(p), 8), ("fq2_", get_cuda_quad_ec(p), 16)):
+        x = elems(INV_LANES, width)
+        x[0] = 0
+        if not torch.equal(ec.inv(x), ec.inv_plain(x)):
+            sys.exit(f"time_chain_kernels: {prefix}inv differs from its plain version in {root}")
+        out[f"{prefix}inv 512 lanes"] = time_ms(lambda: ec.inv(x))
+        pt = [elems(16, width) for _ in range(3)]
+        pt[2][3] = 0  # an identity lane, as the combine's padding rows are
+        for lanes, count in SHAPES:
+            pl = [a[:lanes].contiguous() for a in pt]
+            got = ec.jdbl_n(*pl, count)
+            if not all(torch.equal(g, w) for g, w in zip(got, ec.jdbl_n_plain(*pl, count))):
+                sys.exit(f"time_chain_kernels: {prefix}jdbl_n {lanes} x {count} differs in {root}")
+            out[f"{prefix}jdbl_n {lanes} x {count}"] = time_ms(lambda: ec.jdbl_n(*pl, count))
     return out
+
+
+def build(roots: list[str]) -> dict[str, str]:
+    """Build `ec` and `ec2` in every root at once (one process a root, one
+    nvcc a source); returns nvcc's register report per root."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from crescent_tpu_torch.ops import _build; "
+            "print('\\n'.join(_build.build_all(('ec', 'ec2')).values()))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, root], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for root in roots]
+    reports = {}
+    for root, proc in zip(roots, procs):
+        reports[root], _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"time_chain_kernels: the build in {root} failed:\n{reports[root]}")
+    return reports
 
 
 def turns(others: list[str], rounds: int) -> None:
     roots = [HERE] + others
+    build(roots)
     runs = {root: [] for root in roots}
     for r in range(rounds):
         order = roots[r % len(roots):] + roots[:r % len(roots)]

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from crescent_tpu_torch.core import fields
+from crescent_tpu_torch.core.fields import Fq2
 from crescent_tpu_torch.ops import limb
 from crescent_tpu_torch.ops.cuda_ec import get_cuda_ec, get_cuda_quad_ec
 
@@ -394,37 +395,66 @@ def test_cuda_small_msm_matches_native(cuda):
         assert after["jadd"] - before["jadd"] == 256 + 7  # and a tree over 128 rows
 
 
+def _fq2_inv_inputs(device) -> torch.Tensor:
+    """512 seeded Fq2 rows with the norm's edge inputs planted in rows
+    0..25: (0, 0), (1, 0), (0, 1), (p - 1, 0), (0, p - 1), (R mod p, 0),
+    (a, a), (a, p - a), and 2^k in c0 and in c1."""
+    p = fields.BN254_FQ
+    x = _elems2(512, 19, device)
+    a = 0x1234567890ABCDEF
+    ks = (1, 31, 32, 64, 128, 200, 253, 254, 255)
+    edge = ([Fq2(0, 0), Fq2(1, 0), Fq2(0, 1), Fq2(p - 1, 0), Fq2(0, p - 1),
+             Fq2((1 << 256) % p, 0), Fq2(a, a), Fq2(a, p - a)]
+            + [Fq2(1 << k, 0) for k in ks] + [Fq2(0, 1 << k) for k in ks])
+    x[: len(edge)] = get_cuda_quad_ec(p).ctx.words(edge, device)
+    return x
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FIELDS))
+@pytest.mark.parametrize("name", sorted(FIELDS) + ["Fq2"])
 def test_cuda_inv_divsteps_matches_plain(cuda, name):
-    """The divstep `inv` against x^(p-2) at batch_inv's 512-lane root and
-    at 3 lanes: 0, 1, p - 1, R mod p (rows 0..15), 2^k, x * inv(x) == 1."""
-    p = FIELDS[name]
-    ec = get_cuda_ec(p)
+    """The divstep `inv` against the plain inverse (x^(p-2), over Fq2 of
+    the norm) at batch_inv's 512-lane root and at 3 lanes: 0, 1, p - 1,
+    R mod p (rows 0..15; over Fq2 the norm's edges), 2^k,
+    x * inv(x) == 1."""
+    if name == "Fq2":
+        ec = get_cuda_quad_ec(fields.BN254_FQ)
+        x = _fq2_inv_inputs(cuda)
+    else:
+        p = FIELDS[name]
+        ec = get_cuda_ec(p)
+        x = _elems(p, 512, 9, cuda)
+        x[16:26] = ec.ctx.words([1 << k for k in (1, 29, 30, 31, 32, 60, 64, 128, 200, 253)],
+                                cuda)
     ctx = ec.ctx
-    x = _elems(p, 512, 9, cuda)
-    x[16:26] = ctx.words([1 << k for k in (1, 29, 30, 31, 32, 60, 64, 128, 200, 253)], cuda)
     before = ec.inv_launches
     got = ec.inv(x)
     assert _equal(got, ec.inv_plain(x))
     nz = ~ctx.is_zero(x)
-    assert torch.equal(ec.mul(x, got)[nz], ctx.one_mont(cuda).expand(int(nz.sum()), 8))
+    assert torch.equal(ec.mul(x, got)[nz],
+                       ctx.one_mont(cuda).expand(int(nz.sum()), x.shape[1]))
     assert not got[~nz].any()
-    x3 = x[1:4].contiguous()  # 1, p - 1, R mod p
+    x3 = x[1:4].contiguous()
     assert _equal(ec.inv(x3), ec.inv_plain(x3))
     assert ec.inv_launches == before + 2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("a", [0, 0x1234567], ids=["a0", "a_nonzero"])
-def test_cuda_jdbl_n_fold_shapes_match_plain(cuda, a):
-    """The warp-a-lane `jdbl_n` over BN254 Fq at the window combine's five
-    shapes (16 lanes x 11 .. 1 lane x 176), identities (Z = 0) planted in
-    lanes 3 and 5, on a = 0 and a != 0."""
-    ec = get_cuda_ec(fields.BN254_FQ, a)
-    pt = _planted_points(ec, 16 + 16, 17, cuda)[:3]
+@pytest.mark.parametrize("field, a", [("Fq", 0), ("Fq", 0x1234567), ("Fq2", 0)],
+                         ids=["a0", "a_nonzero", "fq2"])
+def test_cuda_jdbl_n_fold_shapes_match_plain(cuda, field, a):
+    """warp.cuh's `jdbl_n` (a warp a lane) over BN254 Fq (a = 0 and
+    a != 0) and (two warps a lane) over Fq2 (a = 0) at the window combine's
+    five shapes (16 lanes x 11 .. 1 lane x 176), identities (Z = 0)
+    planted in lanes 3 and 5, then 100 lanes x 0, 1 and 3."""
+    if field == "Fq2":
+        ec = get_cuda_quad_ec(fields.BN254_FQ)
+        pt = _planted_points(ec, 100, 17, cuda, lambda s: _elems2(100, s, cuda))[:3]
+    else:
+        ec = get_cuda_ec(fields.BN254_FQ, a)
+        pt = _planted_points(ec, 100 + 16, 17, cuda)[:3]
     before = ec.jdbl_n_launches
-    shapes = ((16, 11), (8, 22), (4, 44), (2, 88), (1, 176))
+    shapes = ((16, 11), (8, 22), (4, 44), (2, 88), (1, 176), (100, 0), (100, 1), (100, 3))
     for lanes, count in shapes:
         pl = tuple(t[:lanes].contiguous() for t in pt)
         assert _equal(ec.jdbl_n(*pl, count), ec.jdbl_n_plain(*pl, count)), (lanes, count)

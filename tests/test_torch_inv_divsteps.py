@@ -1,7 +1,8 @@
-"""The Fq `inv` kernel's divstep schedule (crescent_tpu_torch/csrc/field.cuh
+"""The `inv` kernels' divstep schedule (crescent_tpu_torch/csrc/field.cuh
 `fe_inv_divsteps`), modelled in Python ints and held against Fermat's
-x^(p-2) for BN254 Fq and Fr.  Exact comparisons (tolerance 0); no card and
-no JAX needed.
+x^(p-2) for BN254 Fq and Fr, and the Fq2 `inv` (the same divsteps on the
+norm) against the JAX package's host Fq2 inverse and the port's plain
+version.  Exact comparisons (tolerance 0); no card needed.
 
 The model repeats the kernel step for step: nine signed 30-bit limbs,
 batches of 30 constant-time divsteps on the low words of f and g, each
@@ -18,6 +19,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from crescent_tpu_torch.core import fields
 from crescent_tpu_torch.ops.cuda_ec import _curve26, divstep_r3
@@ -221,3 +223,50 @@ def test_divstep_model_matches_fermat(name):
         assert got == want, hex(xm)
         assert g == 0, hex(xm)
         assert abs(f) == (1 if xm else p), hex(xm)
+
+
+def _mont_mul(a: int, b: int, p: int) -> int:
+    return a * b * pow(R, -1, p) % p
+
+
+def fq2_inv_model(x0m: int, x1m: int, p: int) -> tuple[int, int]:
+    """The Fq2 `inv` kernel (field.cuh `fe_inv` over Fe2) on one Montgomery
+    row (x0 R, x1 R): the norm x0^2 + x1^2 by two products and a sum, its
+    inverse by the divstep model, then x0 ninv and (-x1) ninv."""
+    nrm = (_mont_mul(x0m, x0m, p) + _mont_mul(x1m, x1m, p)) % p
+    ninv = inv_model(nrm, p)[0]
+    return _mont_mul(x0m, ninv, p), _mont_mul((p - x1m) % p, ninv, p)
+
+
+def _fq2_inputs(p: int) -> list[tuple[int, int]]:
+    """The norm's edges ((0, 0), (1, 0), (0, 1), (p - 1, 0), (0, p - 1),
+    (a, a), (a, p - a), 2^k in c0 and in c1) and 12 seeded pairs."""
+    a = 0x1234567890ABCDEF
+    ks = (1, 31, 32, 64, 128, 253)
+    rng = np.random.default_rng(11)
+    words = rng.integers(0, 1 << 32, size=(24, 8), dtype=np.uint64)
+    seeded = [int("".join(f"{int(w):08x}" for w in row[::-1]), 16) % p for row in words]
+    return ([(0, 0), (1, 0), (0, 1), (p - 1, 0), (0, p - 1), (a, a), (a, p - a)]
+            + [(1 << k, 0) for k in ks] + [(0, 1 << k) for k in ks]
+            + list(zip(seeded[::2], seeded[1::2])))
+
+
+def test_fq2_divstep_model_matches_reference_and_plain():
+    """The Fq2 `inv` model equals the JAX package's host Fq2 inverse and the
+    port's plain QuadCtx.inv_mod (the norm's Fermat chain), bit for bit;
+    (0, 0) -> (0, 0)."""
+    from crescent_tpu.core.fields import Fq2 as RefFq2
+    from crescent_tpu_torch.ops.quadratic import get_fq2_ctx
+
+    p = fields.BN254_FQ
+    xs = _fq2_inputs(p)
+    mont = [(x0 * R % p, x1 * R % p) for x0, x1 in xs]
+    got = [fq2_inv_model(x0m, x1m, p) for x0m, x1m in mont]
+    ref = []
+    for x0, x1 in xs:
+        y = RefFq2(x0, x1).inv() if (x0, x1) != (0, 0) else RefFq2(0, 0)
+        ref.append((y.c0 * R % p, y.c1 * R % p))
+    assert got == ref
+    q = get_fq2_ctx()
+    plain = q.inv_mod(q.words([fields.Fq2(*m) for m in mont]))
+    assert torch.equal(plain, q.words([fields.Fq2(*g) for g in got]))
