@@ -18,15 +18,20 @@
    with the norm's edges, (1, 0), (0, 1), (p-1, 0), (a, a) and 2^k in c0
    and in c1, x * inv(x) == 1; `jdbl_n` over Fq and Fq2 at the window
    combine's five launches, 16 lanes x 11 down to 1 lane x 176 doublings,
-   identities among the lanes, then 100 lanes x 0, 1 and 3), and once over
-   a curve with a != 0 (2^14 lanes).  Tolerance:
+   identities among the lanes, then 100 lanes x 0, 1 and 3; `jadd` over Fq
+   and Fq2 at every shape of a chunk's 27 launches, 25,625 lanes down to
+   1, and at 2^17, P + P, P + (-P) and the identity on either side run at
+   each), and once over a curve with a != 0 (2^14 lanes, and `jadd` at the
+   chunk's shapes).  Tolerance:
    none, the results must be bit-identical (exact integer arithmetic).
-   Prints the kernel's and the plain version's times (CUDA events) and the
+   Prints the kernel's and the plain version's times (CUDA events; `jadd`'s
+   around a CUDA graph of its launches, whose kernels at the narrow shapes
+   are shorter than the host's time a call) and the
    least time the card could take (`bound_ms`: bytes over 3.35 TB/s
    against 32-bit multiply-adds over 16.75e12/s, and for `inv` over Fq and
    Fq2 the divsteps' integer operations too, whichever is larger, counted
-   for this run's data), and nvcc's register count; fails if either
-   `jdbl_n` kernel (warp.cuh) spills.
+   for this run's data), and nvcc's register count; fails if a `jdbl_n`
+   or `jadd` kernel (warp.cuh) spills.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -99,6 +104,13 @@ DIVSTEP_INV_OPS = 25 * (30 * 28 + 2 * 90 + 2) + MONT_MUL_MADS
 # 32): (lanes, doublings)
 FOLD_DBL_SHAPES = ((16, AFFINE_C), (8, 2 * AFFINE_C), (4, 4 * AFFINE_C),
                    (2, 8 * AFFINE_C), (1, 16 * AFFINE_C))
+# a chunk's 27 jadd launches: the aggregate's suffix sums (11 levels of W * B
+# lanes) and weight tree (W * 512 down to W), the window combine (16 down to
+# 1), the fold's accumulator (1); W = 25 windows of B = 1025 buckets
+_W, _B = (256 + AFFINE_C - 1) // AFFINE_C + 1, (1 << (AFFINE_C - 1)) + 1
+JADD_CHUNK = ([_W * _B] * AFFINE_C + [_W * ((_B - 1) >> k) for k in range(1, AFFINE_C)]
+              + [16, 8, 4, 2, 1, 1])
+JADD_SHAPES = sorted(set(JADD_CHUNK), reverse=True) + [1 << CHUNK_LOG]
 
 
 def _registers(reports: dict) -> dict:
@@ -123,6 +135,14 @@ def _registers(reports: dict) -> dict:
     return out
 
 
+def _jadd_registers(regs: dict, name: str) -> dict:
+    """(registers, spill store bytes) of each instance of warp.cuh's `jadd`
+    kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), by mangled name."""
+    lib, field = ("ec2", "3Fe2") if name.startswith("fq2_") else ("ec", "2Fe")
+    return {e: v for (l, e), v in regs.items()
+            if l == lib and "_jadd_kernelI" in e and f"_jadd_kernelINS_{field}E" in e}
+
+
 def _kernel_registers(regs: dict, name: str):
     """(registers, spill store bytes) of the port's kernel `name` (fq2_ for
     the Fq2 set), or None where its library was not built in this run."""
@@ -140,6 +160,9 @@ def _kernel_registers(regs: dict, name: str):
         lib = "ntt" if base in ("mul", "butterfly") else "ec"
         key = {"inv": "divstep_inv_kernel",
                "jdbl_n": warp.format("2Fe")}.get(base, base + "_kernel")
+    if base == "jadd":  # its executors: the most registers and spills of any, a == 0
+        hits = [v for e, v in _jadd_registers(regs, name).items() if "ELb1E" in e]
+        return (max(h[0] for h in hits), max(h[1] for h in hits)) if hits else None
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
     return hits[0] if len(hits) == 1 else None
 
@@ -183,6 +206,28 @@ def _time_ms(torch, fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call of fn() on the card, `reps` calls captured
+    in one CUDA graph and replayed (CUDA events around the replay): the
+    kernel's time without the host's time a call, which is longer than a
+    narrow launch's kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -369,12 +414,45 @@ def _bucket_table(torch, ec, W: int, B: int, seed: int):
     return tuple(a.view(W * B, -1) for a in (x, y, z))
 
 
+def _jadd_shapes(torch, ec, prefix: str, seed: int, record=None) -> int:
+    """`jadd` against jadd_plain at every shape of a chunk's launches and at
+    2^17 lanes, P + P (twice), P + (-P) and the identity on either side and
+    on both planted in lanes 0..5: a shape of fewer lanes runs over those
+    lanes in turn.  With `record`, times each shape on the lanes from 16 on
+    (none planted, as on the path, where P == Q is as good as never met) in
+    a CUDA graph and records it; returns the largest difference."""
+    e, sqr, mul = (64, 2, 3) if ec.WIDTH == 16 else (32, 1, 1)
+    pq = _point_inputs(torch, ec, (1 << CHUNK_LOG) + 16, seed)
+    worst = 0
+    for lanes in JADD_SHAPES:
+        offsets = range(0, 6, lanes) if lanes < 6 else [0]
+        err = 0
+        for o in offsets:
+            args = tuple(a[o:o + lanes].contiguous() for a in pq)
+            got = ec.jadd(*args)
+            torch.cuda.synchronize()
+            err = max(err, _errs(torch, got, ec.jadd_plain(*args)))
+        if lanes >= 6:
+            z = got[2]
+            if z[2].any().item() or z[5].any().item() or not z[0].any().item():
+                fail(f"{prefix}jadd: P + (-P) or inf + inf is not the identity, or P + P is")
+            if not (torch.equal(got[0][3], pq[3][3]) and torch.equal(got[0][4], pq[0][4])):
+                fail(f"{prefix}jadd: the identity on one side does not return the other side")
+        worst = max(worst, err)
+        if record is not None:  # timed past the planted lanes, as on the path
+            args = tuple(a[16:16 + lanes].contiguous() for a in pq)
+            record("jadd", f"{lanes} lanes", err, _graph_ms(torch, lambda: ec.jadd(*args), REPS),
+                   _time_ms(torch, lambda: ec.jadd_plain(*args), 2),
+                   9 * e * lanes, (5 * sqr + 11 * mul) * MONT_MUL_MADS * lanes)
+    return worst
+
+
 def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_inv,
                          out: dict) -> None:
     """The MSM path's point kernels of one field against their plain
     versions, with the cases planted: affine_denom and affine_add at 2^21
-    lanes (the first pair level of a chunk), jadd at the dense table's W*B
-    lanes and at 2^17, jdbl at 2^17, jdbl_n at the window combine's five
+    lanes (the first pair level of a chunk), jadd at every shape of a
+    chunk's launches and at 2^17, jdbl at 2^17, jdbl_n at the window combine's five
     shapes (16 lanes x 11 .. 1 lane x 176; then 100 lanes x 0, 1 and 3),
     bucket_reduce on the fused aggregate's (W * B)-row table.
     Bounds count an element's bytes (32 over Fq, 64 over Fq2) and its base
@@ -387,7 +465,6 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
     fq2 = ec.WIDTH == 16
     e, sqr, mul = (64, 2, 3) if fq2 else (32, 1, 1)
     n = 1 << LOG_SIZE
-    nb_lanes = ((256 + AFFINE_C - 1) // AFFINE_C + 1) * ((1 << (AFFINE_C - 1)) + 1)  # W * B
     nck = 1 << CHUNK_LOG
 
     def record(name, *row):
@@ -418,20 +495,8 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
            (7 * e + 12) * n, (2 * sqr + 2 * mul) * MONT_MUL_MADS * n)
     del d, inv, pair, got
 
-    # -- jadd: the dense table (W*B lanes) and 2^17 lanes ----------------------
-    for lanes, shape in ((nb_lanes, f"{nb_lanes} lanes"), (nck, f"2^{CHUNK_LOG} lanes")):
-        pq = _point_inputs(torch, ec, lanes, seed + 10)
-        got = ec.jadd(*pq)
-        torch.cuda.synchronize()
-        err = _errs(torch, got, ec.jadd_plain(*pq))
-        z = got[2]
-        if z[2].any().item() or z[5].any().item() or not z[0].any().item():
-            fail(f"{prefix}jadd: P + (-P) or inf + inf is not the identity, or P + P is")
-        if not (torch.equal(got[0][3], pq[3][3]) and torch.equal(got[0][4], pq[0][4])):
-            fail(f"{prefix}jadd: the identity on one side does not return the other side")
-        record("jadd", shape, err, _time_ms(torch, lambda: ec.jadd(*pq), REPS),
-               _time_ms(torch, lambda: ec.jadd_plain(*pq), 2),
-               9 * e * lanes, (5 * sqr + 11 * mul) * MONT_MUL_MADS * lanes)
+    # -- jadd: every shape of a chunk's launches, and 2^17 lanes --------------
+    _jadd_shapes(torch, ec, prefix, seed + 10, record)
 
     # -- jdbl: 2^17 lanes; jdbl_n: the window combine's shapes ----------------
     dbl = (7 * sqr + mul) * MONT_MUL_MADS
@@ -545,11 +610,12 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
         _errs(torch, eca.jdbl_n(*pt[:3], 3), eca.jdbl_n_plain(*pt[:3], 3)),
         _errs(torch, eca.jadd(*pt), eca.jadd_plain(*pt)),
         _errs(torch, eca.affine_add(*pair, inv), eca.affine_add_plain(*pair, inv)),
+        _jadd_shapes(torch, eca, "a != 0: ", SEED + 80),
     )
     if torch.equal(eca.jdbl(*pt[:3])[0], ec.jdbl(*pt[:3])[0]):
         fail("a != 0 does not reach the doubling")
-    say(f"kernels jdbl, jdbl_n, jadd, affine_add [BN254 Fq, a = 0x1234567] 2^14 lanes: "
-        f"max_abs_err={err}")
+    say(f"kernels jdbl, jdbl_n, jadd, affine_add [BN254 Fq, a = 0x1234567] 2^14 lanes, "
+        f"jadd at the chunk's shapes and 2^{CHUNK_LOG}: max_abs_err={err}")
     if err:
         fail("a kernel differs from its plain version over a curve with a != 0")
     return out
@@ -1276,6 +1342,10 @@ def main() -> None:
         spill = (_kernel_registers(regs, name) or (None, None))[1]
         if spill:
             fail(f"{name}'s kernel spills {spill} bytes (nvcc -Xptxas -v)")
+    for name in ("jadd", "fq2_jadd"):  # and its additions, every instance
+        for entry, (_, spill) in _jadd_registers(regs, name).items():
+            if spill:
+                fail(f"{name}'s kernel {entry} spills {spill} bytes (nvcc -Xptxas -v)")
     runs = (setup_launches, prove_launches, native0_launches, fused_launches,
             verify_launches)
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
@@ -1308,6 +1378,9 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes these
         })
+        if name in ("jadd", "fq2_jadd"):  # both designs, a == 0 and a != 0
+            kernels[-1]["registers_by_entry"] = {
+                e: r for e, (r, _) in _jadd_registers(regs, name).items()}
         if len(rows) > 1:  # every shape the kernel phase timed
             kernels[-1]["shapes"] = [
                 {"shape": r[0], "ms": r[2], "plain_ms": r[3], "bound_ms": r[4]} for r in rows]

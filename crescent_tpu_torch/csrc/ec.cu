@@ -16,27 +16,26 @@
 // validity flags are (N,) int32.  Every result is canonical, so it is
 // bit-equal to the TPU kernel's on the same inputs.
 //
-// One thread per lane but for `jdbl_n` (a warp a lane): it loads its rows
-// with 128-bit accesses (adjacent threads on adjacent rows), keeps every
-// intermediate of the formula in registers and stores the result rows.  No
-// lane padding (a bounds check), the curve constants arrive by value in the
-// constant bank, and `jdbl_n`'s count is a kernel argument.
+// One thread per lane but for `jdbl_n` and `jadd` (several threads a lane,
+// warp.cuh): it loads its rows with 128-bit accesses (adjacent threads on
+// adjacent rows), keeps every intermediate of the formula in registers and
+// stores the result rows.  No lane padding (a bounds check), the curve
+// constants arrive by value in the constant bank, and `jdbl_n`'s count is
+// a kernel argument.
 //
 // What bounds them on this card.  `affine_denom` (4 rows in, 1 out, a few
 // subtractions) is bound by bytes.  `affine_add` (5 rows in, 2 out, three
-// products) and `jadd` (6 in, 3 out, sixteen products) sit near the point
-// where integer multiply-adds overtake bytes; `jadd` is the register-heavy
-// one, so its rare doubling case is a branch taken only by lanes with
+// products) sits near the point where integer multiply-adds overtake
+// bytes.  `madd` (5 rows in, 3 out, eleven products) is bound by
+// operations, its rare doubling case a branch taken only by lanes with
 // P == Q instead of a second formula evaluated by every lane (the value is
-// the same).  `madd` (5 rows in, 3 out, eleven products) is bound by
-// operations, with `jadd`'s branch for the doubling.  `bucket_reduce`
-// (one window of the dense bucket table a block, 12,298 dependent-level
-// jadds a window at c = 11) is bound by operations in principle; with one
-// block per window it runs on W of the card's SMs, 44 jadds in a row a
-// thread (point.cuh).
+// the same).  `bucket_reduce` (one window of the dense bucket table a
+// block, 12,298 dependent-level jadds a window at c = 11) is bound by
+// operations in principle; with one block per window it runs on W of the
+// card's SMs, 44 jadds in a row a thread (point.cuh's `pt_jadd`).
 //
-// `inv` and `jdbl_n` run a long dependent chain on few lanes, so they are
-// bound by latency, not by the card's throughput:
+// `inv`, `jdbl_n` and `jadd` run long dependent chains of products on few
+// lanes, so they are bound by latency, not by the card's throughput:
 //   * `inv` (pallas_ec.py:527-543, `_inv_kernel` and `_inv_core`; op :698)
 //     inverts batch_inv's 512-lane root.  The Fermat chain it replaces was
 //     about 381 dependent Montgomery products a thread, each a 64-bit carry
@@ -52,16 +51,26 @@
 //   * `jdbl_n` (pallas_ec.py:550, `_dbln_kernel`; op :744) runs the window
 //     combine's chains, 16 down to 1 lanes of 11 to 176 doublings.  One
 //     thread a lane ran dbl-2007-bl's eight products in a row.  This one is
-//     warp.cuh's warp a lane: each doubling in three stages of independent
+//     warp.cuh's warp a lane: each doubling in three rounds of independent
 //     products, each product shared by 8 threads, one word a thread, with
 //     shuffles and warp votes for the carries, and the sums between the
-//     stages as PTX carry chains; an instance for a == 0 (the BN254 curves)
+//     rounds as PTX carry chains; an instance for a == 0 (the BN254 curves)
 //     and one for a != 0.  63 and 58 registers, no spills.
+//   * `jadd` (pallas_ec.py:505, `_jadd_kernel`, body :300; op :670) runs
+//     the bucket aggregate and the window combine, 27 launches a chunk of
+//     25,625 lanes (11), 12,800 down to 25 (10) and 16 down to 1 (6).
+//     One thread a lane ran add-2007-bl's 16 products in a row at 166
+//     registers.  This one is warp.cuh's `jadd_rounds`: the products in
+//     five rounds of at most four (the formula's dependent depth), on a
+//     warp of 8-thread groups a lane up to 1,024 lanes, on four threads a
+//     lane (one product a thread) up to 16,383, and on one thread a lane
+//     (the rounds' products in turn) from 16,384 on, where more threads a
+//     lane would repeat too much work; P == Q takes warp.cuh's doubling
+//     on the same threads, where a lane run with it needs it.
 //
-// Every kernel but `inv` and `jdbl_n` is a template of point.cuh
-// instantiated here over Fe; ec2.cu instantiates the same bodies over Fe2,
-// warp.cuh's `jdbl_n` over Fe2 too (two warps a lane), and inverts by the
-// divsteps on the norm.
+// Every other kernel is a template of point.cuh instantiated here over Fe;
+// ec2.cu instantiates the same bodies over Fe2, warp.cuh's `jdbl_n` and
+// `jadd` over Fe2 too, and inverts by the divsteps on the norm.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -133,8 +142,12 @@ extern "C" int crescent_jadd(const uint32_t* curve26, const void* x1,
                              const void* y1, const void* z1, const void* x2,
                              const void* y2, const void* z2, void* ox, void* oy,
                              void* oz, long long n, void* stream) {
-  return crescent::launch_jadd<Fe>(curve26, x1, y1, z1, x2, y2, z2, ox, oy, oz,
-                                   n, stream);
+  // several threads a lane, the design by the lane count (warp.cuh)
+  const Curve C = make_curve(curve26);
+  return C.a_is_zero ? crescent::launch_jadd_lanes<Fe, true>(C, x1, y1, z1, x2, y2, z2, ox,
+                                                             oy, oz, n, stream)
+                     : crescent::launch_jadd_lanes<Fe, false>(C, x1, y1, z1, x2, y2, z2, ox,
+                                                              oy, oz, n, stream);
 }
 
 extern "C" int crescent_jdbl_n(const uint32_t* curve26, const void* x,

@@ -24,30 +24,38 @@
 // words, then c1's (field.cuh Fe2).  Results are canonical, so they equal
 // the TPU kernels' bit for bit.
 //
-// One thread per lane, as in ec.cu, but for `jdbl_n`.  `mul` (3 base
-// products, 192 bytes a lane) is bound by bytes; it takes row strides, so
-// the product tree of batch_inv multiplies the even rows of a level by the
-// odd ones and writes interleaved rows without copies.  `inv` is the norm
-// map: the norm x0^2 + x1^2, its inverse by field.cuh's constant-time
-// divsteps (`fe_inv_divsteps`, as Fq `inv` in ec.cu; the reference runs a
-// Fermat chain there), then two products; on batch_inv's 512-lane root it
-// is latency, so it launches one warp a block and the root's 16 warps
-// spread over 16 SMs.  `jdbl_n` (16 down to 1 lanes of 11 to 176
-// doublings in the window combine) is latency too: warp.cuh's two warps a
-// lane, each doubling's 16 base products in three rounds of side-by-side
-// 8-thread products.  The other point kernels are point.cuh's templates
-// over Fe2, with ec.cu's launch shapes: `affine_denom` (328 bytes a lane,
-// no product) is bound by bytes, `affine_add` (460 bytes, 10 base
-// products) near the line where products overtake bytes, `madd` (29 base
-// products on the addition path), `jadd` (43) and `jdbl` (17) by
-// operations.  An Fq2 element is twice an Fq one in registers, so `jadd`
-// and `madd` run at the 255-register limit and spill; their doubling stays
-// a branch that only lanes with P == Q take.  `bucket_reduce` is
-// point.cuh's one block a window over the jadd body, 256 threads a block
-// (the most the 255-register body allows; 66 jadds in a row a thread at
-// c = 11).  `butterfly` (a, b, tw in, two rows out: 320 bytes and 3 base
-// products a lane) is bound by bytes; no path of the reference calls it.
-// BN254 G2 has a = 0, which the wrapper requires and `jdbl_n` checks.
+// One thread per lane, as in ec.cu, but for `jdbl_n` and `jadd`.  `mul`
+// (3 base products, 192 bytes a lane) is bound by bytes; it takes row
+// strides, so the product tree of batch_inv multiplies the even rows of a
+// level by the odd ones and writes interleaved rows without copies.  `inv`
+// is the norm map: the norm x0^2 + x1^2, its inverse by field.cuh's
+// constant-time divsteps (`fe_inv_divsteps`, as Fq `inv` in ec.cu; the
+// reference runs a Fermat chain there), then two products; on batch_inv's
+// 512-lane root it is latency, so it launches one warp a block and the
+// root's 16 warps spread over 16 SMs.  `jdbl_n` (16 down to 1 lanes of 11
+// to 176 doublings in the window combine) is latency too: warp.cuh's two
+// warps a lane, each doubling's 16 base products in three rounds of
+// side-by-side 8-thread products.  `jadd` (43 base products, the bucket
+// aggregate's and the combine's 27 launches a chunk, 25,625 lanes down to
+// 1) is warp.cuh's `jadd_rounds` over Fe2: five rounds of at most sixteen
+// base products on four warps' groups a lane up to 256 lanes, six rounds
+// of at most eight on eight threads a lane (one product a thread) above;
+// one thread a lane ran them in a row at the 255-register limit and
+// spilled.
+// The other point kernels are point.cuh's templates over Fe2, with ec.cu's
+// launch shapes: `affine_denom` (328 bytes a lane, no product) is bound by
+// bytes, `affine_add` (460 bytes, 10 base products) near the line where
+// products overtake bytes, `madd` (29 base products on the addition path)
+// and `jdbl` (17) by operations.  An Fq2 element is twice an Fq one in
+// registers, so `madd` runs at the 255-register limit and spills; its
+// doubling stays a branch that only lanes with P == Q take.
+// `bucket_reduce` is point.cuh's one block a window over the jadd body
+// `pt_jadd`, 256 threads a block (the most the 255-register body allows;
+// 66 jadds in a row a thread at c = 11).  `butterfly` (a, b, tw in, two
+// rows out: 320 bytes and 3 base products a lane) is bound by bytes; no
+// path of the reference calls it.
+// BN254 G2 has a = 0, which the wrapper requires and `jdbl_n` and `jadd`
+// check.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -169,8 +177,10 @@ extern "C" int crescent_fq2_jadd(const uint32_t* curve26, const void* x1,
                                  const void* y2, const void* z2, void* ox,
                                  void* oy, void* oz, long long n,
                                  void* stream) {
-  return crescent::launch_jadd<Fe2>(curve26, x1, y1, z1, x2, y2, z2, ox, oy, oz,
-                                    n, stream);
+  const Curve C = make_curve(curve26);
+  if (!C.a_is_zero) return (int)cudaErrorInvalidValue;  // a = 0 only
+  return crescent::launch_jadd_lanes<Fe2, true>(C, x1, y1, z1, x2, y2, z2, ox, oy, oz, n,
+                                                stream);
 }
 
 extern "C" int crescent_fq2_jdbl_n(const uint32_t* curve26, const void* x,

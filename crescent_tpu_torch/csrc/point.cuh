@@ -194,7 +194,9 @@ __global__ void affine_add_kernel(Curve C, const uint4* lx, const uint4* ly,
 
 // Complete Jacobian addition (add-2007-bl; pallas_ec._jadd_body): the
 // doubling when P == Q, the identity (Z = 0) when P == -Q, the other side
-// when one is the identity.
+// when one is the identity.  One thread computes it whole, for
+// `bucket_reduce_kernel`; the `jadd` kernels run the same values in rounds
+// on several threads a lane (warp.cuh `jadd_rounds`).
 template <class F>
 __device__ __forceinline__ PtT<F> pt_jadd(const Curve& C, const PtT<F>& P,
                                           const PtT<F>& Q) {
@@ -236,18 +238,6 @@ __device__ __forceinline__ PtT<F> pt_jadd(const Curve& C, const PtT<F>& P,
   // P == -Q: the identity (Z == 0; x and y stay what the formula gave)
   R.z = fe_select(finite && h_zero && !r_zero, FieldRow<F>::zero(), R.z);
   return R;
-}
-
-// One complete Jacobian addition per lane.
-template <class F>
-__global__ void jadd_kernel(Curve C, const uint4* x1, const uint4* y1,
-                            const uint4* z1, const uint4* x2, const uint4* y2,
-                            const uint4* z2, uint4* ox, uint4* oy, uint4* oz,
-                            long long n) {
-  const long long i = lane();
-  if (i >= n) return;
-  pt_store<F>(ox, oy, oz, i,
-              pt_jadd<F>(C, pt_load<F>(x1, y1, z1, i), pt_load<F>(x2, y2, z2, i)));
 }
 
 // One doubling.
@@ -385,19 +375,6 @@ int launch_affine_add(const uint32_t* curve26, const void* lx, const void* ly,
                            (cudaStream_t)stream>>>(
         make_curve(curve26), (In)lx, (In)ly, (const int*)lv, (In)rx, (In)ry,
         (const int*)rv, (In)inv, (Out)ox, (Out)oy, (int*)ov, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class F>
-int launch_jadd(const uint32_t* curve26, const void* x1, const void* y1,
-                const void* z1, const void* x2, const void* y2, const void* z2,
-                void* ox, void* oy, void* oz, long long n, void* stream) {
-  if (n > 0) {
-    jadd_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>(
-        make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)x2, (In)y2, (In)z2,
-        (Out)ox, (Out)oy, (Out)oz, n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,29 +1,43 @@
 #!/usr/bin/env python3
-"""Times design alternatives of the `jdbl_n` kernels over Fq and Fq2
-(csrc/warp.cuh) against this checkout's, in turns, on one card.
+"""Times design alternatives of the chain kernels `jdbl_n` and `jadd` over
+Fq and Fq2 (csrc/warp.cuh) against this checkout's, in turns, on one card.
 
-    python3 scripts/jdbl_n_designs.py [--rounds N] [--designs NAME ...]
+    python3 scripts/chain_designs.py [--rounds N] [--designs NAME ...]
 
 Each design is a copy of this checkout's `crescent_tpu_torch/` under
 `build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh`:
 
 * `field_sums`: the sums and differences between the rounds of both
-  doublings by field.cuh's `fe_add` / `fe_sub` (64-bit accumulators, the
-  other kernels' sums) in place of warp.cuh's PTX carry chains
-  `fe_add_cc` / `fe_sub_cc`;
-* `thread_product`: each product of an Fq round computed whole by every
-  thread of its group (`fe_mont_mul`, one thread a product, the rounds
-  kept) in place of the group's 8-thread product, one word a thread;
+  doublings (and of the additions) by field.cuh's `fe_add` / `fe_sub`
+  (64-bit accumulators, the other kernels' sums) in place of warp.cuh's
+  PTX carry chains `fe_add_cc` / `fe_sub_cc`;
+* `thread_product`: each product of an Fq round on groups computed whole
+  by every thread of its group (`fe_mont_mul`, one thread a product, the
+  rounds kept) in place of the group's 8-thread product, one word a
+  thread;
 * `one_warp`: the Fq2 doubling on one warp a lane (four 8-thread groups)
   in four rounds of four products (XX and YY; YYYY and (X + YY)^2; M^2,
   y0 z0 and y1 z1; M (S - X3) and (y0 + y1)(z0 + z1)), passed on by
-  shuffles, in place of two warps' three rounds through shared memory.
+  shuffles, in place of two warps' three rounds through shared memory;
+* `jadd_groups`: `jadd` on 8-thread groups at every lane count (over Fq
+  and Fq2), the kept kernel's executor of the narrow launches;
+* `jadd_threads`: `jadd` on product threads (4 a lane over Fq, 8 over
+  Fq2) at every lane count, the kept kernel's executor of the middle
+  launches (and of the wide ones over Fq2);
+* `jadd_one_thread`: `jadd` on one thread a lane, the rounds' products in
+  turn (no shuffles), at every lane count: the kept kernel's executor of
+  the widest launches over Fq; over Fq2 it spills;
+* `jadd_threads_half`: `jadd` on half as many product threads a lane
+  (two over Fq, four over Fq2), each thread up to two products of a
+  round, at every lane count;
+* `two_warps`: the Fq2 `jadd` on groups of two warps a lane (8 groups),
+  its 43 base products in six rounds of at most eight (the product
+  threads' plan) in place of four warps' five rounds of at most sixteen.
 
 The designs are built at once with this checkout (one nvcc a source), then
 `scripts/time_chain_kernels.py --turns` checks every build bit-equal to the
-plain versions and times `jdbl_n` (and `inv`, unchanged) over Fq and Fq2
-at the window combine's five shapes, this checkout and the designs in
-turns.
+plain versions and times `inv`, `jdbl_n` and `jadd` over Fq and Fq2 at a
+chunk's shapes, this checkout and the designs in turns.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -68,16 +82,15 @@ def _replace_function(src: str, head: str, new: str) -> str:
     return src[:a] + new + src[b:]
 
 
-ONE_WARP = """// One Fq2 doubling by one warp (a = 0): 16 base products in four rounds
+ONE_WARP = """// One Fq2 doubling on one warp (a = 0): 16 base products in four rounds
 // on the warp's four groups, passed on by shuffles:
 //   1. XX and YY;
 //   2. YYYY and (X + YY)^2;
 //   3. M^2 (M = 3 XX), y0 z0 and y1 z1;
 //   4. M (S - X3) as m0 d0, m1 d1 and (m0 + m1)(d0 + d1), and
 //      (y0 + y1)(z0 + z1).
-template <bool kAZero>
-__device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& P,
-                                                int g, int k, uint32_t pk) {
+template <bool kAZero, class X>
+__device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& P, X& ex) {
   static_assert(kAZero, "the Fq2 doubling serves a = 0 only");
   const Mod& M = C.M;
   const Fe ys = fe_add_cc(P.y.c0, P.y.c1, M);
@@ -86,7 +99,7 @@ __device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& 
     const Fe a[4] = {fe_add_cc(P.x.c0, P.x.c1, M), P.x.c0, ys, P.y.c0};
     const Fe b[4] = {fe_sub_cc(P.x.c0, P.x.c1, M), P.x.c1,
                      fe_sub_cc(P.y.c0, P.y.c1, M), P.y.c1};
-    warp_products<4>(a, b, r1, M, g, k, pk);
+    ex.run(a, b, r1);
   }
   const Fe2 XX = fe2_make(r1[0], fe_add_cc(r1[1], r1[1], M));
   const Fe2 YY = fe2_make(r1[2], fe_add_cc(r1[3], r1[3], M));
@@ -95,7 +108,7 @@ __device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& 
   {
     const Fe a[4] = {fe_add_cc(YY.c0, YY.c1, M), YY.c0, fe_add_cc(T.c0, T.c1, M), T.c0};
     const Fe b[4] = {fe_sub_cc(YY.c0, YY.c1, M), YY.c1, fe_sub_cc(T.c0, T.c1, M), T.c1};
-    warp_products<4>(a, b, r2, M, g, k, pk);
+    ex.run(a, b, r2);
   }
   const Fe2 YYYY = fe2_make(r2[0], fe_add_cc(r2[1], r2[1], M));
   const Fe2 TT = fe2_make(r2[2], fe_add_cc(r2[3], r2[3], M));
@@ -106,7 +119,7 @@ __device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& 
   {
     const Fe a[4] = {fe_add_cc(Mm.c0, Mm.c1, M), Mm.c0, P.y.c0, P.y.c1};
     const Fe b[4] = {fe_sub_cc(Mm.c0, Mm.c1, M), Mm.c1, P.z.c0, P.z.c1};
-    warp_products<4>(a, b, r3, M, g, k, pk);
+    ex.run(a, b, r3);
   }
   PtT<Fe2> R;
   R.x = fe2_sub_cc(fe2_make(r3[0], fe_add_cc(r3[1], r3[1], M)), fe2_add_cc(S, S, M), M);
@@ -115,7 +128,7 @@ __device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& 
   {
     const Fe a[4] = {Mm.c0, Mm.c1, fe_add_cc(Mm.c0, Mm.c1, M), ys};
     const Fe b[4] = {D.c0, D.c1, fe_add_cc(D.c0, D.c1, M), fe_add_cc(P.z.c0, P.z.c1, M)};
-    warp_products<4>(a, b, r4, M, g, k, pk);
+    ex.run(a, b, r4);
   }
   const Fe2 MD = fe2_make(fe_sub_cc(r4[0], r4[1], M),
                           fe_sub_cc(fe_sub_cc(r4[2], r4[0], M), r4[1], M));
@@ -144,12 +157,57 @@ def _thread_product(src: str) -> str:
 
 def _one_warp(src: str) -> str:
     src = _replace_function(
-        src, "template <bool kAZero>\n__device__ __forceinline__ PtT<Fe2> warp_double(",
+        src, "template <bool kAZero, class X>\n__device__ __forceinline__ PtT<Fe2> warp_double(",
         ONE_WARP)
     return src.replace("constexpr int kLaneThreads<Fe2> = 64;", "constexpr int kLaneThreads<Fe2> = 32;")
 
 
-DESIGNS = {"field_sums": _field_sums, "thread_product": _thread_product, "one_warp": _one_warp}
+def _set_constant(src: str, old: str, new: str) -> str:
+    assert old in src, old
+    return src.replace(old, new)
+
+
+def _lanes(src: str, group_max: str, one_thread_min: str) -> str:
+    """`jadd` on groups up to group_max lanes, on one thread a lane from
+    one_thread_min on (0: never), on product threads between (over Fq and
+    Fq2)."""
+    for name, value in (("kJaddGroupLanesMax", group_max),
+                        ("kJaddOneThreadLanesMin", one_thread_min)):
+        src = _set_constant(src, f"{name} = ", f"{name} = {value}; //")
+        src = _set_constant(src, f"{name}<Fe2> = ", f"{name}<Fe2> = {value}; //")
+    return src
+
+
+def _jadd_groups(src: str) -> str:
+    return _lanes(src, "1LL << 40", "0")
+
+
+def _jadd_threads(src: str) -> str:
+    return _lanes(src, "0", "0")
+
+
+def _jadd_one_thread(src: str) -> str:
+    return _lanes(src, "0", "1")
+
+
+def _jadd_threads_half(src: str) -> str:
+    src = _jadd_threads(src)
+    src = _set_constant(src, "constexpr int kJaddProductThreads = 4;",
+                        "constexpr int kJaddProductThreads = 2;")
+    return _set_constant(src, "constexpr int kJaddProductThreads<Fe2> = 8;",
+                         "constexpr int kJaddProductThreads<Fe2> = 4;")
+
+
+def _two_warps(src: str) -> str:
+    # BlockGroups<2> takes the generic plan of six rounds of at most eight
+    return _set_constant(src, "constexpr int kJaddGroupThreads<Fe2> = 128;",
+                         "constexpr int kJaddGroupThreads<Fe2> = 64;")
+
+
+DESIGNS = {"field_sums": _field_sums, "thread_product": _thread_product, "one_warp": _one_warp,
+           "jadd_groups": _jadd_groups, "jadd_threads": _jadd_threads,
+           "jadd_threads_half": _jadd_threads_half, "jadd_one_thread": _jadd_one_thread,
+           "two_warps": _two_warps}
 
 
 def make(name: str) -> str:
@@ -180,8 +238,8 @@ def main() -> None:
     roots = [make(name) for name in args.designs]
     for root, out in build([HERE] + roots).items():
         lines = out.splitlines()
-        for i, line in enumerate(lines):  # the warp kernels' registers and spills
-            if "Compiling entry" in line and "jdbl_n" in line:
+        for i, line in enumerate(lines):  # the chain kernels' registers and spills
+            if "Compiling entry" in line and ("jdbl_n" in line or "jadd_kernel" in line):
                 info = " ".join(lines[i + 1:i + 4])
                 regs = re.search(r"Used (\d+) registers", info)
                 spill = re.search(r"(\d+) bytes spill stores", info)

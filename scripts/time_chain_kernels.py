@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Times the latency-bound chain kernels of the fold, `inv` and `jdbl_n`
-over Fq (G1) and over Fq2 (G2), at the prove path's shapes, and compares
-trees in turns.
+"""Times the latency-bound chain kernels of the fold, `inv`, `jdbl_n` and
+`jadd` over Fq (G1) and over Fq2 (G2), at the prove path's shapes, and
+compares trees in turns.
 
     python3 scripts/time_chain_kernels.py [--root DIR]
     python3 scripts/time_chain_kernels.py --turns ROOT [ROOT ...] [--rounds N]
 
 The first form builds the kernels of the port in DIR (default: this
-checkout), checks `inv` at batch_inv's 512-lane root (over Fq and Fq2) and
+checkout), checks `inv` at batch_inv's 512-lane root (over Fq and Fq2),
 `jdbl_n` at the window combine's five launches of a chunk (16 lanes x 11,
-8 x 22, 4 x 44, 2 x 88, 1 x 176 doublings; over Fq and Fq2) bit-equal to
-their plain versions on the card, times each by CUDA events (a mean over
-many launches, after a warm-up) and prints one JSON line.  The second
-builds this checkout and every ROOT at once (one nvcc a source), then runs
-the first form in subprocesses on each in turns (N rounds, default 2, the
-order rotated and reversed from round to round), so every build is
-measured on one card, and prints the medians side by side with the card's
-name and power limit.
+8 x 22, 4 x 44, 2 x 88, 1 x 176 doublings) and `jadd` at the distinct
+shapes of a chunk's 27 launches (the bucket aggregate's 11 suffix-sum
+levels of 25,625 lanes and its weight tree of 12,800 down to 25, the
+window combine's 16 down to 1, the fold's one lane) and at 2^17 lanes,
+over Fq and Fq2, bit-equal to their plain versions on the card (`jadd`'s
+inputs with P == Q, P == -Q and each side at the identity planted in
+lanes 16 to 19), times each by CUDA events around a CUDA graph of many
+launches (a mean, after a warm-up: the kernels' time on the card without
+the host's time a call; `jadd` on seeded lanes without those edges, as
+the aggregate's are), sums a chunk's `jadd` launches and prints one JSON
+line.  The second builds this checkout and every ROOT at once (one nvcc a
+source), then runs the first form in subprocesses on each in turns (N
+rounds, default 2, the order rotated and reversed from round to round), so
+every build is measured on one card, and prints the medians side by side
+with the card's name and power limit.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -33,6 +40,12 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 20261017
 SHAPES = ((16, 11), (8, 22), (4, 44), (2, 88), (1, 176))
+W, B = 25, 1025  # a chunk's windows and buckets (c = 11)
+# a chunk's jadd launches: the suffix sums, the weight tree, the window
+# combine, the fold's accumulator
+JADD_CHUNK = ([W * B] * 11 + [W * ((B - 1) >> k) for k in range(1, 11)]
+              + [16, 8, 4, 2, 1] + [1])
+JADD_SHAPES = sorted(set(JADD_CHUNK), reverse=True) + [1 << 17]
 INV_LANES = 512
 REPS = 200
 
@@ -68,13 +81,21 @@ def measure(root: str) -> dict:
         return torch.from_numpy(w.astype(np.uint32).view(np.int32)).cuda()
 
     def time_ms(fn) -> float:
+        """Device milliseconds a call: REPS calls captured in one CUDA graph
+        and replayed, so the host's time a call (about 27 us of Python and
+        ctypes, longer than a narrow launch's kernel) stays out."""
         fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(REPS):
+                fn()
+        graph.replay()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(REPS):
-            fn()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / REPS
@@ -94,6 +115,26 @@ def measure(root: str) -> dict:
             if not all(torch.equal(g, w) for g, w in zip(got, ec.jdbl_n_plain(*pl, count))):
                 sys.exit(f"time_chain_kernels: {prefix}jdbl_n {lanes} x {count} differs in {root}")
             out[f"{prefix}jdbl_n {lanes} x {count}"] = time_ms(lambda: ec.jdbl_n(*pl, count))
+        pq = [elems(1 << 17, width) for _ in range(6)]
+        ctx = ec.ctx
+        # the edges in lanes 16..19: checked from 25 lanes up (the narrower
+        # shapes' edges are the card tests' and chip_smoke.py's)
+        pq[3][16], pq[4][16], pq[5][16] = pq[0][16], pq[1][16], pq[2][16]  # P == Q
+        pq[3][17], pq[4][17], pq[5][17] = pq[0][17], ctx.neg_mod(pq[1][17:18])[0], pq[2][17]
+        pq[2][18] = 0  # P the identity
+        pq[5][19] = 0  # Q the identity
+        # timed on lanes with none of those edges, as the aggregate's are
+        # (a lane with P == Q takes the doubling's rounds too)
+        pr = [elems(1 << 17, width) for _ in range(6)]
+        chunk = 0.0
+        for lanes in JADD_SHAPES:
+            pl = [a[:lanes].contiguous() for a in pq]
+            if not all(torch.equal(g, w) for g, w in zip(ec.jadd(*pl), ec.jadd_plain(*pl))):
+                sys.exit(f"time_chain_kernels: {prefix}jadd {lanes} lanes differs in {root}")
+            pl = [a[:lanes].contiguous() for a in pr]
+            ms = out[f"{prefix}jadd {lanes} lanes"] = time_ms(lambda: ec.jadd(*pl))
+            chunk += JADD_CHUNK.count(lanes) * ms
+        out[f"{prefix}jadd a chunk ({len(JADD_CHUNK)} launches)"] = chunk
     return out
 
 

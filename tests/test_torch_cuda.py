@@ -461,6 +461,44 @@ def test_cuda_jdbl_n_fold_shapes_match_plain(cuda, field, a):
     assert ec.jdbl_n_launches == before + len(shapes)
 
 
+# The bucket aggregate's `jadd` launches of a chunk (25 windows of 1025
+# buckets): the suffix sums (25,625 lanes), the weight tree's first and
+# last levels (12,800 and 25), the window combine's first and last (16 and
+# 1), and 2^17 lanes.
+JADD_SHAPES = (25625, 12800, 25, 16, 1, 1 << 17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", JADD_SHAPES)
+@pytest.mark.parametrize("field, a", [("Fq", 0), ("Fq", 0x1234567), ("Fq2", 0)],
+                         ids=["fq", "fq_a_nonzero", "fq2"])
+def test_cuda_jadd_aggregate_shapes_match_plain(cuda, field, a, lanes):
+    """warp.cuh's `jadd` (groups of 8 threads a product on the narrow
+    levels, a thread a product on the wide ones) over BN254 Fq (a = 0 and
+    a != 0) and over Fq2 (a = 0) at the aggregate's shapes, bit for bit
+    against jadd_plain, with P == Q (twice), P == -Q, P at the identity, Q
+    at the identity and both planted in lanes 0..5; the one-lane shape runs
+    each of those lanes and a seeded one alone."""
+    n = max(lanes, 7)
+    if field == "Fq2":
+        ec = get_cuda_quad_ec(fields.BN254_FQ)
+        pq = _planted_points(ec, n, 23, cuda, lambda s: _elems2(n, s, cuda))
+    else:
+        ec = get_cuda_ec(fields.BN254_FQ, a)
+        pq = _planted_points(ec, n + 16, 23, cuda)
+    calls = [pq] if lanes >= 6 else [tuple(t[o:o + lanes].contiguous() for t in pq)
+                                     for o in range(7)]
+    before = ec.jadd_launches
+    for args in calls:
+        got = ec.jadd(*args)
+        assert _equal(got, ec.jadd_plain(*args)), lanes
+    if lanes >= 6:
+        z = got[2]
+        assert z[0].any() and not z[2].any() and not z[5].any()
+        assert torch.equal(got[0][3], pq[3][3]) and torch.equal(got[0][4], pq[0][4])
+    assert ec.jadd_launches == before + len(calls)
+
+
 @pytest.mark.cuda
 def test_cuda_prove_matches_native(cuda, monkeypatch):
     """A small circuit proved with the fold on the card (one 512-point chunk

@@ -1,6 +1,6 @@
 """The round plans of the Fq2 `jdbl_n` kernel (crescent_tpu_torch/csrc/warp.cuh,
 `warp_double` over `Fe2`: two warps a lane) and of its one-warp design
-alternative (scripts/jdbl_n_designs.py `one_warp`), modelled in Python ints:
+alternative (scripts/chain_designs.py `one_warp`), modelled in Python ints:
 each doubling's base products in rounds of at most eight (two warps' eight
 8-thread groups) or four (one warp's four), each product taking its inputs
 only from earlier rounds.  The models' doublings are held exactly
@@ -24,9 +24,22 @@ from crescent_tpu_torch.ops.quadratic import get_fq2_ctx
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WARP_CUH = os.path.join(ROOT, "crescent_tpu_torch", "csrc", "warp.cuh")
-DESIGNS_PY = os.path.join(ROOT, "scripts", "jdbl_n_designs.py")
+DESIGNS_PY = os.path.join(ROOT, "scripts", "chain_designs.py")
 R = 1 << 256
 RINV = pow(R, -1, P)
+
+
+def round_sizes(path: str, head: str) -> list[int]:
+    """The products of each round of the function whose signature contains
+    `head` (up to its closing brace in column 0): the sizes of the arrays
+    that its executor's `run` calls fill, in order (a doubling branch is a
+    call of its own)."""
+    with open(path) as f:
+        src = f.read()
+    body = src[src.index(head):]
+    body = body[: body.index("\n}\n")]
+    sizes = dict(re.findall(r"Fe (\w+)\[(\d+)\];", body))
+    return [int(sizes[name]) for name in re.findall(r"\b\w+\.run\([^;]*?(\w+)\);", body)]
 
 
 class V:
@@ -126,11 +139,11 @@ def _y3(MD, YYYY):
     return tuple(m - (e + e) for m, e in zip(MD, e8))
 
 
-# plan -> (its doubling, groups a round, the source that runs it and the
-# call that passes on a round's products there, the rounds' sizes)
+# plan -> (its doubling, groups a round, the source that runs it, the
+# rounds' sizes)
 PLANS = {
-    "two_warps": (two_warps, 8, WARP_CUH, "block_products", [7, 6, 3]),
-    "one_warp": (one_warp, 4, DESIGNS_PY, "warp_products", [4, 4, 4, 4]),
+    "two_warps": (two_warps, 8, WARP_CUH, [7, 6, 3]),
+    "one_warp": (one_warp, 4, DESIGNS_PY, [4, 4, 4, 4]),
 }
 
 
@@ -170,14 +183,10 @@ def test_round_plan_fits_the_groups_and_the_source(plan):
     """16 base products (dbl-2007-bl's 17 less the one that Z3 = 2 Y Z saves
     with a = 0): two warps in three rounds (7, 6, 3), one warp in four of
     four; the source's Fq2 doubling passes on the same rounds."""
-    _, groups, path, call, sizes = PLANS[plan]
+    _, groups, path, sizes = PLANS[plan]
     _, counts = _model(plan, _points(6, 1), 1)
     assert counts == sizes and sum(counts) == 16 and max(counts) <= groups
-    with open(path) as f:
-        src = f.read()
-    body = src[src.index("PtT<Fe2> warp_double("):]
-    body = body[: body.index("\n}\n")]
-    assert re.findall(rf"{call}<(\d+)>", body) == [str(n) for n in sizes]
+    assert round_sizes(path, "PtT<Fe2> warp_double(") == sizes
 
 
 @pytest.mark.parametrize("plan", sorted(PLANS))
