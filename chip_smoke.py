@@ -7,7 +7,7 @@
 2. Builds the port's CUDA kernels from crescent_tpu_torch/csrc with nvcc
    (one nvcc per source, started together, into build/kernels/) and prints
    the build time and each kernel's registers and spills.
-3. Kernel phase: holds each of the twenty kernels against its plain
+3. Kernel phase: holds each of the twenty-two kernels against its plain
    PyTorch version on the card at its path's shapes, with the edge cases planted
    (field: 0, 1, p-1, Montgomery 1, and u over Fq2; points: L == R,
    L == -R, one side only, neither; P + P, P + (-P), the identity on either
@@ -21,17 +21,25 @@
    identities among the lanes, then 100 lanes x 0, 1 and 3; `jadd` over Fq
    and Fq2 at every shape of a chunk's 27 launches, 25,625 lanes down to
    1, and at 2^17, P + P, P + (-P) and the identity on either side run at
-   each), and once over a curve with a != 0 (2^14 lanes, and `jadd` at the
-   chunk's shapes).  Tolerance:
+   each; `batch_inv` over Fq and Fq2 at the distinct shapes of a chunk's 22
+   calls, 2^21 down to 32,768 leaves of affine_denom output with a zero
+   planted in the second run, also against the card's own tree of `mul`
+   launches with `inv` on its root level, the launches it replaces), and
+   once over a curve with a != 0 (2^14 lanes, and `jadd` at the chunk's
+   shapes).  Tolerance:
    none, the results must be bit-identical (exact integer arithmetic).
    Prints the kernel's and the plain version's times (CUDA events; `jadd`'s
-   around a CUDA graph of its launches, whose kernels at the narrow shapes
-   are shorter than the host's time a call) and the
+   and `batch_inv`'s around a CUDA graph of their launches, whose kernels at
+   the narrow shapes are shorter than the host's time a call, and the
+   tree's beside `batch_inv`'s, and both summed over a chunk's calls) and the
    least time the card could take (`bound_ms`: bytes over 3.35 TB/s
    against 32-bit multiply-adds over 16.75e12/s, and for `inv` over Fq and
    Fq2 the divsteps' integer operations too, whichever is larger, counted
-   for this run's data), and nvcc's register count; fails if a `jdbl_n`
-   or `jadd` kernel (warp.cuh) spills.
+   for this run's data; for `batch_inv` the least work of n inverses,
+   3 (n - 1) products and one inversion, with the inversion's latency floor
+   of a chunk's 22 serial calls printed apart), and nvcc's register count;
+   fails if a `jdbl_n`,
+   `jadd` (warp.cuh) or `batch_inv` kernel spills.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -56,13 +64,15 @@
    the Fq2 kernels), then `prove(..., device="cuda")` in its default
    configuration (h(x) and the four G1 MSMs on the card, the G2 MSM on the
    host beside them) on that key, each with launch counts reset just
-   before it and read just after, and `verify`, which must accept the proof
+   before it and read just after (`batch_inv` 22 launches a chunk, the
+   chunks counted from the circuit's sizes, the tree's `mul` and `inv`
+   none), and `verify`, which must accept the proof
    and reject it against a wrong public input.  The same witness and
    blinding under CRESCENT_PROVE_MSM=native must give the same proof, and
    so must a warm prove under CRESCENT_NATIVE=0 (the G2 MSM on the card
    too, behind the fold), whose launch counts are read the same way and
-   which must run every Fq2 kernel but `jdbl`, `madd`, `bucket_reduce` and
-   `butterfly`; and a warm prove under CRESCENT_MSM_FUSED_AGG=1 and
+   which must run every Fq2 kernel but `jdbl`, `madd`, `bucket_reduce`,
+   `butterfly` and the tree's `mul` and `inv`; and a warm prove under CRESCENT_MSM_FUSED_AGG=1 and
    CRESCENT_NATIVE=0 together, whose chunks aggregate by one
    `bucket_reduce` launch each over Fq (66) and Fq2 (17) in place of 21
    `jadd` launches, which must give the same proof; `verify` under
@@ -111,6 +121,7 @@ _W, _B = (256 + AFFINE_C - 1) // AFFINE_C + 1, (1 << (AFFINE_C - 1)) + 1
 JADD_CHUNK = ([_W * _B] * AFFINE_C + [_W * ((_B - 1) >> k) for k in range(1, AFFINE_C)]
               + [16, 8, 4, 2, 1, 1])
 JADD_SHAPES = sorted(set(JADD_CHUNK), reverse=True) + [1 << CHUNK_LOG]
+INV_FLOOR = 512  # batch_inv's floor in a chunk's rounds
 
 
 def _registers(reports: dict) -> dict:
@@ -447,6 +458,75 @@ def _jadd_shapes(torch, ec, prefix: str, seed: int, record=None) -> int:
     return worst
 
 
+def _chunk_batch_inv_shapes() -> list[int]:
+    """The leaves of a chunk's 22 batch_inv calls: each of its 11 rounds'
+    two pair levels, 2 mn and mn lanes (AffineMSM._round_schedule of
+    2^CHUNK_LOG points at c = AFFINE_C)."""
+    from crescent_tpu_torch.core.curves import BN254_G1
+    from crescent_tpu_torch.ops.ec import get_curve_ctx
+    from crescent_tpu_torch.ops.msm_affine import AffineMSM
+
+    ctx = get_curve_ctx(BN254_G1)
+    schedule = AffineMSM(ctx, ctx.ec, c=AFFINE_C)._round_schedule(1 << CHUNK_LOG)
+    return [w for mn in schedule for w in (2 * mn, mn)]
+
+
+def _batch_inv_shapes(torch, ec, d, label: str, prefix: str, out: dict) -> None:
+    """`batch_inv` at the distinct shapes of a chunk's 22 calls, on the
+    first rows of `d` (affine_denom output) with a zero planted in the
+    second run: against batch_inv_plain and the card's own tree of `mul`
+    and `inv` (the launches it replaces), the zero's run all zeros.  Times
+    the kernel and the tree in CUDA graphs and sums both over a chunk.
+    Bound: d read and out written once; the least work of n inverses,
+    Montgomery's trick, 3 (n - 1) products and one inversion.  Apart from
+    it, the inversion's latency floor: a chunk's calls run one after
+    another, each behind one serial inversion (`inv` at INV_FLOOR lanes,
+    timed)."""
+    from crescent_tpu_torch.ops.cuda_ec import batch_inv_tree, tree_halvings
+
+    e, mul = (64, 3) if ec.WIDTH == 16 else (32, 1)
+    inv_ops = DIVSTEP_INV_OPS + (4 * MONT_MUL_MADS if ec.WIDTH == 16 else 0)
+    calls = _chunk_batch_inv_shapes()
+    chunk = tree_chunk = bound_chunk = 0.0
+    tree_ms = {}
+    for lanes in sorted(set(calls), reverse=True):
+        S = 1 << tree_halvings(lanes, INV_FLOOR)
+        roots = lanes // S
+        x = d[:lanes].clone()
+        x[S + 5] = 0
+        got = ec.batch_inv(x, INV_FLOOR)
+        torch.cuda.synchronize()
+        tree = batch_inv_tree(ec.mul, ec.inv, x, INV_FLOOR)
+        want, plain_ms = _timed_once(torch, lambda: ec.batch_inv_plain(x, INV_FLOOR))
+        err = max(_errs(torch, got, want), _errs(torch, got, tree))
+        if got[S:2 * S].any().item() or not got[:S].any(dim=1).all().item():
+            fail(f"{prefix}batch_inv [{label}] {lanes} lanes: the zero's run is not "
+                 "exactly the zeroed one")
+        reps = max(10, min(REPS, (1 << 24) // lanes))
+        ms = _graph_ms(torch, lambda: ec.batch_inv(x, INV_FLOOR), reps)
+        tree_ms[lanes] = _graph_ms(
+            torch, lambda: batch_inv_tree(ec.mul, ec.inv, x, INV_FLOOR), reps)
+        _record(out, prefix + "batch_inv", label, f"{lanes} lanes", err, ms, plain_ms,
+                2 * e * lanes, 3 * (lanes - 1) * mul * MONT_MUL_MADS + inv_ops)
+        say(f"  {prefix}batch_inv [{label}] {lanes} lanes ({roots} roots of {S}): "
+            f"the tree of mul and inv {tree_ms[lanes]:.4f} ms")
+        n_calls = calls.count(lanes)
+        chunk += n_calls * ms
+        tree_chunk += n_calls * tree_ms[lanes]
+        bound_chunk += n_calls * out[prefix + "batch_inv"][-1][4]
+        del x, got, tree, want
+    root = d[:INV_FLOOR].contiguous()
+    inv_floor_ms = len(calls) * _graph_ms(torch, lambda: ec.inv(root), REPS)
+    say(f"{prefix}batch_inv [{label}] a chunk's {len(calls)} calls: {chunk:.4f} ms "
+        f"in {len(calls)} launches; the tree {tree_chunk:.4f} ms; bound {bound_chunk:.5f} ms; "
+        f"the inversion's latency floor ({len(calls)} x inv at {INV_FLOOR} lanes) "
+        f"{inv_floor_ms:.4f} ms")
+    out[prefix + "batch_inv_tree"] = {"tree_ms": tree_ms, "chunk_ms": chunk,
+                                      "tree_chunk_ms": tree_chunk,
+                                      "bound_chunk_ms": bound_chunk,
+                                      "inv_latency_floor_chunk_ms": inv_floor_ms}
+
+
 def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_inv,
                          out: dict) -> None:
     """The MSM path's point kernels of one field against their plain
@@ -480,7 +560,8 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
     record("affine_denom", f"2^{LOG_SIZE} lanes", err,
            _time_ms(torch, lambda: ec.affine_denom(*pair), REPS),
            _time_ms(torch, lambda: ec.affine_denom_plain(*pair), 2), (5 * e + 8) * n, 0)
-    inv = batch_inv(ec, d)  # the mul tree down to 512 lanes, inv, the unwind
+    _batch_inv_shapes(torch, ec, d, label, prefix, out)
+    inv = batch_inv(ec, d)
     torch.cuda.synchronize()
     if not (ec.mul(d, inv) == one).all().item():
         fail(f"batch_inv [{label}]: d * inv(d) is not Montgomery 1")
@@ -554,16 +635,15 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
 
 
 def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
-    """The six point kernels against their plain versions over BN254 Fq at
-    the MSM path's shapes, and once over a curve with a != 0."""
+    """The point kernels and `batch_inv` against their plain versions over
+    BN254 Fq at the MSM path's shapes, and once over a curve with a != 0."""
     p = fields.BN254_FQ
     ec = get_cuda_ec(p, 0)
     ctx = ec.ctx
     one = ctx.one_mont("cuda")
     out = {}
-    n = 1 << LOG_SIZE          # lanes of the first pair level of a chunk
 
-    # -- inv: 512 lanes, the root of every batch_inv --------------------------
+    # -- inv: 512 lanes, a root level of the tree that batch_inv replaces ----
     x = _rand_elems(torch, 512, p, SEED + 20)
     x[:10] = ctx.words([0, 1, p - 1, ctx.r_mod_n] + [1 << k for k in (1, 31, 32, 64, 128, 253)],
                        "cuda")
@@ -579,24 +659,6 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
             _time_ms(torch, lambda: ec.inv_plain(x), 1), 64 * 512, 512 * DIVSTEP_INV_OPS)
 
     _point_kernel_checks(torch, ec, "BN254 Fq", "", SEED + 30, batch_inv, out)
-
-    # -- mul over the widths of a batch_inv tree of 2^21 lanes ----------------
-    d = ec.affine_denom(*_pair_inputs(torch, ec, n, SEED + 30))
-    tree_ms = 0.0
-    width = n
-    while width > 512:
-        cur = d[:width]
-        half = torch.empty((width // 2, 8), dtype=torch.int32, device="cuda")
-        up = _time_ms(torch, lambda: ec.mul(cur[0::2], cur[1::2], out=half), 20)
-        down = _time_ms(torch, lambda: (ec.mul(half, cur[1::2], out=cur[0::2]),
-                                        ec.mul(half, cur[0::2], out=cur[1::2])), 20)
-        tree_ms += up + down
-        width //= 2
-    bi_ms = _time_ms(torch, lambda: batch_inv(ec, d), 10)
-    say(f"batch_inv [BN254 Fq] 2^{LOG_SIZE} lanes: {bi_ms:.4f} ms in all; its mul "
-        f"launches over the tree widths 2^{LOG_SIZE}..2^10 sum to {tree_ms:.4f} ms")
-    out["batch_inv_ms"] = bi_ms
-    del d
 
     # -- a != 0: the a-terms of jdbl, jdbl_n and affine_add (and jadd's
     #    doubling branch), over BN254 Fq with an arbitrary a ------------------
@@ -1061,6 +1123,17 @@ def small_msm_phase(torch, curves, nb) -> dict:
     return out
 
 
+def _tree_replaced(launches: dict, run: str, chunks: dict) -> None:
+    """A prove's chunks each take 22 batch_inv launches (two a round) and
+    the tree's inv none.  chunks: {prefix: the prove's chunk count over
+    that field}."""
+    for pre, n in chunks.items():
+        if launches[pre + "batch_inv"] != 22 * n or launches[pre + "inv"]:
+            fail(f"{run}: {launches[pre + 'batch_inv']} {pre}batch_inv and "
+                 f"{launches[pre + 'inv']} {pre}inv launches for {n} chunks, "
+                 "expected 22 and 0 a chunk")
+
+
 def _proof_ints(proof) -> tuple:
     """A proof as plain ints, for comparison."""
     return (proof.a, (proof.b[0].c0, proof.b[0].c1, proof.b[1].c0, proof.b[1].c1),
@@ -1215,15 +1288,22 @@ def main() -> None:
         + ", ".join(f"{k} {v:.3f} s" for k, v in setup_t.items()))
     say(f"launches during that setup: {setup_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    for k in ("madd", "fq2_mul", "fq2_inv", "fq2_madd", "mul", "inv"):
+    for k in ("madd", "fq2_mul", "fq2_batch_inv", "fq2_madd", "mul", "batch_inv"):
         if setup_launches[k] == 0:
             fail(f"the {k} kernel was not launched during setup")
+    if setup_launches["inv"] or setup_launches["fq2_inv"]:
+        fail("setup launched inv: the fixed base's inversion is batch_inv's")
     nv = r1cs.num_vars
     dom_n = groth16._domain_for(r1cs).n
     ck = 1 << FB_CHUNK_LOG
     want = {"madd": 32 * -(-(3 * nv + dom_n + 2) // ck), "fq2_madd": 32 * -(-(nv + 3) // ck)}
     if any(setup_launches[k] != v for k, v in want.items()):
         fail(f"setup's madd launches {setup_launches} differ from 32 a chunk: {want}")
+    # prove's chunks of 2^CHUNK_LOG points: G1's a, b1, h (dom_n - 1) and l
+    # (nv - num_instance) in one fold, G2's b on its own
+    pck = 1 << CHUNK_LOG
+    g1_chunks = sum(-(-m // pck) for m in (nv, nv, dom_n - 1, nv - r1cs.num_instance))
+    g2_chunks = -(-nv // pck)
 
     rs = random.Random(SEED + 2)
     r_blind, s_blind = rs.randrange(groth16.R), rs.randrange(groth16.R)
@@ -1246,9 +1326,11 @@ def main() -> None:
     say(f"launches during that prove: {prove_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     for k in KERNELS:
-        # no caller in prove; bucket_reduce: the opt-in aggregate, below
-        if prove_launches[k] == 0 and k not in ("jdbl", "madd", "bucket_reduce"):
+        # no caller in prove; bucket_reduce: the opt-in aggregate, below;
+        # inv: its body runs inside batch_inv
+        if prove_launches[k] == 0 and k not in ("jdbl", "madd", "bucket_reduce", "inv"):
             fail(f"the {k} kernel was not launched during prove")
+    _tree_replaced(prove_launches, "the default prove", {"": g1_chunks})
 
     # warm second prove: tables and twiddles on the card
     proof2, _, _ = timed_prove("fold on the card, warm")
@@ -1271,11 +1353,15 @@ def main() -> None:
     native0_launches = counts()
     say(f"launches during that prove: {native0_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    unused = ("jdbl", "madd", "bucket_reduce", "fq2_jdbl", "fq2_madd", "fq2_bucket_reduce",
-              "fq2_butterfly")
+    unused = ("jdbl", "madd", "bucket_reduce", "inv", "fq2_jdbl", "fq2_madd",
+              "fq2_bucket_reduce", "fq2_butterfly", "fq2_mul", "fq2_inv")
     for k in names:
         if native0_launches[k] == 0 and k not in unused:
             fail(f"the {k} kernel was not launched during the CRESCENT_NATIVE=0 prove")
+    _tree_replaced(native0_launches, "the CRESCENT_NATIVE=0 prove",
+                   {"": g1_chunks, "fq2_": g2_chunks})
+    if native0_launches["fq2_mul"]:
+        fail("the CRESCENT_NATIVE=0 prove launched the Fq2 mul: its only caller was the tree")
     if _proof_ints(proof_dev) != _proof_ints(proof):
         fail("the CRESCENT_NATIVE=0 proof differs from the default configuration's")
     say("proofs: the CRESCENT_NATIVE=0 proof equals the default configuration's")
@@ -1299,6 +1385,8 @@ def main() -> None:
         fail("the fused prove did not launch bucket_reduce over Fq and over Fq2")
     if chunks != (21 * fused_launches["bucket_reduce"], 21 * fused_launches["fq2_bucket_reduce"]):
         fail("the fused prove does not save 21 jadd launches a bucket_reduce launch")
+    _tree_replaced(fused_launches, "the fused prove",
+                   {"": g1_chunks, "fq2_": g2_chunks})
     if _proof_ints(proof_fused) != _proof_ints(proof):
         fail("the fused-aggregate proof differs from the default configuration's")
     say("proofs: the fused-aggregate proof equals the default configuration's")
@@ -1338,7 +1426,8 @@ def main() -> None:
                 "fq2_jadd": 670, "fq2_jdbl_n": 744, "fq2_jdbl": 735,
                 "fq2_bucket_reduce": 790, "fq2_butterfly": 689}
     regs = _registers(reports)
-    for name in ("jdbl_n", "fq2_jdbl_n"):  # warp.cuh's doublings keep P in registers
+    # warp.cuh's doublings keep P in registers; batch_inv one wave in 128
+    for name in ("jdbl_n", "fq2_jdbl_n", "batch_inv", "fq2_batch_inv"):
         spill = (_kernel_registers(regs, name) or (None, None))[1]
         if spill:
             fail(f"{name}'s kernel spills {spill} bytes (nvcc -Xptxas -v)")
@@ -1350,6 +1439,7 @@ def main() -> None:
             verify_launches)
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
+    source.update(batch_inv="batch_inv.cuh", fq2_batch_inv="batch_inv.cuh")
     kernels = []
     for name in names:
         rows = kres[name]
@@ -1360,7 +1450,10 @@ def main() -> None:
             "name": name,
             "route": "cuda",
             "source": "crescent_tpu_torch/csrc/" + source.get(name, "ec.cu"),
-            "replaces": f"{pallas}:{replaces[name]}",
+            "replaces": (f"{pallas}:{replaces[name]}" if name in replaces else
+                         # the reference's tree over the mul (:680) and inv
+                         # (:698) kernels
+                         "crescent_tpu/ops/msm_affine.py:75"),
             "shape": label,
             "launches": sum(r[name] for r in runs),
             "launches_setup": setup_launches[name],
@@ -1384,6 +1477,12 @@ def main() -> None:
         if len(rows) > 1:  # every shape the kernel phase timed
             kernels[-1]["shapes"] = [
                 {"shape": r[0], "ms": r[2], "plain_ms": r[3], "bound_ms": r[4]} for r in rows]
+        if name.endswith("batch_inv"):  # the tree it replaces, timed beside it
+            tree = kres[name + "_tree"]
+            kernels[-1]["replaces_kernels"] = [f"{pallas}:680", f"{pallas}:698"]
+            kernels[-1].update({k: v for k, v in tree.items() if k != "tree_ms"})
+            for row in kernels[-1]["shapes"]:
+                row["tree_ms"] = tree["tree_ms"][int(row["shape"].split()[0])]
     say(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

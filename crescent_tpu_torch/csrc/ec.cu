@@ -11,6 +11,10 @@
 //   * `madd`         -> PallasEC._madd_kernel   (:495, body :261; op :657)
 //   * `bucket_reduce` -> PallasEC._bucket_reduce_kernel (:575; op :790, call
 //                       :805)
+//   * `batch_inv`    -> the reference's product tree of `mul` (:680) with
+//                       `inv` (:698) on its root level
+//                       (crescent_tpu/ops/msm_affine.py:75): one launch,
+//                       one block a root (batch_inv.cuh)
 // Coordinates are packed (N, 8) planes of 32-byte rows (field.cuh), one
 // plane per coordinate, where the TPU kept limb-major (16, N) u32 planes;
 // validity flags are (N,) int32.  Every result is canonical, so it is
@@ -37,9 +41,11 @@
 // `inv`, `jdbl_n` and `jadd` run long dependent chains of products on few
 // lanes, so they are bound by latency, not by the card's throughput:
 //   * `inv` (pallas_ec.py:527-543, `_inv_kernel` and `_inv_core`; op :698)
-//     inverts batch_inv's 512-lane root.  The Fermat chain it replaces was
-//     about 381 dependent Montgomery products a thread, each a 64-bit carry
-//     chain one thread cannot hide (0.25 ms a launch).  This one is
+//     inverted batch_inv's 512-lane root; its body now runs on each root
+//     inside `batch_inv`, and the kernel has no caller on the prove path.
+//     The Fermat chain it replaces was about 381 dependent Montgomery
+//     products a thread, each a 64-bit carry chain one thread cannot hide
+//     (0.25 ms a launch).  This one is
 //     field.cuh's constant-time divstep inversion: 25 batches of 30
 //     divsteps on the low words, each followed by two short 2x2 matrix
 //     updates of nine signed 30-bit limbs, about 25.7k integer operations
@@ -80,6 +86,7 @@
 
 #include <cstdint>
 
+#include "batch_inv.cuh"
 #include "field.cuh"
 #include "point.cuh"
 #include "warp.cuh"
@@ -117,6 +124,13 @@ extern "C" int crescent_inv(const uint32_t* curve26, const uint32_t* r3,
                                                  (Out)out, n);
   }
   return (int)cudaGetLastError();
+}
+
+// out = 1/d for n leaves in runs of 2^log_s, a block a run (batch_inv.cuh)
+extern "C" int crescent_batch_inv(const uint32_t* curve26, const uint32_t* r3,
+                                  const void* d, void* out, long long n,
+                                  int log_s, void* stream) {
+  return crescent::launch_batch_inv<Fe>(curve26, r3, d, out, n, log_s, stream);
 }
 
 extern "C" int crescent_affine_denom(const uint32_t* curve26, const void* lx,

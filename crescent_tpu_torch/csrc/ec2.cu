@@ -20,19 +20,23 @@
 //                       at ROWS = 32 (op :790; kernel :575; call :805)
 //   * `butterfly`    -> PallasEC.butterfly at ROWS = 32 (op :689; kernel
 //                       _bfly_kernel :517 over `_F2`)
+//   * `batch_inv`    -> the reference's product tree of `mul` with `inv`
+//                       on its root level (crescent_tpu/ops/msm_affine.py:75)
+//                       at ROWS = 32: one launch, a block a root
+//                       (batch_inv.cuh over Fe2)
 // An element is one 64-byte row of an (N, 16) int32 plane: c0's eight
 // words, then c1's (field.cuh Fe2).  Results are canonical, so they equal
 // the TPU kernels' bit for bit.
 //
-// One thread per lane, as in ec.cu, but for `jdbl_n` and `jadd`.  `mul`
-// (3 base products, 192 bytes a lane) is bound by bytes; it takes row
-// strides, so the product tree of batch_inv multiplies the even rows of a
-// level by the odd ones and writes interleaved rows without copies.  `inv`
-// is the norm map: the norm x0^2 + x1^2, its inverse by field.cuh's
-// constant-time divsteps (`fe_inv_divsteps`, as Fq `inv` in ec.cu; the
-// reference runs a Fermat chain there), then two products; on batch_inv's
-// 512-lane root it is latency, so it launches one warp a block and the
-// root's 16 warps spread over 16 SMs.  `jdbl_n` (16 down to 1 lanes of 11
+// One thread per lane, as in ec.cu, but for `jdbl_n`, `jadd` and
+// `batch_inv`.  `mul` (3 base products, 192 bytes a lane) is bound by
+// bytes; it takes row strides (every second row of a plane, or one row
+// broadcast).  `inv` is the norm map: the norm x0^2 + x1^2, its inverse by
+// field.cuh's constant-time divsteps (`fe_inv_divsteps`, as Fq `inv` in
+// ec.cu; the reference runs a Fermat chain there), then two products; it
+// is latency, so it launches one warp a block.  `batch_inv` runs the
+// reference's product tree in one launch, one block a root, with the same
+// inversion on each root (batch_inv.cuh).  `jdbl_n` (16 down to 1 lanes of 11
 // to 176 doublings in the window combine) is latency too: warp.cuh's two
 // warps a lane, each doubling's 16 base products in three rounds of
 // side-by-side 8-thread products.  `jadd` (43 base products, the bucket
@@ -65,6 +69,7 @@
 
 #include <cstdint>
 
+#include "batch_inv.cuh"
 #include "field.cuh"
 #include "point.cuh"
 #include "warp.cuh"
@@ -142,6 +147,13 @@ extern "C" int crescent_fq2_inv(const uint32_t* curve26, const uint32_t* r3,
                                              (Out)out, n);
   }
   return (int)cudaGetLastError();
+}
+
+// out = 1/d for n leaves in runs of 2^log_s, a block a run (batch_inv.cuh)
+extern "C" int crescent_fq2_batch_inv(const uint32_t* curve26, const uint32_t* r3,
+                                      const void* d, void* out, long long n,
+                                      int log_s, void* stream) {
+  return crescent::launch_batch_inv<Fe2>(curve26, r3, d, out, n, log_s, stream);
 }
 
 extern "C" int crescent_fq2_madd(const uint32_t* curve26, const void* x1,

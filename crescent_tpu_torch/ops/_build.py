@@ -41,6 +41,7 @@ SIGNATURES = {
     },
     "ec": {
         "crescent_inv": [_u32p, _u32p, _vp, _vp, _ll, _vp],
+        "crescent_batch_inv": [_u32p, _u32p, _vp, _vp, _ll, _int, _vp],
         "crescent_affine_denom": [_u32p] + [_vp] * 7 + [_ll, _vp],
         "crescent_affine_add": [_u32p] + [_vp] * 10 + [_ll, _vp],
         "crescent_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],
@@ -52,6 +53,7 @@ SIGNATURES = {
     "ec2": {
         "crescent_fq2_mul": [_u32p, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _vp],
         "crescent_fq2_inv": [_u32p, _u32p, _vp, _vp, _ll, _vp],
+        "crescent_fq2_batch_inv": [_u32p, _u32p, _vp, _vp, _ll, _int, _vp],
         "crescent_fq2_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
         "crescent_fq2_affine_denom": [_u32p] + [_vp] * 7 + [_ll, _vp],
         "crescent_fq2_affine_add": [_u32p] + [_vp] * 10 + [_ll, _vp],

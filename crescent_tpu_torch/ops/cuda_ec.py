@@ -27,11 +27,15 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
   (``_madd_kernel``).
 * ``bucket_reduce(x, y, z, W, B)``: per-window weighted sums of a dense
   Jacobian bucket table, one launch (``_bucket_reduce_kernel``).
+* ``batch_inv(d, inv_floor)``: 1/d for every row, the reference's product
+  tree of ``mul`` with ``inv`` on its root level
+  (``crescent_tpu/ops/msm_affine.py`` ``batch_inv``) in one launch, one
+  block a root (``csrc/batch_inv.cuh``); the plain version is that tree.
 
 ``CudaQuadEC`` is the counterpart of ``QuadPallasEC``: ``mul``, ``inv``,
-``butterfly`` and the seven point ops over Fq2 (``csrc/ec2.cu``;
-``ops/quadratic.py`` for the layout), for setup's G2 fixed base and the G2
-MSM of ``prove``.  The point ops of both classes share their wrappers
+``batch_inv``, ``butterfly`` and the seven point ops over Fq2
+(``csrc/ec2.cu``; ``ops/quadratic.py`` for the layout), for setup's G2 fixed
+base and the G2 MSM of ``prove``.  The point ops of both classes share their wrappers
 (``_Kernels``), their plain versions (the formula bodies below) and their
 CUDA bodies (``csrc/point.cuh``; ``jdbl_n`` a warp a lane over Fq, two
 over Fq2, and ``jadd`` several threads a lane, in ``csrc/warp.cuh``, and
@@ -100,9 +104,24 @@ def _words32(x: int) -> list[int]:
 
 
 KERNELS = ("mul", "butterfly", "inv", "affine_denom", "affine_add", "jadd",
-           "jdbl_n", "jdbl", "madd", "bucket_reduce")
+           "jdbl_n", "jdbl", "madd", "bucket_reduce", "batch_inv")
 QUAD_KERNELS = ("mul", "inv", "affine_denom", "affine_add", "jadd", "jdbl_n",
-                "jdbl", "madd", "bucket_reduce", "butterfly")
+                "jdbl", "madd", "bucket_reduce", "butterfly", "batch_inv")
+
+
+def tree_halvings(n: int, inv_floor: int) -> int:
+    """How often ``batch_inv``'s product tree halves an n-row level while
+    it is above inv_floor: its roots are the runs of 2^k leaves.  Raises
+    where a level does not halve evenly (the reference asserts)."""
+    if inv_floor < 1:
+        raise ValueError(f"inv_floor must be >= 1, got {inv_floor}")
+    k = 0
+    while n > inv_floor:
+        if n % 2:
+            raise ValueError(f"batch_inv: a level of {n} rows does not halve evenly")
+        n //= 2
+        k += 1
+    return k
 
 
 # -- formula bodies shared by the prime-field and Fq2 plain versions ---------
@@ -279,6 +298,27 @@ def bucket_levels(jadd, x, y, z, W: int, B: int):
     return tuple(a[:, 0].contiguous() for a in acc)
 
 
+def batch_inv_tree(mul, inv, d: torch.Tensor, inv_floor: int = 512) -> torch.Tensor:
+    """The reference's product tree (``msm_affine.batch_inv``) over
+    ``mul(x, y, out=None)`` and ``inv(x)``: pair products level by level
+    while a level is above inv_floor, the root level inverted, the tree
+    unwound (1/le = inv * ro, 1/ro = inv * le, written interleaved).  Over
+    the plain versions it is ``batch_inv_plain``; over the ``mul`` and
+    ``inv`` kernels, the launches that ``batch_inv`` replaces."""
+    tree_halvings(d.shape[0], inv_floor)
+    levels = [d]
+    while levels[-1].shape[0] > inv_floor:
+        cur = levels[-1]
+        levels.append(mul(cur[0::2], cur[1::2]))
+    r = inv(levels[-1])
+    for cur in levels[-2::-1]:
+        out = torch.empty_like(cur)
+        mul(r, cur[1::2], out=out[0::2])
+        mul(r, cur[0::2], out=out[1::2])
+        r = out
+    return r
+
+
 class _Kernels:
     """Launch counts, the device rule, and the point ops shared by the
     prime-field and Fq2 kernel sets: each subclass names its library
@@ -380,6 +420,15 @@ class _Kernels:
     def bucket_reduce_plain(self, x, y, z, W: int, B: int):
         return bucket_levels(self.jadd_plain, x, y, z, W, B)
 
+    def batch_inv_plain(self, d: torch.Tensor, inv_floor: int = 512) -> torch.Tensor:
+        """The reference's product tree over ``mul_plain`` and
+        ``inv_plain``."""
+        def mul(x, y, out=None):
+            r = self.mul_plain(x, y)
+            return r if out is None else out.copy_(r)
+
+        return batch_inv_tree(mul, self.inv_plain, d, inv_floor)
+
     # -- ops ------------------------------------------------------------------
     def inv(self, x: torch.Tensor) -> torch.Tensor:
         """Inverse of every row (Montgomery form; the divstep inversion,
@@ -391,6 +440,22 @@ class _Kernels:
         self._launched("inv", self._entry("inv")(
             self._curve26, *self._inv_consts, x.data_ptr(), out.data_ptr(), n,
             _stream(dev)))
+        return out
+
+    def batch_inv(self, d: torch.Tensor, inv_floor: int = 512) -> torch.Tensor:
+        """1/d for every row of an (n, WIDTH) plane, 0 -> 0 with the zero's
+        whole run of the tree: the tree's result, bit for bit, in one
+        launch.  n must halve evenly down to inv_floor (callers pad; a power
+        of two always works)."""
+        if self._device(d) == "cpu":
+            return self.batch_inv_plain(d, inv_floor)
+        n, dev = self._planes("d", [d])
+        log_s = tree_halvings(n, inv_floor)
+        out = torch.empty_like(d)
+        if n:
+            self._launched("batch_inv", self._entry("batch_inv")(
+                self._curve26, *self._inv_consts, d.data_ptr(), out.data_ptr(), n,
+                log_s, _stream(dev)))
         return out
 
     def affine_denom(self, lx, ly, lv, rx, ry, rv) -> torch.Tensor:

@@ -14,8 +14,8 @@ the same order, so its affine results equal the reference's bit for bit.
   and one ``madd`` launch with valid = digit != 0 and sign = 0 accumulate
   into a Jacobian (x, y, z) that starts as the identity.
 * Jacobian -> affine for the whole batch at once: the identity mask, padding
-  to a power of two with Montgomery 1, one product-tree ``batch_inv`` with
-  ``inv`` at its root, x z^-2 and y z^-3, then a ``mul`` by standard-form 1
+  to a power of two with Montgomery 1, one ``batch_inv`` (the product tree,
+  one launch on a card), x z^-2 and y z^-3, then a ``mul`` by standard-form 1
   (de-Montgomery) and zeroed identity rows.  Results leave the device as
   standard-form limb planes, an ``ArrayPointVec``.
 

@@ -12,7 +12,7 @@ reference's (x, y, z) bit for bit.
   3. ceil(log4(M)) rounds of 4-ary segmented reduction: a round finds the
      rank-quads of every segment, runs two levels of batched affine pair
      addition (``affine_denom`` -> one product-tree inversion shared by the
-     level, its root inverted by ``inv`` -> ``affine_add``), and compacts
+     level, ``batch_inv``, one launch -> ``affine_add``), and compacts
      the survivors by gather.  Array sizes follow a static worst-case
      schedule (``_round_schedule``), so no shape depends on the data;
   4. the survivors scatter into a dense (W, B) bucket table; per-window
@@ -21,10 +21,10 @@ reference's (x, y, z) bit for bit.
      ``CRESCENT_MSM_FUSED_AGG=1``), and the windows combine by a doubling
      tree whose chains are single ``jdbl_n`` launches.
 
-Everything outside the point kernels and ``mul`` is plain PyTorch, as it is
-plain XLA in the reference.  Where the reference compiles the whole MSM into
-one program, PyTorch enqueues it launch by launch; the property kept is that
-nothing between the inputs and the result waits for the device: no
+Everything outside the point kernels and ``batch_inv`` is plain PyTorch, as
+it is plain XLA in the reference.  Where the reference compiles the whole MSM
+into one program, PyTorch enqueues it launch by launch; the property kept is
+that nothing between the inputs and the result waits for the device: no
 ``.item()``, no ``nonzero``, no boolean-mask indexing.
 
 Layout: coordinates are packed (N, W) word planes, W = 8 over a prime
@@ -49,22 +49,11 @@ I64 = torch.int64
 def batch_inv(pec, d: torch.Tensor, inv_floor: int = 512) -> torch.Tensor:
     """Montgomery product-tree inversion of an (n, W) plane of nonzero
     values (W = 8 with a ``CudaEC``, 16 over Fq2 with a ``CudaQuadEC``):
-    about three ``mul`` per element and one ``inv`` of the root level.  n
-    must halve evenly down to inv_floor (callers pad; a power of two always
-    works)."""
-    levels = [d]
-    while levels[-1].shape[0] > inv_floor:
-        cur = levels[-1]
-        assert cur.shape[0] % 2 == 0, cur.shape
-        levels.append(pec.mul(cur[0::2], cur[1::2]))
-    inv = pec.inv(levels[-1])
-    for cur in levels[-2::-1]:
-        # 1/le = inv * ro and 1/ro = inv * le, interleaved back
-        out = torch.empty_like(cur)
-        pec.mul(inv, cur[1::2], out=out[0::2])
-        pec.mul(inv, cur[0::2], out=out[1::2])
-        inv = out
-    return inv
+    the reference's tree of ``mul`` with ``inv`` on its root level, one
+    ``batch_inv`` launch on a card (a block a root), the tree itself on the
+    CPU.  n must halve evenly down to inv_floor (callers pad; a power of two
+    always works)."""
+    return pec.batch_inv(d, inv_floor)
 
 
 def quantize(n: int, floor: int = 512) -> int:

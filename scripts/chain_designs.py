@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Times design alternatives of the chain kernels `jdbl_n` and `jadd` over
-Fq and Fq2 (csrc/warp.cuh) against this checkout's, in turns, on one card.
+"""Times design alternatives of the chain kernels `jdbl_n`, `jadd`
+(csrc/warp.cuh) and `batch_inv` (csrc/batch_inv.cuh) over Fq and Fq2
+against this checkout's, in turns, on one card.
 
     python3 scripts/chain_designs.py [--rounds N] [--designs NAME ...]
+        [--kernels NAME ...]
 
 Each design is a copy of this checkout's `crescent_tpu_torch/` under
-`build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh`:
+`build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh` or
+`csrc/batch_inv.cuh`:
 
 * `field_sums`: the sums and differences between the rounds of both
   doublings (and of the additions) by field.cuh's `fe_add` / `fe_sub`
@@ -32,12 +35,17 @@ Each design is a copy of this checkout's `crescent_tpu_torch/` under
   round, at every lane count;
 * `two_warps`: the Fq2 `jadd` on groups of two warps a lane (8 groups),
   its 43 base products in six rounds of at most eight (the product
-  threads' plan) in place of four warps' five rounds of at most sixteen.
+  threads' plan) in place of four warps' five rounds of at most sixteen;
+* `batch_inv_blocks_of_s`: `batch_inv` on blocks of min(128, S) threads
+  (the threads that hold leaves of a run of S) in place of 128 threads a
+  block whatever S is.
 
 The designs are built at once with this checkout (one nvcc a source), then
 `scripts/time_chain_kernels.py --turns` checks every build bit-equal to the
-plain versions and times `inv`, `jdbl_n` and `jadd` over Fq and Fq2 at a
-chunk's shapes, this checkout and the designs in turns.
+plain versions (`batch_inv` to the card's tree of `mul` and `inv`) and
+times `inv`, `jdbl_n`, `jadd` and `batch_inv` (or the `--kernels` given)
+over Fq and Fq2 at a chunk's shapes, this checkout and the designs in
+turns.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -204,20 +212,29 @@ def _two_warps(src: str) -> str:
                          "constexpr int kJaddGroupThreads<Fe2> = 64;")
 
 
+def _blocks_of_s(src: str) -> str:
+    return src.replace("<<<(unsigned)(n >> log_s), kBatchInvThreads,",
+                       "<<<(unsigned)(n >> log_s), "
+                       "(int)(log_s < 7 ? 1LL << log_s : kBatchInvThreads),")
+
+
 DESIGNS = {"field_sums": _field_sums, "thread_product": _thread_product, "one_warp": _one_warp,
            "jadd_groups": _jadd_groups, "jadd_threads": _jadd_threads,
            "jadd_threads_half": _jadd_threads_half, "jadd_one_thread": _jadd_one_thread,
-           "two_warps": _two_warps}
+           "two_warps": _two_warps,
+           "batch_inv_blocks_of_s": _blocks_of_s}
 
 
 def make(name: str) -> str:
-    """Copy the port into build/designs/<name>/ with the design's warp.cuh."""
+    """Copy the port into build/designs/<name>/ with the design's warp.cuh
+    or batch_inv.cuh."""
     root = os.path.join(OUT, name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(HERE, "crescent_tpu_torch"),
                     os.path.join(root, "crescent_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(root, "crescent_tpu_torch", "csrc", "warp.cuh")
+    header = "batch_inv.cuh" if name.startswith("batch_inv_") else "warp.cuh"
+    path = os.path.join(root, "crescent_tpu_torch", "csrc", header)
     with open(path) as f:
         src = f.read()
     new = DESIGNS[name](src)
@@ -231,15 +248,18 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--designs", nargs="+", choices=sorted(DESIGNS), default=sorted(DESIGNS))
-    args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "scripts"))
-    from time_chain_kernels import build
+    from time_chain_kernels import KERNELS, build
+
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    args = ap.parse_args()
 
     roots = [make(name) for name in args.designs]
     for root, out in build([HERE] + roots).items():
         lines = out.splitlines()
         for i, line in enumerate(lines):  # the chain kernels' registers and spills
-            if "Compiling entry" in line and ("jdbl_n" in line or "jadd_kernel" in line):
+            if "Compiling entry" in line and any(
+                    k in line for k in ("jdbl_n", "jadd_kernel", "batch_inv_kernel")):
                 info = " ".join(lines[i + 1:i + 4])
                 regs = re.search(r"Used (\d+) registers", info)
                 spill = re.search(r"(\d+) bytes spill stores", info)
@@ -247,7 +267,8 @@ def main() -> None:
                       f"{regs and regs.group(1)} registers, {spill and spill.group(1)} bytes "
                       "spill stores", flush=True)
     res = subprocess.run([sys.executable, os.path.join(HERE, "scripts", "time_chain_kernels.py"),
-                          "--turns", *roots, "--rounds", str(args.rounds)])
+                          "--turns", *roots, "--rounds", str(args.rounds),
+                          "--kernels", *args.kernels])
     sys.exit(res.returncode)
 
 

@@ -9,9 +9,9 @@ points (or G2 points, over Fq2) and scalars, checks one ``AffineMSM.run``
 for one warm run:
 
 * a split by stage from CUDA events around the stages (recode and sort,
-  each round's compaction and gathers, the pair levels, ``batch_inv``, the
-  aggregate).  Events lie on the device's timeline, so a stage's time
-  includes any wait for the host to enqueue its launches;
+  each round's compaction and gathers, the pair levels, ``batch_inv`` (one
+  launch a call), the aggregate).  Events lie on the device's timeline, so
+  a stage's time includes any wait for the host to enqueue its launches;
 * the device time by kernel from ``torch.profiler`` (busy time only),
   grouped into the port's kernels, sorts, gathers and scatters, and the
   remaining elementwise PyTorch kernels; and the host's time to enqueue.
@@ -133,7 +133,8 @@ def main() -> None:
     print(f"  rounds: ranks, compaction, gathers {rounds - tot['_pair_levels']:6.3f}  (all rounds)")
     pair_ms = tot["_pair_levels"] - tot["_batch_inv"]
     print(f"  pair levels: affine_denom, affine_add, cats {pair_ms:8.3f}")
-    print(f"  batch_inv (mul tree, inv, unwind) {tot['_batch_inv']:8.3f}")
+    calls = sum(1 for label, _, _ in spans if label == "_batch_inv")
+    print(f"  batch_inv ({calls} calls)             {tot['_batch_inv']:8.3f}")
     print(f"  aggregate (scatter, jadd, jdbl_n) {tot['_aggregate']:8.3f}")
     print(f"  round 1 / later rounds            {tot['_round1']:8.3f} / {tot['_round']:.3f}")
 
@@ -144,8 +145,9 @@ def main() -> None:
         am.run(P.x, P.y, valid, sc)
         torch.cuda.synchronize()
     groups = defaultdict(lambda: [0.0, 0])
-    ours = ("mul_kernel", "inv_kernel", "affine_denom_kernel", "affine_add_kernel",
-            "jadd_kernel", "jdbl_n_kernel", "jdbl_kernel", "butterfly_kernel")
+    ours = ("batch_inv_kernel", "mul_kernel", "inv_kernel", "affine_denom_kernel",
+            "affine_add_kernel", "jadd_kernel", "jdbl_n_kernel", "jdbl_kernel",
+            "butterfly_kernel")
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
@@ -173,7 +175,8 @@ def main() -> None:
     if not total:
         print("torch.profiler reported no device time on this machine")
         return
-    print(f"device time by kernel group (torch.profiler, one run): total {total / 1e3:.3f} ms busy")
+    print(f"device time by kernel group (torch.profiler, one run): total {total / 1e3:.3f} ms "
+          f"busy, {sum(v[1] for v in groups.values())} launches")
     for g, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:45s} {us / 1e3:8.3f} ms  {100 * us / total:5.1f}%  {cnt:6d} launches")
     print("top 12 kernels:")

@@ -38,8 +38,9 @@ sys.path.insert(0, ROOT)
 CONFIGS = {"default": {}, "CRESCENT_NATIVE=0": {"CRESCENT_NATIVE": "0"},
            "fused, CRESCENT_NATIVE=0": {"CRESCENT_MSM_FUSED_AGG": "1",
                                         "CRESCENT_NATIVE": "0"}}
+# the first name a kernel's contains names its group (batch_inv before inv)
 PORT_KERNELS = ("bucket_reduce", "affine_denom", "affine_add", "jadd", "jdbl_n", "jdbl",
-                "madd", "mul", "inv", "butterfly")
+                "madd", "mul", "batch_inv", "inv", "butterfly")
 
 
 def _group(name: str) -> str:

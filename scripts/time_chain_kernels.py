@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Times the latency-bound chain kernels of the fold, `inv`, `jdbl_n` and
-`jadd` over Fq (G1) and over Fq2 (G2), at the prove path's shapes, and
-compares trees in turns.
+"""Times the latency-bound chain kernels of the fold, `inv`, `jdbl_n`,
+`jadd` and `batch_inv` over Fq (G1) and over Fq2 (G2), at the prove path's
+shapes, and compares trees in turns.
 
-    python3 scripts/time_chain_kernels.py [--root DIR]
+    python3 scripts/time_chain_kernels.py [--root DIR] [--kernels NAME ...]
     python3 scripts/time_chain_kernels.py --turns ROOT [ROOT ...] [--rounds N]
+        [--kernels NAME ...]
 
 The first form builds the kernels of the port in DIR (default: this
 checkout), checks `inv` at batch_inv's 512-lane root (over Fq and Fq2),
@@ -15,11 +16,17 @@ levels of 25,625 lanes and its weight tree of 12,800 down to 25, the
 window combine's 16 down to 1, the fold's one lane) and at 2^17 lanes,
 over Fq and Fq2, bit-equal to their plain versions on the card (`jadd`'s
 inputs with P == Q, P == -Q and each side at the identity planted in
-lanes 16 to 19), times each by CUDA events around a CUDA graph of many
+lanes 16 to 19), and `msm_affine.batch_inv` at the distinct shapes of a
+chunk's 22 calls (2^21 down to 32,768 leaves, floor 512) on seeded
+nonzero leaves, equal to the card's own tree of `mul` and `inv` where the
+tree has the `batch_inv` kernel (there it also times that tree) and with
+d * (1/d) == 1 where it has not (a tree before the kernel: `batch_inv` is
+then that tree); times each by CUDA events around a CUDA graph of many
 launches (a mean, after a warm-up: the kernels' time on the card without
 the host's time a call; `jadd` on seeded lanes without those edges, as
-the aggregate's are), sums a chunk's `jadd` launches and prints one JSON
-line.  The second builds this checkout and every ROOT at once (one nvcc a
+the aggregate's are), sums a chunk's `jadd` and `batch_inv` calls and
+prints one JSON line; `--kernels` picks some of `inv`, `jdbl_n`, `jadd`
+and `batch_inv` (default: all).  The second builds this checkout and every ROOT at once (one nvcc a
 source), then runs the first form in subprocesses on each in turns (N
 rounds, default 2, the order rotated and reversed from round to round), so
 every build is measured on one card, and prints the medians side by side
@@ -56,9 +63,12 @@ def _card() -> str:
         capture_output=True, text=True).stdout.strip()
 
 
-def measure(root: str) -> dict:
-    """Build the port in `root`, check and time its inv and jdbl_n over Fq
-    and Fq2."""
+KERNELS = ("inv", "jdbl_n", "jadd", "batch_inv")
+
+
+def measure(root: str, kernels=KERNELS) -> dict:
+    """Build the port in `root`, check and time `kernels` over Fq and
+    Fq2."""
     import numpy as np
     import torch
 
@@ -80,15 +90,15 @@ def measure(root: str) -> dict:
             w[:, top] = rng.integers(0, p >> 224, size=n, dtype=np.uint64)
         return torch.from_numpy(w.astype(np.uint32).view(np.int32)).cuda()
 
-    def time_ms(fn) -> float:
-        """Device milliseconds a call: REPS calls captured in one CUDA graph
-        and replayed, so the host's time a call (about 27 us of Python and
-        ctypes, longer than a narrow launch's kernel) stays out."""
+    def time_ms(fn, reps: int = REPS) -> float:
+        """Device milliseconds a call: `reps` calls captured in one CUDA
+        graph and replayed, so the host's time a call (about 27 us of Python
+        and ctypes, longer than a narrow launch's kernel) stays out."""
         fn()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(REPS):
+            for _ in range(reps):
                 fn()
         graph.replay()
         torch.cuda.synchronize()
@@ -98,44 +108,103 @@ def measure(root: str) -> dict:
         graph.replay()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / REPS
+        return start.elapsed_time(end) / reps
 
     out = {"root": root, "card": _card()}
     for prefix, ec, width in (("", get_cuda_ec(p), 8), ("fq2_", get_cuda_quad_ec(p), 16)):
-        x = elems(INV_LANES, width)
-        x[0] = 0
-        if not torch.equal(ec.inv(x), ec.inv_plain(x)):
-            sys.exit(f"time_chain_kernels: {prefix}inv differs from its plain version in {root}")
-        out[f"{prefix}inv 512 lanes"] = time_ms(lambda: ec.inv(x))
+        if "inv" in kernels:
+            x = elems(INV_LANES, width)
+            x[0] = 0
+            if not torch.equal(ec.inv(x), ec.inv_plain(x)):
+                sys.exit(f"time_chain_kernels: {prefix}inv differs from its plain version "
+                         f"in {root}")
+            out[f"{prefix}inv 512 lanes"] = time_ms(lambda: ec.inv(x))
         pt = [elems(16, width) for _ in range(3)]
         pt[2][3] = 0  # an identity lane, as the combine's padding rows are
-        for lanes, count in SHAPES:
+        for lanes, count in SHAPES if "jdbl_n" in kernels else ():
             pl = [a[:lanes].contiguous() for a in pt]
             got = ec.jdbl_n(*pl, count)
             if not all(torch.equal(g, w) for g, w in zip(got, ec.jdbl_n_plain(*pl, count))):
                 sys.exit(f"time_chain_kernels: {prefix}jdbl_n {lanes} x {count} differs in {root}")
             out[f"{prefix}jdbl_n {lanes} x {count}"] = time_ms(lambda: ec.jdbl_n(*pl, count))
-        pq = [elems(1 << 17, width) for _ in range(6)]
-        ctx = ec.ctx
-        # the edges in lanes 16..19: checked from 25 lanes up (the narrower
-        # shapes' edges are the card tests' and chip_smoke.py's)
-        pq[3][16], pq[4][16], pq[5][16] = pq[0][16], pq[1][16], pq[2][16]  # P == Q
-        pq[3][17], pq[4][17], pq[5][17] = pq[0][17], ctx.neg_mod(pq[1][17:18])[0], pq[2][17]
-        pq[2][18] = 0  # P the identity
-        pq[5][19] = 0  # Q the identity
-        # timed on lanes with none of those edges, as the aggregate's are
-        # (a lane with P == Q takes the doubling's rounds too)
-        pr = [elems(1 << 17, width) for _ in range(6)]
-        chunk = 0.0
-        for lanes in JADD_SHAPES:
-            pl = [a[:lanes].contiguous() for a in pq]
-            if not all(torch.equal(g, w) for g, w in zip(ec.jadd(*pl), ec.jadd_plain(*pl))):
-                sys.exit(f"time_chain_kernels: {prefix}jadd {lanes} lanes differs in {root}")
-            pl = [a[:lanes].contiguous() for a in pr]
-            ms = out[f"{prefix}jadd {lanes} lanes"] = time_ms(lambda: ec.jadd(*pl))
-            chunk += JADD_CHUNK.count(lanes) * ms
-        out[f"{prefix}jadd a chunk ({len(JADD_CHUNK)} launches)"] = chunk
+        if "jadd" in kernels:
+            _jadd(ec, prefix, root, elems, time_ms, out)
+        if "batch_inv" in kernels:
+            calls = _chunk_batch_inv_shapes()
+            _batch_inv(ec, prefix, root, calls, elems(max(calls), width), time_ms, out)
     return out
+
+
+def _jadd(ec, prefix, root, elems, time_ms, out) -> None:
+    """`jadd` at a chunk's shapes and 2^17, checked with the edges planted
+    and timed without them; and a chunk's sum."""
+    import torch
+
+    width = ec.WIDTH
+    ctx = ec.ctx
+    pq = [elems(1 << 17, width) for _ in range(6)]
+    # the edges in lanes 16..19: checked from 25 lanes up (the narrower
+    # shapes' edges are the card tests' and chip_smoke.py's)
+    pq[3][16], pq[4][16], pq[5][16] = pq[0][16], pq[1][16], pq[2][16]  # P == Q
+    pq[3][17], pq[4][17], pq[5][17] = pq[0][17], ctx.neg_mod(pq[1][17:18])[0], pq[2][17]
+    pq[2][18] = 0  # P the identity
+    pq[5][19] = 0  # Q the identity
+    # timed on lanes with none of those edges, as the aggregate's are
+    # (a lane with P == Q takes the doubling's rounds too)
+    pr = [elems(1 << 17, width) for _ in range(6)]
+    chunk = 0.0
+    for lanes in JADD_SHAPES:
+        pl = [a[:lanes].contiguous() for a in pq]
+        if not all(torch.equal(g, w) for g, w in zip(ec.jadd(*pl), ec.jadd_plain(*pl))):
+            sys.exit(f"time_chain_kernels: {prefix}jadd {lanes} lanes differs in {root}")
+        pl = [a[:lanes].contiguous() for a in pr]
+        ms = out[f"{prefix}jadd {lanes} lanes"] = time_ms(lambda: ec.jadd(*pl))
+        chunk += JADD_CHUNK.count(lanes) * ms
+    out[f"{prefix}jadd a chunk ({len(JADD_CHUNK)} launches)"] = chunk
+
+
+def _chunk_batch_inv_shapes() -> list[int]:
+    """The leaves of a 2^17-point chunk's 22 batch_inv calls at c = 11, from
+    the port on sys.path: each round's two pair levels, 2 mn and mn lanes
+    (AffineMSM._round_schedule)."""
+    from crescent_tpu_torch.core.curves import BN254_G1
+    from crescent_tpu_torch.ops.ec import get_curve_ctx
+    from crescent_tpu_torch.ops.msm_affine import AffineMSM
+
+    ctx = get_curve_ctx(BN254_G1)
+    return [w for mn in AffineMSM(ctx, ctx.ec, c=11)._round_schedule(1 << 17)
+            for w in (2 * mn, mn)]
+
+
+def _batch_inv(ec, prefix, root, calls, d, time_ms, out) -> None:
+    """`msm_affine.batch_inv` at the distinct shapes of a chunk's `calls`
+    on the first rows of d: the kernel where this tree has it (and the tree
+    of mul and inv beside it), else the tree; and a chunk's sums."""
+    import torch
+
+    from crescent_tpu_torch.ops import cuda_ec
+    from crescent_tpu_torch.ops.msm_affine import batch_inv
+
+    tree = getattr(cuda_ec, "batch_inv_tree", None)
+    one = ec.ctx.one_mont("cuda")
+    chunk = tree_chunk = 0.0
+    for lanes in sorted(set(calls), reverse=True):
+        x = d[:lanes]
+        got = batch_inv(ec, x)
+        ok = (torch.equal(got, tree(ec.mul, ec.inv, x)) if tree
+              else bool((ec.mul(x, got) == one).all()))
+        if not ok:
+            sys.exit(f"time_chain_kernels: {prefix}batch_inv {lanes} lanes is wrong in {root}")
+        reps = max(10, min(REPS, (1 << 24) // lanes))
+        ms = out[f"{prefix}batch_inv {lanes} lanes"] = time_ms(lambda: batch_inv(ec, x), reps)
+        chunk += calls.count(lanes) * ms
+        if tree:
+            t_ms = out[f"{prefix}batch_inv tree {lanes} lanes"] = time_ms(
+                lambda: tree(ec.mul, ec.inv, x), reps)
+            tree_chunk += calls.count(lanes) * t_ms
+    out[f"{prefix}batch_inv a chunk ({len(calls)} calls)"] = chunk
+    if tree:
+        out[f"{prefix}batch_inv tree a chunk ({len(calls)} calls)"] = tree_chunk
 
 
 def build(roots: list[str]) -> dict[str, str]:
@@ -154,15 +223,15 @@ def build(roots: list[str]) -> dict[str, str]:
     return reports
 
 
-def turns(others: list[str], rounds: int) -> None:
+def turns(others: list[str], rounds: int, kernels) -> None:
     roots = [HERE] + others
     build(roots)
     runs = {root: [] for root in roots}
     for r in range(rounds):
         order = roots[r % len(roots):] + roots[:r % len(roots)]
         for root in (order if r % 2 == 0 else order[::-1]):
-            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root],
-                                 capture_output=True, text=True)
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root,
+                                  "--kernels", *kernels], capture_output=True, text=True)
             if res.returncode != 0:
                 sys.exit(f"time_chain_kernels: the run in {root} failed:\n{res.stdout}{res.stderr}")
             line = json.loads(res.stdout.strip().splitlines()[-1])
@@ -173,7 +242,9 @@ def turns(others: list[str], rounds: int) -> None:
         this = statistics.median(r[k] for r in runs[HERE])
         cols = [f"this {this:.5f} ms {[r[k] for r in runs[HERE]]}"]
         for root in others:
-            t = [r[k] for r in runs[root]]
+            t = [r[k] for r in runs[root] if k in r]
+            if not t:  # a key only this tree has (the tree beside the kernel)
+                continue
             m = statistics.median(t)
             cols.append(f"{os.path.relpath(root, HERE)} {m:.5f} ms {t}, / this {m / this:.2f}")
         print(f"{k}: " + "; ".join(cols))
@@ -185,11 +256,12 @@ def main() -> None:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--turns", metavar="ROOT", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     args = ap.parse_args()
     if args.turns:
-        turns([os.path.abspath(t) for t in args.turns], args.rounds)
+        turns([os.path.abspath(t) for t in args.turns], args.rounds, args.kernels)
     else:
-        print(json.dumps(measure(os.path.abspath(args.root))), flush=True)
+        print(json.dumps(measure(os.path.abspath(args.root), args.kernels)), flush=True)
 
 
 if __name__ == "__main__":

@@ -138,7 +138,8 @@ def test_cuda_point_kernels_match_plain(cuda, a):
         assert _equal(ec.jdbl_n(*p16, count), ec.jdbl_n_plain(*p16, count))
     after = ec.launches()
     grew = {k: after[k] - before[k] for k in after}
-    assert grew["inv"] == 3 and grew["affine_denom"] == 1 and grew["affine_add"] == 2
+    assert grew["inv"] == 2 and grew["affine_denom"] == 1 and grew["affine_add"] == 2
+    assert grew["batch_inv"] == 1 and grew["mul"] == 1  # the tree: one launch
     assert grew["jadd"] == 1 and grew["jdbl"] == 1 and grew["jdbl_n"] == 3
     with pytest.raises(ValueError):
         ec.jadd(*pq[:5], pq[5][1:])          # a plane of another length
@@ -221,7 +222,8 @@ def test_cuda_fq2_kernels_match_plain(cuda):
     assert _equal(got, ec.madd_plain(*args))
     assert got[2][1].eq(0).all() and got[2][5].eq(0).all() and got[2][0].any()
     after = ec.launches()
-    assert after["madd"] == before["madd"] + 1 and after["inv"] == before["inv"] + 2
+    assert after["madd"] == before["madd"] + 1 and after["inv"] == before["inv"] + 1
+    assert after["batch_inv"] == before["batch_inv"] + 1
     with pytest.raises(ValueError):
         ec.mul(x[:, :8].contiguous(), y[:, :8].contiguous())  # not (N, 16) rows
 
@@ -502,8 +504,9 @@ def test_cuda_jadd_aggregate_shapes_match_plain(cuda, field, a, lanes):
 @pytest.mark.cuda
 def test_cuda_prove_matches_native(cuda, monkeypatch):
     """A small circuit proved with the fold on the card (one 512-point chunk
-    a problem at c = 11: the divstep `inv` and the warp `jdbl_n` among its
-    kernels) equals the native configuration's proof, and verifies."""
+    a problem at c = 11: `batch_inv`, with the divstep inversion on each
+    root, and the warp `jdbl_n` among its kernels) equals the native
+    configuration's proof, and verifies."""
     import random
 
     from crescent_tpu_torch.models import groth16
@@ -525,8 +528,124 @@ def test_cuda_prove_matches_native(cuda, monkeypatch):
         after = ec.launches()
     finally:
         msm.get_msm.cache_clear()
-    assert after["inv"] > before["inv"] and after["jdbl_n"] > before["jdbl_n"]
+    assert after["batch_inv"] > before["batch_inv"] and after["jdbl_n"] > before["jdbl_n"]
+    assert after["inv"] == before["inv"]
     monkeypatch.setenv("CRESCENT_PROVE_MSM", "native")
     native = groth16.prove(pk, r1cs, z, random.Random(7), device="cuda")
     assert proof_ints(fold) == proof_ints(native)
     assert groth16.verify(pk.vk.prepare(), fold, z[1 : r1cs.num_instance])
+
+
+def _rows(n: int, width: int, seed: int, device) -> torch.Tensor:
+    """(n, width) seeded canonical rows of Fq (8 words) or Fq2 (16), made
+    in bulk."""
+    p = fields.BN254_FQ
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=(n, width), dtype=np.uint64)
+    for top in range(7, width, 8):
+        w[:, top] = rng.integers(0, p >> 224, size=n, dtype=np.uint64)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+
+
+def _chunk_batch_inv_shapes() -> list[int]:
+    """The leaves of a 2^17-point chunk's 22 batch_inv calls at c = 11:
+    each round's two pair levels (2 mn and mn lanes)."""
+    from crescent_tpu_torch.core.curves import BN254_G1
+    from crescent_tpu_torch.ops.ec import get_curve_ctx
+    from crescent_tpu_torch.ops.msm_affine import AffineMSM
+
+    ctx = get_curve_ctx(BN254_G1)
+    return [w for mn in AffineMSM(ctx, ctx.ec)._round_schedule(1 << 17) for w in (2 * mn, mn)]
+
+
+def _check_batch_inv(ec, d, inv_floor: int, zero: int) -> None:
+    """batch_inv on d with a zero planted at leaf `zero`: one launch, equal
+    to batch_inv_plain and to the card's tree of mul and inv, the zero's
+    run zeroed and the other leaves inverted."""
+    from crescent_tpu_torch.ops.cuda_ec import batch_inv_tree, tree_halvings
+
+    d = d.clone()
+    d[zero] = 0
+    before = ec.batch_inv_launches
+    got = ec.batch_inv(d, inv_floor)
+    assert ec.batch_inv_launches == before + 1
+    assert _equal(got, ec.batch_inv_plain(d, inv_floor)), d.shape
+    assert _equal(got, batch_inv_tree(ec.mul, ec.inv, d, inv_floor)), d.shape
+    S = 1 << tree_halvings(d.shape[0], inv_floor)
+    run = torch.zeros(d.shape[0], dtype=torch.bool, device=d.device)
+    run[zero // S * S:(zero // S + 1) * S] = True
+    assert not got[run].any()
+    one = ec.ctx.one_mont(d.device).expand(int((~run).sum()), -1)
+    assert torch.equal(ec.mul(d[~run].contiguous(), got[~run].contiguous()), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["Fq", "Fq2"])
+def test_cuda_batch_inv_chunk_shapes_match_plain(cuda, field):
+    """csrc/batch_inv.cuh over Fq and Fq2 at the distinct shapes of a
+    chunk's 22 calls (2^21 down to 32,768 leaves, roots of 512 or 384
+    lanes), on affine_denom output (1 on the invalid pairs) with a zero
+    planted in run 1, against batch_inv_plain and the card's own tree."""
+    from crescent_tpu_torch.ops.cuda_ec import tree_halvings
+
+    ec = get_cuda_quad_ec(fields.BN254_FQ) if field == "Fq2" else get_cuda_ec(fields.BN254_FQ)
+    shapes = sorted(set(_chunk_batch_inv_shapes()), reverse=True)
+    assert len(_chunk_batch_inv_shapes()) == 22 and shapes[0] == 1 << 21
+    n = shapes[0]
+    lx, ly, rx, ry = (_rows(n, ec.WIDTH, 81 + k, cuda) for k in range(4))
+    rng = np.random.default_rng(85)
+    lv, rv = (torch.from_numpy(rng.integers(0, 2, size=n).astype(np.int32)).to(cuda)
+              for _ in range(2))
+    d = ec.affine_denom(lx, ly, lv, rx, ry, rv)
+    for lanes in shapes:
+        _check_batch_inv(ec, d[:lanes], 512, (1 << tree_halvings(lanes, 512)) + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["Fq", "Fq2"])
+@pytest.mark.parametrize("n, inv_floor", [(1 << 16, 512), (1 << 12, 512), (256, 256),
+                                          (100, 512), (1, 512)])
+def test_cuda_batch_inv_fixed_base_and_small_shapes(cuda, field, n, inv_floor):
+    """batch_inv at the fixed base's shapes (a power of two, floor
+    min(512, p2)) and at n <= inv_floor (a block a leaf), a zero planted."""
+    ec = get_cuda_quad_ec(fields.BN254_FQ) if field == "Fq2" else get_cuda_ec(fields.BN254_FQ)
+    d = _rows(n, ec.WIDTH, 91, cuda)
+    d[n // 2:n // 2 + 1] = ec.ctx.one_mont(cuda)
+    _check_batch_inv(ec, d, inv_floor, n // 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_cuda_chunk_batch_inv_launches(cuda, group):
+    """One 2^17-point chunk at c = 11 on the card equals the native MSM,
+    and its 11 rounds take 22 batch_inv launches and no mul or inv."""
+    import functools
+    import random
+
+    from crescent_tpu_torch.core.curves import BN254_G1, BN254G2
+    from crescent_tpu_torch.native import backend as nb
+    from crescent_tpu_torch.ops.ec import JPoints, get_curve_ctx, get_g2_ctx, points_valid
+    from crescent_tpu_torch.ops.msm_affine import AffineMSM
+
+    rng = random.Random(11)
+    n = 1 << 17
+    if group == "G1":
+        ctx = get_curve_ctx(BN254_G1)
+        pts = nb.fixed_base("bn254_g1", BN254_G1.generator,
+                            [rng.randrange(1, ctx.n) for _ in range(n)])
+        native = functools.partial(nb.msm, "bn254_g1")
+    else:
+        ctx = get_g2_ctx()
+        pts = nb.fixed_base_g2(BN254G2.generator(), [rng.randrange(1, ctx.n) for _ in range(n)])
+        native = nb.msm_g2
+    ks = [rng.randrange(ctx.n) for _ in range(n)]
+    P = ctx.points_to_device(pts, cuda)
+    valid = torch.from_numpy(points_valid(pts)).to(cuda)
+    sc = limb.limbs_to_words(limb.ints_to_limbs(ks), cuda)
+    ec = ctx.ec
+    before = ec.launches()
+    res = AffineMSM(ctx, ec).run(P.x, P.y, valid, sc)
+    after = ec.launches()
+    assert ctx.points_to_host(JPoints(*(a[None] for a in res)))[0] == native(ks, pts)
+    grew = {k: after[k] - before[k] for k in after}
+    assert (grew["batch_inv"], grew["mul"], grew["inv"]) == (22, 0, 0)
