@@ -12,8 +12,12 @@
    (field: 0, 1, p-1, Montgomery 1, and u over Fq2; points: L == R,
    L == -R, one side only, neither; P + P, P + (-P), the identity on either
    side and on both; for madd also valid == 0 and sign == 1; for
-   bucket_reduce, at the fused aggregate's 25 windows of 1025 buckets, empty
-   buckets, P == Q and P == -Q in neighbouring buckets; Fq `inv` at 512
+   bucket_reduce, at the fused aggregate's 25 windows of 1025 buckets,
+   at 1 and 3 windows of 3, 5, 17 and 1025 buckets and at one window of
+   the most it takes (4,097 over Fq, 2,049 over Fq2), empty buckets, P == Q
+   and P == -Q in neighbouring buckets, also against the card's unfused
+   levels (bucket_levels over the `jadd` kernel, the launches it
+   replaces), with the card's room for its clusters printed; Fq `inv` at 512
    lanes with 0, 1, p-1, Montgomery 1 and 2^k among them, and Fq2 `inv`
    with the norm's edges, (1, 0), (0, 1), (p-1, 0), (a, a) and 2^k in c0
    and in c1, x * inv(x) == 1; `jdbl_n` over Fq and Fq2 at the window
@@ -25,13 +29,14 @@
    calls, 2^21 down to 32,768 leaves of affine_denom output with a zero
    planted in the second run, also against the card's own tree of `mul`
    launches with `inv` on its root level, the launches it replaces), and
-   once over a curve with a != 0 (2^14 lanes, and `jadd` at the chunk's
-   shapes).  Tolerance:
+   once over a curve with a != 0 (2^14 lanes, `jadd` at the chunk's
+   shapes and `bucket_reduce` at 25 x 1025).  Tolerance:
    none, the results must be bit-identical (exact integer arithmetic).
-   Prints the kernel's and the plain version's times (CUDA events; `jadd`'s
-   and `batch_inv`'s around a CUDA graph of their launches, whose kernels at
-   the narrow shapes are shorter than the host's time a call, and the
-   tree's beside `batch_inv`'s, and both summed over a chunk's calls) and the
+   Prints the kernel's and the plain version's times (CUDA events; `jadd`'s,
+   `batch_inv`'s and `bucket_reduce`'s around a CUDA graph of their
+   launches, whose kernels at the narrow shapes are shorter than the host's
+   time a call, the tree's beside `batch_inv`'s, both summed over a chunk's
+   calls, and the unfused levels' beside `bucket_reduce`'s) and the
    least time the card could take (`bound_ms`: bytes over 3.35 TB/s
    against 32-bit multiply-adds over 16.75e12/s, and for `inv` over Fq and
    Fq2 the divsteps' integer operations too, whichever is larger, counted
@@ -39,7 +44,8 @@
    3 (n - 1) products and one inversion, with the inversion's latency floor
    of a chunk's 22 serial calls printed apart), and nvcc's register count;
    fails if a `jdbl_n`,
-   `jadd` (warp.cuh) or `batch_inv` kernel spills.
+   `jadd` (warp.cuh), `batch_inv` or `bucket_reduce` (bucket.cuh) kernel
+   spills.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -126,7 +132,9 @@ INV_FLOOR = 512  # batch_inv's floor in a chunk's rounds
 
 def _registers(reports: dict) -> dict:
     """nvcc's -Xptxas -v report per library -> {(library, mangled entry):
-    (registers, spill store bytes)}."""
+    (registers, spill store bytes)}, an entry's spills with those of the
+    functions it calls (a `__noinline__` callee's report follows the
+    entry's)."""
     import re
 
     out = {}
@@ -139,7 +147,9 @@ def _registers(reports: dict) -> dict:
                 entry, spill = m.group(1), 0
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m and entry:
-                spill = int(m.group(1))
+                spill += int(m.group(1))
+                if (lib, entry) in out:  # a callee's, after the entry's registers
+                    out[(lib, entry)] = (out[(lib, entry)][0], spill)
             m = re.search(r"Used (\d+) registers", ln)
             if m and entry:
                 out[(lib, entry)] = (int(m.group(1)), spill)
@@ -148,10 +158,13 @@ def _registers(reports: dict) -> dict:
 
 def _jadd_registers(regs: dict, name: str) -> dict:
     """(registers, spill store bytes) of each instance of warp.cuh's `jadd`
-    kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), by mangled name."""
+    kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), or of bucket.cuh's
+    `bucket_reduce` kernel (`bucket_reduce`, `fq2_bucket_reduce`), by
+    mangled name."""
     lib, field = ("ec2", "3Fe2") if name.startswith("fq2_") else ("ec", "2Fe")
+    kernel = "bucket_reduce_kernel" if name.endswith("bucket_reduce") else "_jadd_kernel"
     return {e: v for (l, e), v in regs.items()
-            if l == lib and "_jadd_kernelI" in e and f"_jadd_kernelINS_{field}E" in e}
+            if l == lib and f"{kernel}INS_{field}E" in e}
 
 
 def _kernel_registers(regs: dict, name: str):
@@ -171,7 +184,7 @@ def _kernel_registers(regs: dict, name: str):
         lib = "ntt" if base in ("mul", "butterfly") else "ec"
         key = {"inv": "divstep_inv_kernel",
                "jdbl_n": warp.format("2Fe")}.get(base, base + "_kernel")
-    if base == "jadd":  # its executors: the most registers and spills of any, a == 0
+    if base in ("jadd", "bucket_reduce"):  # the most registers and spills of any, a == 0
         hits = [v for e, v in _jadd_registers(regs, name).items() if "ELb1E" in e]
         return (max(h[0] for h in hits), max(h[1] for h in hits)) if hits else None
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
@@ -410,19 +423,78 @@ def _pair_inputs(torch, ec, n: int, seed: int):
 
 def _bucket_table(torch, ec, W: int, B: int, seed: int):
     """A dense (W * B)-row Jacobian bucket table of seeded rows with the
-    cases planted in every window: empty buckets (zero rows, as the scatter
-    leaves them; the top bucket among them), bucket 2 equal to bucket 1
-    (P == Q at the first level) and bucket 5 the negative of bucket 4
-    (P == -Q)."""
+    cases planted in every window, as far as B has room: bucket 2 equal to
+    bucket 1 (P == Q at the first level), empty buckets (zero rows, as the
+    scatter leaves them: bucket 3 and the top bucket) and bucket 5 the
+    negative of bucket 4 (P == -Q)."""
     elems = _elems_for(torch, ec, W * B)
     x, y, z = (elems(seed + k).view(W, B, -1) for k in range(3))
     for a in (x, y, z):
         a[:, 2] = a[:, 1]
-        a[:, 3] = 0
+        a[:, min(3, B - 1)] = 0
         a[:, B - 1] = 0
-    x[:, 5], z[:, 5] = x[:, 4], z[:, 4]
-    y[:, 5] = ec.ctx.neg_mod(y[:, 4].contiguous())
+    if B > 6:
+        x[:, 5], z[:, 5] = x[:, 4], z[:, 4]
+        y[:, 5] = ec.ctx.neg_mod(y[:, 4].contiguous())
     return tuple(a.view(W * B, -1) for a in (x, y, z))
+
+
+# bucket_reduce's shapes besides the fused aggregate's W x B: one window and
+# three, a few buckets and the path's 1025
+BUCKET_SHAPES = [(w, b) for w in (1, 3) for b in (3, 5, 17, (1 << (AFFINE_C - 1)) + 1)]
+
+
+def _bucket_reduce_checks(torch, ec, label: str, prefix: str, seed: int, record=None):
+    """`bucket_reduce` (one launch) bit-equal to its plain version
+    (bucket_levels over jadd_plain) and to the card's unfused levels
+    (bucket_levels over the `jadd` kernel, the 21 launches it replaces at
+    c = 11), the cases planted: at the fused aggregate's 25 windows x 1025
+    buckets, and with `record` also at BUCKET_SHAPES and at one window of
+    the most buckets the kernel takes (BUCKET_B_MAX), timing the kernel
+    and the levels at 25 x 1025 in CUDA graphs.  Bound: the table read and
+    the sums written once; the products of the pair additions with both
+    sides finite (the others take none).  Returns (largest difference,
+    levels' ms, the launch's shape)."""
+    from crescent_tpu_torch.ops.cuda_ec import bucket_levels
+
+    f = ec.ctx
+    e, sqr, mul = (64, 2, 3) if ec.WIDTH == 16 else (32, 1, 1)
+    W = (256 + AFFINE_C - 1) // AFFINE_C + 1
+    B = (1 << (AFFINE_C - 1)) + 1
+    worst = 0
+    levels_ms = None
+    shapes = BUCKET_SHAPES + [(1, ec.BUCKET_B_MAX)] if record is not None else []
+    for w, b in [(W, B)] + shapes:
+        table = _bucket_table(torch, ec, w, b, seed + 40 + b)
+        got = ec.bucket_reduce(*table, w, b)
+        torch.cuda.synchronize()
+        finite = [0, 0]
+
+        def counted_jadd(*a):
+            # the pairs that need the addition's products: both sides finite
+            finite[0] += int((~f.is_zero(a[2]) & ~f.is_zero(a[5])).sum().item())
+            finite[1] += a[0].shape[0]
+            return ec.jadd_plain(*a)
+
+        want, plain_ms = _timed_once(torch, lambda: bucket_levels(counted_jadd, *table, w, b))
+        err = max(_errs(torch, got, want), _errs(torch, got, bucket_levels(ec.jadd, *table, w, b)))
+        worst = max(worst, err)
+        if (w, b) != (W, B):
+            say(f"  {prefix}bucket_reduce [{label}] {w} x {b}: max_abs_err={err} against the "
+                "plain version and the card's levels")
+            if err:
+                fail(f"{prefix}bucket_reduce [{label}] at {w} x {b} differs")
+            continue
+        if record is None:
+            continue
+        levels_ms = _graph_ms(torch, lambda: bucket_levels(ec.jadd, *table, w, b), 20)
+        record("bucket_reduce", f"{w} windows x {b} buckets", err,
+               _graph_ms(torch, lambda: ec.bucket_reduce(*table, w, b), 20), plain_ms,
+               3 * e * (w * b + w), (5 * sqr + 11 * mul) * MONT_MUL_MADS * finite[0])
+        say(f"  {prefix}bucket_reduce [{label}]: {finite[0]} of its {finite[1]} pair additions "
+            f"have both sides finite (counted in its bound); the unfused levels (bucket_levels "
+            f"over the jadd kernel, a graph) {levels_ms:.4f} ms")
+    return worst, levels_ms, ec.bucket_reduce_fit(W, B)
 
 
 def _jadd_shapes(torch, ec, prefix: str, seed: int, record=None) -> int:
@@ -534,12 +606,11 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
     lanes (the first pair level of a chunk), jadd at every shape of a
     chunk's launches and at 2^17, jdbl at 2^17, jdbl_n at the window combine's five
     shapes (16 lanes x 11 .. 1 lane x 176; then 100 lanes x 0, 1 and 3),
-    bucket_reduce on the fused aggregate's (W * B)-row table.
+    bucket_reduce on the fused aggregate's (W * B)-row table and at
+    BUCKET_SHAPES, also against the card's unfused levels.
     Bounds count an element's bytes (32 over Fq, 64 over Fq2) and its base
     products (a square and a product are 1 and 1 over Fq, 2 and 3 over
     Fq2)."""
-    from crescent_tpu_torch.ops.cuda_ec import bucket_levels
-
     f = ec.ctx
     one = f.one_mont("cuda")
     fq2 = ec.WIDTH == 16
@@ -612,26 +683,13 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
         fail(f"{prefix}jdbl_n differs from its plain version at 100 lanes x 0, 1 or 3")
 
     # -- bucket_reduce: the fused aggregate's table, W = 25 windows of B = 1025
-    W = (256 + AFFINE_C - 1) // AFFINE_C + 1
-    B = (1 << (AFFINE_C - 1)) + 1
-    table = _bucket_table(torch, ec, W, B, seed + 40)
-    got = ec.bucket_reduce(*table, W, B)
-    torch.cuda.synchronize()
-    finite = [0, 0]
-
-    def counted_jadd(*a):
-        # the pairs that need the addition's products: both sides finite
-        finite[0] += int((~f.is_zero(a[2]) & ~f.is_zero(a[5])).sum().item())
-        finite[1] += a[0].shape[0]
-        return ec.jadd_plain(*a)
-
-    err = _errs(torch, got, bucket_levels(counted_jadd, *table, W, B))
-    record("bucket_reduce", f"{W} windows x {B} buckets", err,
-           _time_ms(torch, lambda: ec.bucket_reduce(*table, W, B), 10),
-           _time_ms(torch, lambda: ec.bucket_reduce_plain(*table, W, B), 1),
-           3 * e * (W * B + W), (5 * sqr + 11 * mul) * MONT_MUL_MADS * finite[0])
-    say(f"  bucket_reduce [{label}]: {finite[0]} of its {finite[1]} pair additions have "
-        "both sides finite (counted in its bound)")
+    _, levels_ms, fit = _bucket_reduce_checks(torch, ec, label, prefix, seed, record)
+    out[prefix + "bucket_reduce_levels"] = {"levels_ms": levels_ms, **fit}
+    say(f"  {prefix}bucket_reduce [{label}]: clusters of {fit['cluster']} blocks of "
+        f"{fit['threads']} threads, {fit['smem_bytes']} B of shared memory a block; the card "
+        f"holds {fit['max_active_clusters']} such clusters at once")
+    if fit["max_active_clusters"] < 1:
+        fail(f"{prefix}bucket_reduce [{label}]: its cluster does not fit the card")
 
 
 def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
@@ -673,11 +731,13 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
         _errs(torch, eca.jadd(*pt), eca.jadd_plain(*pt)),
         _errs(torch, eca.affine_add(*pair, inv), eca.affine_add_plain(*pair, inv)),
         _jadd_shapes(torch, eca, "a != 0: ", SEED + 80),
+        _bucket_reduce_checks(torch, eca, "BN254 Fq, a != 0", "", SEED + 85)[0],
     )
     if torch.equal(eca.jdbl(*pt[:3])[0], ec.jdbl(*pt[:3])[0]):
         fail("a != 0 does not reach the doubling")
     say(f"kernels jdbl, jdbl_n, jadd, affine_add [BN254 Fq, a = 0x1234567] 2^14 lanes, "
-        f"jadd at the chunk's shapes and 2^{CHUNK_LOG}: max_abs_err={err}")
+        f"jadd at the chunk's shapes and 2^{CHUNK_LOG}, bucket_reduce at the fused "
+        f"aggregate's 25 x 1025: max_abs_err={err}")
     if err:
         fail("a kernel differs from its plain version over a curve with a != 0")
     return out
@@ -1385,6 +1445,10 @@ def main() -> None:
         fail("the fused prove did not launch bucket_reduce over Fq and over Fq2")
     if chunks != (21 * fused_launches["bucket_reduce"], 21 * fused_launches["fq2_bucket_reduce"]):
         fail("the fused prove does not save 21 jadd launches a bucket_reduce launch")
+    if (fused_launches["bucket_reduce"], fused_launches["fq2_bucket_reduce"]) != (
+            g1_chunks, g2_chunks):
+        fail(f"the fused prove launched bucket_reduce other than once a chunk "
+             f"({g1_chunks} G1 and {g2_chunks} G2 chunks)")
     _tree_replaced(fused_launches, "the fused prove",
                    {"": g1_chunks, "fq2_": g2_chunks})
     if _proof_ints(proof_fused) != _proof_ints(proof):
@@ -1431,8 +1495,11 @@ def main() -> None:
         spill = (_kernel_registers(regs, name) or (None, None))[1]
         if spill:
             fail(f"{name}'s kernel spills {spill} bytes (nvcc -Xptxas -v)")
-    for name in ("jadd", "fq2_jadd"):  # and its additions, every instance
-        for entry, (_, spill) in _jadd_registers(regs, name).items():
+    # and its additions (warp.cuh) and the fused aggregate (bucket.cuh), every
+    # instance
+    for name in ("jadd", "fq2_jadd", "bucket_reduce", "fq2_bucket_reduce"):
+        for entry, (r, spill) in _jadd_registers(regs, name).items():
+            say(f"{name}: {entry} {r} registers, {spill} bytes spill stores")
             if spill:
                 fail(f"{name}'s kernel {entry} spills {spill} bytes (nvcc -Xptxas -v)")
     runs = (setup_launches, prove_launches, native0_launches, fused_launches,
@@ -1471,9 +1538,11 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes these
         })
-        if name in ("jadd", "fq2_jadd"):  # both designs, a == 0 and a != 0
+        if name.endswith(("jadd", "bucket_reduce")):  # every instance, a == 0 and a != 0
             kernels[-1]["registers_by_entry"] = {
                 e: r for e, (r, _) in _jadd_registers(regs, name).items()}
+        if name.endswith("bucket_reduce"):  # the unfused levels beside it, its launch
+            kernels[-1].update(kres[name + "_levels"])
         if len(rows) > 1:  # every shape the kernel phase timed
             kernels[-1]["shapes"] = [
                 {"shape": r[0], "ms": r[2], "plain_ms": r[3], "bound_ms": r[4]} for r in rows]

@@ -33,10 +33,12 @@
 // bytes.  `madd` (5 rows in, 3 out, eleven products) is bound by
 // operations, its rare doubling case a branch taken only by lanes with
 // P == Q instead of a second formula evaluated by every lane (the value is
-// the same).  `bucket_reduce` (one window of the dense bucket table a
-// block, 12,298 dependent-level jadds a window at c = 11) is bound by
-// operations in principle; with one block per window it runs on W of the
-// card's SMs, 44 jadds in a row a thread (point.cuh's `pt_jadd`).
+// the same).  `bucket_reduce` (a window of the dense bucket table, 12,298
+// additions in 21 dependent levels at c = 11) is bound by the latency of
+// its levels: bucket.cuh runs a window on a cluster of blocks, its level
+// tables in their distributed shared memory, each level's additions on
+// warp.cuh's executors (four product threads a lane, or a warp's groups
+// where a block's share of the level is narrow).
 //
 // `inv`, `jdbl_n` and `jadd` run long dependent chains of products on few
 // lanes, so they are bound by latency, not by the card's throughput:
@@ -87,6 +89,7 @@
 #include <cstdint>
 
 #include "batch_inv.cuh"
+#include "bucket.cuh"
 #include "field.cuh"
 #include "point.cuh"
 #include "warp.cuh"
@@ -192,13 +195,20 @@ extern "C" int crescent_madd(const uint32_t* curve26, const void* x1,
                                    sign, ox, oy, oz, n, stream);
 }
 
-// Fq: the jadd body takes 166 registers, so a block of 384 threads fits
-// one SM's 65,536 (three passes over B = 1025 columns a level).
+// W windows of B buckets, a cluster of blocks a window (bucket.cuh), a == 0
+// and a != 0.
 extern "C" int crescent_bucket_reduce(const uint32_t* curve26, const void* x,
-                                      const void* y, const void* z,
-                                      void* scratch, void* ox, void* oy,
-                                      void* oz, long long W, long long B,
+                                      const void* y, const void* z, void* ox,
+                                      void* oy, void* oz, long long W, long long B,
                                       void* stream) {
-  return crescent::launch_bucket_reduce<Fe, 384>(curve26, x, y, z, scratch, ox,
-                                                 oy, oz, W, B, stream);
+  const Curve C = make_curve(curve26);
+  return C.a_is_zero
+             ? crescent::launch_bucket_reduce<Fe, true>(C, x, y, z, ox, oy, oz, W, B, stream)
+             : crescent::launch_bucket_reduce<Fe, false>(C, x, y, z, ox, oy, oz, W, B, stream);
+}
+
+// bucket_reduce's launch at W x B: cluster size, threads a block, dynamic
+// shared bytes a block, clusters the card holds at once (out4)
+extern "C" int crescent_bucket_reduce_fit(long long W, long long B, int* out4) {
+  return crescent::bucket_reduce_fit<Fe, true>(W, B, out4);
 }

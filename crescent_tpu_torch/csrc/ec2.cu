@@ -53,9 +53,8 @@
 // and `jdbl` (17) by operations.  An Fq2 element is twice an Fq one in
 // registers, so `madd` runs at the 255-register limit and spills; its
 // doubling stays a branch that only lanes with P == Q take.
-// `bucket_reduce` is point.cuh's one block a window over the jadd body
-// `pt_jadd`, 256 threads a block (the most the 255-register body allows;
-// 66 jadds in a row a thread at c = 11).  `butterfly` (a, b, tw in, two
+// `bucket_reduce` is bucket.cuh's cluster of blocks a window over Fe2, its
+// additions on eight product threads a lane.  `butterfly` (a, b, tw in, two
 // rows out: 320 bytes and 3 base products a lane) is bound by bytes; no
 // path of the reference calls it.
 // BN254 G2 has a = 0, which the wrapper requires and `jdbl_n` and `jadd`
@@ -70,6 +69,7 @@
 #include <cstdint>
 
 #include "batch_inv.cuh"
+#include "bucket.cuh"
 #include "field.cuh"
 #include "point.cuh"
 #include "warp.cuh"
@@ -215,14 +215,17 @@ extern "C" int crescent_fq2_jdbl(const uint32_t* curve26, const void* x,
   return crescent::launch_jdbl<Fe2>(curve26, x, y, z, ox, oy, oz, n, stream);
 }
 
-extern "C" int crescent_fq2_bucket_reduce(const uint32_t* curve26,
-                                          const void* x, const void* y,
-                                          const void* z, void* scratch,
-                                          void* ox, void* oy, void* oz,
-                                          long long W, long long B,
+extern "C" int crescent_fq2_bucket_reduce(const uint32_t* curve26, const void* x,
+                                          const void* y, const void* z, void* ox,
+                                          void* oy, void* oz, long long W, long long B,
                                           void* stream) {
-  return crescent::launch_bucket_reduce<Fe2, 256>(curve26, x, y, z, scratch,
-                                                  ox, oy, oz, W, B, stream);
+  const Curve C = make_curve(curve26);
+  if (!C.a_is_zero) return (int)cudaErrorInvalidValue;  // a = 0 only
+  return crescent::launch_bucket_reduce<Fe2, true>(C, x, y, z, ox, oy, oz, W, B, stream);
+}
+
+extern "C" int crescent_fq2_bucket_reduce_fit(long long W, long long B, int* out4) {
+  return crescent::bucket_reduce_fit<Fe2, true>(W, B, out4);
 }
 
 extern "C" int crescent_fq2_butterfly(const uint32_t* curve26, const void* a,

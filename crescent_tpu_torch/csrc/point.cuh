@@ -8,9 +8,10 @@
 // `FieldRow<F>` (row width, loads, stores, base constants), so one body
 // compiles into the Fq kernels of ec.cu and the Fq2 kernels of ec2.cu.
 // Every result is canonical and equals the reference's value, hence its
-// bits.  The kernels below are one thread per lane, but for
-// `bucket_reduce_kernel`, one block per window of a bucket table; their
-// launch shapes are the C entry points' (ec.cu, ec2.cu).
+// bits.  The kernels below are one thread per lane; their launch shapes are
+// the C entry points' (ec.cu, ec2.cu).  The Jacobian addition `_jadd_body`
+// runs in rounds on several threads a lane (warp.cuh `jadd_sum` and
+// `jadd_rounds`), for `jadd` and for `bucket_reduce` (bucket.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -192,54 +193,6 @@ __global__ void affine_add_kernel(Curve C, const uint4* lx, const uint4* ly,
   ov[i] = ((l || r) && !(both && inf_case)) ? 1 : 0;
 }
 
-// Complete Jacobian addition (add-2007-bl; pallas_ec._jadd_body): the
-// doubling when P == Q, the identity (Z = 0) when P == -Q, the other side
-// when one is the identity.  One thread computes it whole, for
-// `bucket_reduce_kernel`; the `jadd` kernels run the same values in rounds
-// on several threads a lane (warp.cuh `jadd_rounds`).
-template <class F>
-__device__ __forceinline__ PtT<F> pt_jadd(const Curve& C, const PtT<F>& P,
-                                          const PtT<F>& Q) {
-  const Mod& M = C.M;
-  const F Z1Z1 = fe_sqr(P.z, M);
-  const F Z2Z2 = fe_sqr(Q.z, M);
-  const F U1 = fe_mont_mul(P.x, Z2Z2, M);
-  const F U2 = fe_mont_mul(Q.x, Z1Z1, M);
-  const F S1 = fe_mont_mul(fe_mont_mul(P.y, Q.z, M), Z2Z2, M);
-  const F S2 = fe_mont_mul(fe_mont_mul(Q.y, P.z, M), Z1Z1, M);
-  const F H = fe_sub(U2, U1, M);
-  const F r = fe_sub(S2, S1, M);
-
-  const bool h_zero = fe_is_zero(H);
-  const bool r_zero = fe_is_zero(r);
-  const bool p_inf = fe_is_zero(P.z);
-  const bool q_inf = fe_is_zero(Q.z);
-  const bool finite = !p_inf && !q_inf;
-
-  PtT<F> R;
-  if (finite && h_zero && r_zero) {
-    // P == Q: the doubling.  The TPU kernel evaluates it in every lane and
-    // selects; here only the lanes that need it pay for it.
-    R = pt_double(C, P);
-  } else {
-    const F I = fe_sqr(fe_add(H, H, M), M);
-    const F J = fe_mont_mul(H, I, M);
-    const F rr = fe_add(r, r, M);
-    const F V = fe_mont_mul(U1, I, M);
-    R.x = fe_sub(fe_sub(fe_sqr(rr, M), J, M), fe_add(V, V, M), M);
-    const F SJ = fe_mont_mul(S1, J, M);
-    R.y = fe_sub(fe_mont_mul(rr, fe_sub(V, R.x, M), M), fe_add(SJ, SJ, M), M);
-    R.z = fe_mont_mul(
-        fe_sub(fe_sub(fe_sqr(fe_add(P.z, Q.z, M), M), Z1Z1, M), Z2Z2, M), H, M);
-  }
-  R.x = fe_select(p_inf, Q.x, fe_select(q_inf, P.x, R.x));
-  R.y = fe_select(p_inf, Q.y, fe_select(q_inf, P.y, R.y));
-  R.z = fe_select(p_inf, Q.z, fe_select(q_inf, P.z, R.z));
-  // P == -Q: the identity (Z == 0; x and y stay what the formula gave)
-  R.z = fe_select(finite && h_zero && !r_zero, FieldRow<F>::zero(), R.z);
-  return R;
-}
-
 // One doubling.
 template <class F>
 __global__ void jdbl_kernel(Curve C, const uint4* x, const uint4* y,
@@ -248,70 +201,6 @@ __global__ void jdbl_kernel(Curve C, const uint4* x, const uint4* y,
   const long long i = lane();
   if (i >= n) return;
   pt_store<F>(ox, oy, oz, i, pt_double(C, pt_load<F>(x, y, z, i)));
-}
-
-// Per-window Pippenger bucket reduction (pallas_ec._bucket_reduce_kernel):
-// window w of the dense (W * B)-row Jacobian table (x, y, z), buckets
-// S_0..S_{B-1} in rows w * B + b, becomes the one point
-// sum_{b >= 1} b * S_b = sum_{d >= 1} running_d, where running_d =
-// sum_{b >= d} S_b.  The suffix sums take ceil(log2 B) shift-add levels
-// (running[i] += running[i + j] for j = 1, 2, 4, ..., the identity read
-// past column B - 1), the weighted sum a halving tree over columns
-// 1..B - 1 (B - 1 a power of two; the host asserts it).  Every pair is
-// added by `pt_jadd` in the order of AffineMSM's unfused aggregate (one
-// jadd launch per level), so the result is bit-identical to it in
-// Jacobian form.
-//
-// One block per window (grid W), T threads striding over the columns, a
-// __syncthreads() between levels.  The levels ping-pong between two
-// scratch tables in device memory (scratch: 6 planes of W * B rows: x, y,
-// z of table 0, then of table 1), which stay in L2 (2.5 MB over Fq, 4.9 MB
-// over Fq2 at c = 11): one window's table (98,400 B over Fq, 196,800 B
-// over Fq2) does not fit twice in a block's 227 KiB of shared memory.  T
-// is set by the register use of the jadd body (Fq2: 255 registers, so at
-// most 256 threads a block).
-template <class F, int T>
-__global__ void __launch_bounds__(T)
-    bucket_reduce_kernel(Curve C, const uint4* x, const uint4* y,
-                         const uint4* z, uint4* scratch, uint4* ox, uint4* oy,
-                         uint4* oz, int B) {
-  constexpr int V = FieldRow<F>::kVec;
-  const long long plane = (long long)gridDim.x * B * V;  // vectors a plane
-  const long long base = (long long)blockIdx.x * B * V;  // this window
-  const uint4 *sx = x + base, *sy = y + base, *sz = z + base;
-  uint4 *dx = scratch + base, *dy = dx + plane, *dz = dy + plane;
-  uint4 *ex = dz + plane, *ey = ex + plane, *ez = ey + plane;
-  PtT<F> O;  // the identity as the shifts read it past the last column
-  O.x = O.y = O.z = FieldRow<F>::zero();
-  for (int j = 1; j < B; j *= 2) {
-    for (int i = threadIdx.x; i < B; i += T) {
-      const PtT<F> Q = i + j < B ? pt_load<F>(sx, sy, sz, i + j) : O;
-      pt_store<F>(dx, dy, dz, i, pt_jadd<F>(C, pt_load<F>(sx, sy, sz, i), Q));
-    }
-    __syncthreads();
-    sx = dx, sy = dy, sz = dz;
-    uint4 *tx = dx, *ty = dy, *tz = dz;
-    dx = ex, dy = ey, dz = ez;
-    ex = tx, ey = ty, ez = tz;
-  }
-  int off = 1;  // the weight tree starts at column 1
-  for (int n = B - 1; n > 1; n /= 2) {
-    const int h = n / 2;
-    for (int i = threadIdx.x; i < h; i += T) {
-      pt_store<F>(dx, dy, dz, i,
-                  pt_jadd<F>(C, pt_load<F>(sx, sy, sz, off + i),
-                             pt_load<F>(sx, sy, sz, off + i + h)));
-    }
-    __syncthreads();
-    off = 0;
-    sx = dx, sy = dy, sz = dz;
-    uint4 *tx = dx, *ty = dy, *tz = dz;
-    dx = ex, dy = ey, dz = ez;
-    ex = tx, ey = ty, ez = tz;
-  }
-  if (threadIdx.x == 0) {
-    pt_store<F>(ox, oy, oz, blockIdx.x, pt_load<F>(sx, sy, sz, off));
-  }
 }
 
 // curve26: host array of 26 u32: modulus words, -p^-1 mod 2^32, Montgomery
@@ -401,19 +290,6 @@ int launch_madd(const uint32_t* curve26, const void* x1, const void* y1,
                      (cudaStream_t)stream>>>(
         make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)qx, (In)qy, qxs, qys,
         (const int*)valid, (const int*)sign, (Out)ox, (Out)oy, (Out)oz, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-// W windows of B buckets: one block a window, T threads a block.
-template <class F, int T>
-int launch_bucket_reduce(const uint32_t* curve26, const void* x, const void* y,
-                         const void* z, void* scratch, void* ox, void* oy,
-                         void* oz, long long W, long long B, void* stream) {
-  if (W > 0) {
-    bucket_reduce_kernel<F, T><<<(unsigned)W, T, 0, (cudaStream_t)stream>>>(
-        make_curve(curve26), (In)x, (In)y, (In)z, (Out)scratch, (Out)ox,
-        (Out)oy, (Out)oz, (int)B);
   }
   return (int)cudaGetLastError();
 }

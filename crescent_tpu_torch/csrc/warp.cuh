@@ -27,7 +27,9 @@
 // four warps) or six of at most eight (on eight product threads).
 // `jdbl_n` runs on groups, `jadd` on the executor that the lane count
 // picks (kJaddGroupLanesMax<F> and kJaddOneThreadLanesMin<F>, measured on
-// the card: PERF.md).
+// the card: PERF.md), and the fused aggregate `bucket_reduce`
+// (bucket.cuh) each level's additions on the executor that a block's share
+// of the level picks.
 
 #pragma once
 
@@ -439,34 +441,28 @@ struct JaddRows {
   const uint4 *x1, *y1, *z1, *x2, *y2, *z2;
 };
 
-// The end of pt_jadd for a lane: P == -Q gives Z = 0 (x and y what the
-// formula gave), a side at the identity gives the other side.
-template <class F>
-__device__ __forceinline__ void jadd_edges(PtT<F>& R, const JaddRows& in, long long i,
-                                           bool p_inf, bool q_inf, bool negs) {
-  if (negs) R.z = FieldRow<F>::zero();
-  if (p_inf) {
-    R = pt_load<F>(in.x2, in.y2, in.z2, i);
-  } else if (q_inf) {
-    R = pt_load<F>(in.x1, in.y1, in.z1, i);
-  }
-}
+// The cases of a lane's addition that its formula does not give: P == Q
+// (both finite) takes the doubling of P, P == -Q gives Z = 0 (x and y what
+// the formula gave), a side at the identity gives the other side.
+struct JaddCase {
+  bool dbl, p_inf, q_inf, negs;
+};
 
-// R = P + Q, lane i's points (pt_jadd's add-2007-bl with its edge
-// cases) on an executor of four slots or more: 16 products in five rounds,
+// R = P + Q, lane i's points (add-2007-bl with its edge cases,
+// pallas_ec._jadd_body) on an executor of four slots or more: 16 products in five rounds,
 // the formula's dependent depth,
 //   1. Z1Z1, Z2Z2, Y1 Z2, Y2 Z1;
 //   2. U1 = X1 Z2Z2, U2 = X2 Z1Z1, S1 = Y1 Z2 Z2Z2, S2 = Y2 Z1 Z1Z1;
 //   3. I = (2 H)^2, rr^2, (Z1 + Z2)^2   (H = U2 - U1, rr = 2 (S2 - S1));
 //   4. J = H I, V = U1 I, Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H;
 //   5. S1 J, rr (V - X3).
-// P == Q (both finite) takes the doubling instead: its rounds run after
-// the addition's wherever a lane run together with this one needs them.
-// Every value is the one pt_jadd computes (canonical), so the result is
-// bit-equal to it (tests/test_torch_jadd_rounds.py models the plan).
+// R is the formula's sum; the cases it does not give are returned
+// (jadd_rounds completes them).  Every value is the one `jadd_plain`
+// (ops/cuda_ec.py) computes (canonical), so the result is bit-equal to it
+// (tests/test_torch_jadd_rounds.py models the plan).
 template <bool kAZero, class X>
-__device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRows& in,
-                                            long long i, PtT<Fe>& R) {
+__device__ __forceinline__ JaddCase jadd_sum(const Curve& C, X& ex, const JaddRows& in,
+                                             long long i, PtT<Fe>& R) {
   const Mod& M = C.M;
   const Fe Z1 = fe_load(in.z1 + 2 * i), Z2 = fe_load(in.z2 + 2 * i);
   Fe r1[4];
@@ -517,15 +513,11 @@ __device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRow
     }
     R.y = fe_sub_cc(r5[1], fe_add_cc(r5[0], r5[0], M), M);
   }
-  if (ex.any(dbl)) {
-    const PtT<Fe> D = warp_double<kAZero>(C, pt_load<Fe>(in.x1, in.y1, in.z1, i), ex);
-    if (dbl) R = D;
-  }
-  jadd_edges<Fe>(R, in, i, p_inf, q_inf, finite && h_zero && !r_zero);
+  return {dbl, p_inf, q_inf, finite && h_zero && !r_zero};
 }
 
 // R = P + Q over Fq2, lane i's points (a = 0, BN254 G2), on the eight
-// product threads of the wide launches: pt_jadd over Fe2 is five Fq2
+// product threads of the wide launches: the addition over Fe2 is five Fq2
 // squares of two base products and eleven Karatsuba products of three, 43
 // base products.  At most eight a round, the formula's five dependent
 // levels take six rounds:
@@ -535,11 +527,12 @@ __device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRow
 //   4. I = (2 H)^2, rr^2, Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H: 7;
 //   5. J = H I, V = U1 I: 6;
 //   6. S1 J, rr (V - X3): 6.
-// P == Q takes the doubling, as over Fq.  Every value is the field
-// element pt_jadd computes, canonical, so the result is bit-equal to it.
+// The cases the formula does not give are returned, as over Fq.  Every
+// value is the field element jadd_plain computes, canonical, so the result
+// is bit-equal to it.
 template <bool kAZero, class X>
-__device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRows& in,
-                                            long long i, PtT<Fe2>& R) {
+__device__ __forceinline__ JaddCase jadd_sum(const Curve& C, X& ex, const JaddRows& in,
+                                             long long i, PtT<Fe2>& R) {
   static_assert(kAZero, "the Fq2 addition serves a = 0 only");
   typedef FieldRow<Fe2> Row;
   const Mod& M = C.M;
@@ -622,11 +615,7 @@ __device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRow
     const Fe2 SJ = fe2_karatsuba(r6[0], r6[1], r6[2], M);
     R.y = fe2_sub_cc(fe2_karatsuba(r6[3], r6[4], r6[5], M), fe2_add_cc(SJ, SJ, M), M);
   }
-  if (ex.any(dbl)) {
-    const PtT<Fe2> D = warp_double<kAZero>(C, pt_load<Fe2>(in.x1, in.y1, in.z1, i), ex);
-    if (dbl) R = D;
-  }
-  jadd_edges<Fe2>(R, in, i, p_inf, q_inf, finite && h_zero && !r_zero);
+  return {dbl, p_inf, q_inf, finite && h_zero && !r_zero};
 }
 
 // R = P + Q over Fq2 on sixteen groups (four warps a lane, a = 0), the
@@ -637,10 +626,10 @@ __device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRow
 //   3. I = (2 H)^2, rr^2, Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H: 7;
 //   4. J = H I, V = U1 I: 6;
 //   5. S1 J, rr (V - X3): 6.
-// The same values as the plan above, so bit-equal to pt_jadd too.
+// The same values as the plan above, so bit-equal to jadd_plain too.
 template <bool kAZero>
-__device__ __forceinline__ void jadd_rounds(const Curve& C, BlockGroups<4>& ex,
-                                            const JaddRows& in, long long i, PtT<Fe2>& R) {
+__device__ __forceinline__ JaddCase jadd_sum(const Curve& C, BlockGroups<4>& ex,
+                                             const JaddRows& in, long long i, PtT<Fe2>& R) {
   static_assert(kAZero, "the Fq2 addition serves a = 0 only");
   typedef FieldRow<Fe2> Row;
   const Mod& M = C.M;
@@ -718,11 +707,26 @@ __device__ __forceinline__ void jadd_rounds(const Curve& C, BlockGroups<4>& ex,
     const Fe2 SJ = fe2_karatsuba(r5[0], r5[1], r5[2], M);
     R.y = fe2_sub_cc(fe2_karatsuba(r5[3], r5[4], r5[5], M), fe2_add_cc(SJ, SJ, M), M);
   }
-  if (ex.any(dbl)) {
-    const PtT<Fe2> D = warp_double<kAZero>(C, pt_load<Fe2>(in.x1, in.y1, in.z1, i), ex);
-    if (dbl) R = D;
+  return {dbl, p_inf, q_inf, finite && h_zero && !r_zero};
+}
+
+// R = P + Q, lane i's points on executor ex: the formula's rounds
+// (jadd_sum), then the cases it does not give, the doubling's rounds run
+// wherever a lane run together with this one needs them.
+template <bool kAZero, class F, class X>
+__device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRows& in,
+                                            long long i, PtT<F>& R) {
+  const JaddCase k = jadd_sum<kAZero>(C, ex, in, i, R);
+  if (ex.any(k.dbl)) {
+    const PtT<F> D = warp_double<kAZero>(C, pt_load<F>(in.x1, in.y1, in.z1, i), ex);
+    if (k.dbl) R = D;
   }
-  jadd_edges<Fe2>(R, in, i, p_inf, q_inf, finite && h_zero && !r_zero);
+  if (k.negs) R.z = FieldRow<F>::zero();
+  if (k.p_inf) {
+    R = pt_load<F>(in.x2, in.y2, in.z2, i);
+  } else if (k.q_inf) {
+    R = pt_load<F>(in.x1, in.y1, in.z1, i);
+  }
 }
 
 // Threads that run one lane's `jdbl_n` chain on groups: one warp over Fe,

@@ -34,6 +34,7 @@ _u32p = ctypes.POINTER(ctypes.c_uint32)
 _vp = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _int = ctypes.c_int
+_intp = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "ntt": {
         "crescent_mul": [_u32p, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _vp],
@@ -48,7 +49,8 @@ SIGNATURES = {
         "crescent_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
         "crescent_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
         "crescent_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
-        "crescent_bucket_reduce": [_u32p] + [_vp] * 7 + [_ll, _ll, _vp],
+        "crescent_bucket_reduce": [_u32p] + [_vp] * 6 + [_ll, _ll, _vp],
+        "crescent_bucket_reduce_fit": [_ll, _ll, _intp],
     },
     "ec2": {
         "crescent_fq2_mul": [_u32p, _vp, _vp, _vp, _ll, _ll, _ll, _ll, _vp],
@@ -60,7 +62,8 @@ SIGNATURES = {
         "crescent_fq2_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],
         "crescent_fq2_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
         "crescent_fq2_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
-        "crescent_fq2_bucket_reduce": [_u32p] + [_vp] * 7 + [_ll, _ll, _vp],
+        "crescent_fq2_bucket_reduce": [_u32p] + [_vp] * 6 + [_ll, _ll, _vp],
+        "crescent_fq2_bucket_reduce_fit": [_ll, _ll, _intp],
         "crescent_fq2_butterfly": [_u32p] + [_vp] * 5 + [_ll, _vp],
     },
 }

@@ -26,7 +26,9 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
   addition P + (sign ? -Q : Q), P passed through where valid == 0
   (``_madd_kernel``).
 * ``bucket_reduce(x, y, z, W, B)``: per-window weighted sums of a dense
-  Jacobian bucket table, one launch (``_bucket_reduce_kernel``).
+  Jacobian bucket table, one launch (``_bucket_reduce_kernel``): a cluster
+  of blocks a window, its level tables in their distributed shared memory
+  (``csrc/bucket.cuh``).
 * ``batch_inv(d, inv_floor)``: 1/d for every row, the reference's product
   tree of ``mul`` with ``inv`` on its root level
   (``crescent_tpu/ops/msm_affine.py`` ``batch_inv``) in one launch, one
@@ -329,6 +331,12 @@ class _Kernels:
     KERNELS: tuple = ()
     LIB = PREFIX = ""
     WIDTH = NWORD
+    # The most buckets a window `bucket_reduce` takes: csrc/bucket.cuh keeps
+    # a window's two level tables (6 planes of ceil(B / 4) + 1 rows of WIDTH
+    # words) in the shared memory of a cluster of 4 blocks, at most
+    # kBucketSmemMax = 200 KB a block (tests/test_torch_bucket_schedule.py
+    # derives it from the source).
+    BUCKET_B_MAX = 4097
 
     def reset_launches(self) -> None:
         for k in self.KERNELS:
@@ -556,24 +564,40 @@ class _Kernels:
     def bucket_reduce(self, x, y, z, W: int, B: int):
         """Dense (W * B, WIDTH) Jacobian bucket table, window w in rows
         w * B .. w * B + B - 1 (bucket 0 first) -> three (W, WIDTH) planes:
-        sum_{b >= 1} b * S_{w, b} for every window, one launch (one block a
-        window).  Requires B - 1 a power of two.  Bit-identical to
-        ``bucket_levels`` over ``jadd``."""
+        sum_{b >= 1} b * S_{w, b} for every window, one launch (a cluster of
+        blocks a window, ``csrc/bucket.cuh``).  Requires B - 1 a power of
+        two and B <= BUCKET_B_MAX (4,097 over Fq, 2,049 over Fq2: window
+        widths c <= 13 and c <= 12; prove's c = 11 gives B = 1025), on the
+        card and on the CPU alike.  Bit-identical to ``bucket_levels`` over
+        ``jadd``."""
         if B < 2 or (B - 1) & (B - 2):
             raise ValueError(f"bucket_reduce needs B - 1 a power of two, got B = {B}")
+        if B > self.BUCKET_B_MAX:
+            raise ValueError(f"bucket_reduce takes at most B = {self.BUCKET_B_MAX} buckets a "
+                             f"window (its level tables in a cluster's shared memory), got "
+                             f"B = {B}")
         if self._device(x) == "cpu":
             return self.bucket_reduce_plain(x, y, z, W, B)
         n, dev = self._planes("x y z", [x, y, z])
         if n != W * B:
             raise ValueError(f"bucket table has {n} rows, expected W * B = {W * B}")
-        # the levels' two ping-pong tables (point.cuh bucket_reduce_kernel)
-        scratch = torch.empty((6, n, self.WIDTH), dtype=torch.int32, device=dev)
         outs = [torch.empty((W, self.WIDTH), dtype=torch.int32, device=dev)
                 for _ in range(3)]
         self._launched("bucket_reduce", self._entry("bucket_reduce")(
             self._curve26, x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            scratch.data_ptr(), *(t.data_ptr() for t in outs), W, B, _stream(dev)))
+            *(t.data_ptr() for t in outs), W, B, _stream(dev)))
         return tuple(outs)
+
+    def bucket_reduce_fit(self, W: int, B: int) -> dict:
+        """The card's launch of ``bucket_reduce`` at W windows of B buckets:
+        blocks a cluster, threads a block, dynamic shared bytes a block, and
+        how many clusters the card holds at once
+        (cudaOccupancyMaxActiveClusters).  Needs the card."""
+        out = (ctypes.c_int * 4)()
+        rc = self._entry("bucket_reduce_fit")(W, B, out)
+        if rc:
+            raise RuntimeError(f"bucket_reduce_fit failed: cudaError {rc}")
+        return dict(zip(("cluster", "threads", "smem_bytes", "max_active_clusters"), out))
 
 
 def divstep_r3(modulus: int) -> int:
@@ -681,6 +705,7 @@ class CudaQuadEC(_Kernels):
 
     KERNELS = QUAD_KERNELS
     LIB, PREFIX, WIDTH = "ec2", "crescent_fq2_", QWORD
+    BUCKET_B_MAX = 2049  # rows twice as wide as over Fq
     a_is_zero = True
 
     def __init__(self, modulus: int):

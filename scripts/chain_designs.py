@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Times design alternatives of the chain kernels `jdbl_n`, `jadd`
-(csrc/warp.cuh) and `batch_inv` (csrc/batch_inv.cuh) over Fq and Fq2
-against this checkout's, in turns, on one card.
+(csrc/warp.cuh), `batch_inv` (csrc/batch_inv.cuh) and `bucket_reduce`
+(csrc/bucket.cuh) over Fq and Fq2 against this checkout's, in turns, on
+one card.
 
     python3 scripts/chain_designs.py [--rounds N] [--designs NAME ...]
         [--kernels NAME ...]
 
 Each design is a copy of this checkout's `crescent_tpu_torch/` under
-`build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh` or
-`csrc/batch_inv.cuh`:
+`build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh`,
+`csrc/batch_inv.cuh` or `csrc/bucket.cuh`:
 
 * `field_sums`: the sums and differences between the rounds of both
   doublings (and of the additions) by field.cuh's `fe_add` / `fe_sub`
@@ -38,7 +39,15 @@ Each design is a copy of this checkout's `crescent_tpu_torch/` under
   threads' plan) in place of four warps' five rounds of at most sixteen;
 * `batch_inv_blocks_of_s`: `batch_inv` on blocks of min(128, S) threads
   (the threads that hold leaves of a run of S) in place of 128 threads a
-  block whatever S is.
+  block whatever S is;
+* `bucket_k2`, `bucket_k5`, `bucket_k8`: `bucket_reduce` on clusters of 2,
+  5 or 8 blocks a window in place of 4 (50, 125 or 200 blocks at 25
+  windows; 8 do not fit the card in one wave);
+* `bucket_fq_320`: Fq blocks of 320 threads (10 warps, the same 168
+  registers a thread): a block's 257 suffix pairs in four passes of 80
+  lanes of four product threads, not three of 96;
+* `bucket_inline`: each lane's addition inlined into the pass loop in
+  place of a call of a function of its own (`__noinline__`).
 
 The designs are built at once with this checkout (one nvcc a source), then
 `scripts/time_chain_kernels.py --turns` checks every build bit-equal to the
@@ -218,11 +227,31 @@ def _blocks_of_s(src: str) -> str:
                        "(int)(log_s < 7 ? 1LL << log_s : kBatchInvThreads),")
 
 
+def _bucket(name: str, value: str, field: str = ""):
+    """bucket.cuh with kBucket<name> (its specialisation for `field`, or the
+    generic one) set to value."""
+    spec = f"<{field}>" if field else ""
+
+    def design(src: str) -> str:
+        head = f"constexpr int kBucket{name}{spec} = "
+        a = src.index(head) + len(head)
+        return src[:a] + value + src[src.index(";", a):]
+    return design
+
+
 DESIGNS = {"field_sums": _field_sums, "thread_product": _thread_product, "one_warp": _one_warp,
            "jadd_groups": _jadd_groups, "jadd_threads": _jadd_threads,
            "jadd_threads_half": _jadd_threads_half, "jadd_one_thread": _jadd_one_thread,
            "two_warps": _two_warps,
-           "batch_inv_blocks_of_s": _blocks_of_s}
+           "batch_inv_blocks_of_s": _blocks_of_s,
+           "bucket_k2": _bucket("Cluster", "2"), "bucket_k5": _bucket("Cluster", "5"),
+           "bucket_k8": _bucket("Cluster", "8"),
+           "bucket_fq_320": lambda src: _bucket("Threads", "320")(
+               _bucket("GroupLanesMax", "20")(src)),
+           "bucket_inline": lambda src: _set_constant(
+               src, "template <class F, bool kAZero, int G, class X>\n__device__ __noinline__ "
+               "void bucket_add(", "template <class F, bool kAZero, int G, class X>\n"
+               "__device__ __forceinline__ void bucket_add(")}
 
 
 def make(name: str) -> str:
@@ -233,7 +262,8 @@ def make(name: str) -> str:
     shutil.copytree(os.path.join(HERE, "crescent_tpu_torch"),
                     os.path.join(root, "crescent_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    header = "batch_inv.cuh" if name.startswith("batch_inv_") else "warp.cuh"
+    header = {"batch_inv": "batch_inv.cuh", "bucket": "bucket.cuh"}.get(name.split("_")[0],
+                                                                         "warp.cuh")
     path = os.path.join(root, "crescent_tpu_torch", "csrc", header)
     with open(path) as f:
         src = f.read()
@@ -259,13 +289,18 @@ def main() -> None:
         lines = out.splitlines()
         for i, line in enumerate(lines):  # the chain kernels' registers and spills
             if "Compiling entry" in line and any(
-                    k in line for k in ("jdbl_n", "jadd_kernel", "batch_inv_kernel")):
+                    k in line for k in ("jdbl_n", "jadd_kernel", "batch_inv_kernel",
+                                        "bucket_reduce_kernel")):
                 info = " ".join(lines[i + 1:i + 4])
                 regs = re.search(r"Used (\d+) registers", info)
                 spill = re.search(r"(\d+) bytes spill stores", info)
                 print(os.path.relpath(root, HERE), line.split("'")[1], "|",
                       f"{regs and regs.group(1)} registers, {spill and spill.group(1)} bytes "
                       "spill stores", flush=True)
+            elif "Function properties for" in line and "bucket_add" in line:  # a callee
+                spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
+                print(os.path.relpath(root, HERE), line.split()[-1], "|",
+                      f"{spill and spill.group(1)} bytes spill stores", flush=True)
     res = subprocess.run([sys.executable, os.path.join(HERE, "scripts", "time_chain_kernels.py"),
                           "--turns", *roots, "--rounds", str(args.rounds),
                           "--kernels", *args.kernels])

@@ -3,15 +3,17 @@
 pairs, on one card.
 
     python3 scripts/prove_pairs.py OTHER_ROOT [--log2 21] [--pairs 10]
-        [--configs default CRESCENT_NATIVE=0] [--device cuda]
+        [--configs default CRESCENT_NATIVE=0 fused] [--device cuda]
 
 Starts one worker process a tree (this checkout and OTHER_ROOT, for example
 the parent commit unpacked under the gitignored `build/`).  Each builds its
 kernels, makes dummy_circuit(log2) from the same seeds, sets it up on the
 card and proves once in each configuration to warm up; then it proves on
 request, with fixed r and s.  The driver asks for `pairs` pairs in each
-configuration (by default both: default, and CRESCENT_NATIVE=0 with G2 on
-the card too), the tree that goes first alternating from pair to pair, and checks that every
+configuration (by default all three: default; CRESCENT_NATIVE=0, G2 on the
+card too; and `fused`, CRESCENT_MSM_FUSED_AGG=1 with CRESCENT_NATIVE=0, each
+chunk's aggregate one `bucket_reduce` launch), the tree that goes first
+alternating from pair to pair, and checks that every
 proof of both trees is the same.  It prints every prove's wall time, each
 tree's median and quartiles, the median of the pairs' differences (this -
 other) and in how many pairs this checkout was the faster, and the same
@@ -32,7 +34,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIGS = {"default": {}, "CRESCENT_NATIVE=0": {"CRESCENT_NATIVE": "0"}}
+CONFIGS = {"default": {}, "CRESCENT_NATIVE=0": {"CRESCENT_NATIVE": "0"},
+           # the fused aggregate: one bucket_reduce launch a chunk, G2 on the card
+           "fused": {"CRESCENT_NATIVE": "0", "CRESCENT_MSM_FUSED_AGG": "1"}}
 
 
 def worker(root: str, logn: int, device: str, configs: list[str]) -> None:

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Times the latency-bound chain kernels of the fold, `inv`, `jdbl_n`,
-`jadd` and `batch_inv` over Fq (G1) and over Fq2 (G2), at the prove path's
-shapes, and compares trees in turns.
+`jadd`, `batch_inv` and the fused aggregate `bucket_reduce`, and the
+older point kernels `madd`, `jdbl`, `affine_denom` and `affine_add`, over
+Fq (G1) and over Fq2 (G2), at the prove path's shapes, and compares trees
+in turns.
 
     python3 scripts/time_chain_kernels.py [--root DIR] [--kernels NAME ...]
     python3 scripts/time_chain_kernels.py --turns ROOT [ROOT ...] [--rounds N]
@@ -21,12 +23,17 @@ chunk's 22 calls (2^21 down to 32,768 leaves, floor 512) on seeded
 nonzero leaves, equal to the card's own tree of `mul` and `inv` where the
 tree has the `batch_inv` kernel (there it also times that tree) and with
 d * (1/d) == 1 where it has not (a tree before the kernel: `batch_inv` is
-then that tree); times each by CUDA events around a CUDA graph of many
-launches (a mean, after a warm-up: the kernels' time on the card without
-the host's time a call; `jadd` on seeded lanes without those edges, as
-the aggregate's are), sums a chunk's `jadd` and `batch_inv` calls and
-prints one JSON line; `--kernels` picks some of `inv`, `jdbl_n`, `jadd`
-and `batch_inv` (default: all).  The second builds this checkout and every ROOT at once (one nvcc a
+then that tree), `bucket_reduce` at a chunk's 25 windows of 1025 buckets
+(seeded rows, the top bucket empty) equal to the card's unfused levels
+(`bucket_levels` over the `jadd` kernel, 21 launches, which it also
+times), and `madd` at setup's 2^16 lanes, `jdbl` at 2^17, `affine_denom`
+and `affine_add` at a chunk's first pair level of 2^21 lanes, each equal
+to its plain version on its first 2^12 lanes; times each by CUDA events
+around a CUDA graph of many launches (a mean, after a warm-up: the
+kernels' time on the card without the host's time a call; `jadd` on
+seeded lanes without those edges, as the aggregate's are), sums a
+chunk's `jadd` and `batch_inv` calls and prints one JSON line;
+`--kernels` picks some of KERNELS (default: all).  The second builds this checkout and every ROOT at once (one nvcc a
 source), then runs the first form in subprocesses on each in turns (N
 rounds, default 2, the order rotated and reversed from round to round), so
 every build is measured on one card, and prints the medians side by side
@@ -63,7 +70,9 @@ def _card() -> str:
         capture_output=True, text=True).stdout.strip()
 
 
-KERNELS = ("inv", "jdbl_n", "jadd", "batch_inv")
+KERNELS = ("inv", "jdbl_n", "jadd", "batch_inv", "bucket_reduce", "madd", "jdbl",
+           "affine_denom", "affine_add")
+OLDER = ("madd", "jdbl", "affine_denom", "affine_add")  # the rows PR 3-6 timed in event loops
 
 
 def measure(root: str, kernels=KERNELS) -> dict:
@@ -132,7 +141,61 @@ def measure(root: str, kernels=KERNELS) -> dict:
         if "batch_inv" in kernels:
             calls = _chunk_batch_inv_shapes()
             _batch_inv(ec, prefix, root, calls, elems(max(calls), width), time_ms, out)
+        if "bucket_reduce" in kernels:
+            _bucket_reduce(ec, prefix, root, elems, time_ms, out)
+        for name in (k for k in OLDER if k in kernels):
+            _older(ec, prefix, name, root, elems, time_ms, out)
     return out
+
+
+def _bucket_reduce(ec, prefix, root, elems, time_ms, out) -> None:
+    """`bucket_reduce` at a chunk's W x B table against the card's unfused
+    levels (bucket_levels over `jadd`), both timed."""
+    import torch
+
+    from crescent_tpu_torch.ops.cuda_ec import bucket_levels
+
+    table = [elems(W * B, ec.WIDTH) for _ in range(3)]
+    for a in table:
+        a.view(W, B, -1)[:, B - 1] = 0  # an empty bucket in every window
+    got = ec.bucket_reduce(*table, W, B)
+    if not all(torch.equal(g, w) for g, w in zip(got, bucket_levels(ec.jadd, *table, W, B))):
+        sys.exit(f"time_chain_kernels: {prefix}bucket_reduce differs from the levels in {root}")
+    out[f"{prefix}bucket_reduce {W} x {B}"] = time_ms(lambda: ec.bucket_reduce(*table, W, B), 20)
+    out[f"{prefix}bucket_reduce levels {W} x {B}"] = time_ms(
+        lambda: bucket_levels(ec.jadd, *table, W, B), 20)
+
+
+def _older(ec, prefix, name, root, elems, time_ms, out) -> None:
+    """One of the older point kernels at its path's shape on seeded lanes,
+    checked against its plain version on its first 2^12 lanes."""
+    import numpy as np
+    import torch
+
+    lanes = {"madd": 1 << 16, "jdbl": 1 << 17}.get(name, 1 << 21)
+    rng = np.random.default_rng(SEED + len(name))
+
+    def flags(zero_in: int):
+        return torch.from_numpy((rng.integers(0, zero_in, size=lanes) != 0)
+                                .astype(np.int32)).cuda()
+
+    rows = [elems(lanes, ec.WIDTH) for _ in range(5)]
+    if name == "madd":  # valid == 0 for about one lane in 64, sign seeded
+        args = (*rows, flags(64), flags(2))
+    elif name == "jdbl":
+        args = tuple(rows[:3])
+    elif name == "affine_denom":  # about one side in 64 invalid
+        args = (rows[0], rows[1], flags(64), rows[2], rows[3], flags(64))
+    else:
+        args = (rows[0], rows[1], flags(64), rows[2], rows[3], flags(64), rows[4])
+    fn, plain = getattr(ec, name), getattr(ec, name + "_plain")
+    head = tuple(a[:1 << 12].contiguous() for a in args)
+    got, want = fn(*head), plain(*head)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        sys.exit(f"time_chain_kernels: {prefix}{name} differs from its plain version in {root}")
+    out[f"{prefix}{name} {lanes} lanes"] = time_ms(lambda: fn(*args),
+                                                   max(10, min(REPS, (1 << 24) // lanes)))
 
 
 def _jadd(ec, prefix, root, elems, time_ms, out) -> None:

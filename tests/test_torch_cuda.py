@@ -327,15 +327,15 @@ def test_cuda_fixed_base_matches_native(cuda):
 
 def _bucket_table(ec, W: int, B: int, seed: int, device):
     """A dense (W * B) Jacobian bucket table of seeded rows with the cases
-    planted in every window: empty buckets (zero rows), a bucket equal to
-    the next one (P == Q at the first level) and one the negative of the
-    next (P == -Q)."""
+    planted in every window, as far as B has room: a bucket equal to the
+    next one (P == Q at the first level), empty buckets (zero rows) and one
+    the negative of the next (P == -Q)."""
     elems = (lambda s: _elems2(W * B, s, device)) if ec.WIDTH == 16 else (
         lambda s: _elems(ec.modulus, W * B + 16, s, device)[16:].contiguous())
     x, y, z = (elems(seed + k).view(W, B, -1) for k in range(3))
     for a in (x, y, z):
         a[:, 2] = a[:, 1]
-        a[:, 3] = 0
+        a[:, min(3, B - 1)] = 0
         a[:, B - 1] = 0
     if B > 6:
         x[:, 5], z[:, 5] = x[:, 4], z[:, 4]
@@ -343,21 +343,51 @@ def _bucket_table(ec, W: int, B: int, seed: int, device):
     return tuple(a.view(W * B, -1) for a in (x, y, z))
 
 
+# bucket_reduce's shapes (windows, buckets): the fused aggregate's B = 1025
+# (c = 11) at 3 windows and 1, and a few buckets (B = 3, 5, 17)
+BUCKET_SHAPES = ((3, 1025), (1, 1025), (2, 5), (1, 3), (3, 3), (3, 5), (1, 17), (3, 17))
+
+
 @pytest.mark.cuda
 def test_cuda_bucket_reduce_matches_plain(cuda):
-    """bucket_reduce over Fq and Fq2, one launch, against its plain version
-    (bucket_levels over jadd_plain) at the prove path's B = 1025 and at
-    B = 5, the cases planted."""
-    for ec in (get_cuda_ec(fields.BN254_FQ), get_cuda_quad_ec(fields.BN254_FQ)):
-        for W, B in ((3, 1025), (2, 5)):
-            table = _bucket_table(ec, W, B, 71, cuda)
+    """bucket_reduce over Fq (a = 0 and a != 0) and Fq2, one launch (a
+    cluster of blocks a window, csrc/bucket.cuh), against its plain version
+    (bucket_levels over jadd_plain) and the card's unfused levels
+    (bucket_levels over the `jadd` kernel) at the prove path's B = 1025 and
+    at a few buckets, the cases planted; its clusters fit the card."""
+    from crescent_tpu_torch.ops.cuda_ec import bucket_levels
+
+    for ec in (get_cuda_ec(fields.BN254_FQ), get_cuda_ec(fields.BN254_FQ, 0x1234567),
+               get_cuda_quad_ec(fields.BN254_FQ)):
+        for W, B in BUCKET_SHAPES:
+            table = _bucket_table(ec, W, B, 71 + B, cuda)
             before = ec.bucket_reduce_launches
             got = ec.bucket_reduce(*table, W, B)
-            assert _equal(got, ec.bucket_reduce_plain(*table, W, B))
             assert ec.bucket_reduce_launches == before + 1
+            assert _equal(got, ec.bucket_reduce_plain(*table, W, B)), (W, B)
+            assert _equal(got, bucket_levels(ec.jadd, *table, W, B)), (W, B)
             assert got[0].shape == (W, ec.WIDTH)
         with pytest.raises(ValueError):
             ec.bucket_reduce(*table, W + 1, B)  # not W * B rows
+        assert ec.bucket_reduce_fit(25, 1025)["max_active_clusters"] >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_reduce_at_its_largest_b(cuda):
+    """One window of the most buckets bucket_reduce takes (BUCKET_B_MAX:
+    4,097 over Fq, 2,049 over Fq2, its tables near a block's shared memory
+    limit) against its plain version and the card's unfused levels; one
+    step further is a ValueError that names the limit."""
+    from crescent_tpu_torch.ops.cuda_ec import bucket_levels
+
+    for ec in (get_cuda_ec(fields.BN254_FQ), get_cuda_quad_ec(fields.BN254_FQ)):
+        B = ec.BUCKET_B_MAX
+        table = _bucket_table(ec, 1, B, 73, cuda)
+        got = ec.bucket_reduce(*table, 1, B)
+        assert _equal(got, ec.bucket_reduce_plain(*table, 1, B)), B
+        assert _equal(got, bucket_levels(ec.jadd, *table, 1, B)), B
+        with pytest.raises(ValueError, match=f"at most B = {B}"):
+            ec.bucket_reduce(*_bucket_table(ec, 1, 2 * B - 1, 73, cuda), 1, 2 * B - 1)
 
 
 @pytest.mark.cuda

@@ -191,7 +191,7 @@ def _edges(Pt, Qt, H, r, out):
 # warp.cuh (the first function that has it), its rounds)
 PLANS = {
     "fq": (fq_jadd, "fq", 4, "long long i, PtT<Fe>& R) {", [4, 4, 3, 3, 2]),
-    "fq2": (fq2_jadd_eight, "fq2", 8, "X& ex, const JaddRows& in,\n" + " " * 44
+    "fq2": (fq2_jadd_eight, "fq2", 8, "X& ex, const JaddRows& in,\n" + " " * 45
             + "long long i, PtT<Fe2>& R) {", [8, 8, 8, 7, 6, 6]),
     "fq2_four_warps": (fq2_jadd_sixteen, "fq2", 16, "BlockGroups<4>& ex,", [12, 12, 7, 6, 6]),
 }
