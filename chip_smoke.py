@@ -7,11 +7,23 @@
 2. Builds the port's CUDA kernels from crescent_tpu_torch/csrc with nvcc
    (one nvcc per source, started together, into build/kernels/) and prints
    the build time and each kernel's registers and spills.
-3. Kernel phase: holds each of the twenty-two kernels against its plain
+3. Kernel phase: holds each of the twenty-four kernels against its plain
    PyTorch version on the card at its path's shapes, with the edge cases planted
    (field: 0, 1, p-1, Montgomery 1, and u over Fq2; points: L == R,
    L == -R, one side only, neither; P + P, P + (-P), the identity on either
-   side and on both; for madd also valid == 0 and sign == 1; for
+   side and on both; for madd (2^16 lanes, Fq with a = 0 and a != 0, Fq2)
+   also valid == 0 and sign == 1; the window kernel `fixed_base` over Fq
+   and Fq2 at 2^16 scalars x 32 windows against fixed_base_plain (the
+   chain of row gathers and madd_plain), on G1's and G2's tables of
+   multiples and on two planted ones, every row G (the second valid window
+   doubles) and G in even windows, -G in odd ones (sums at the identity
+   mid-chain), the scalars 0, 1, n-1, (n+1)/2 and zero digits among them,
+   then at setup's two batches on dummy_circuit(21) (8,388,613 seeded G1
+   scalars; 2,097,156 G2 scalars, zero but for four as a setup's) on the
+   real tables, 4,101 sampled lanes, the first and the last among them,
+   against fixed_base_plain on their scalars, timed with the bound
+   counted from the batch's digits, and over a curve with a != 0 on seeded
+   rows and one row repeated; for
    bucket_reduce, at the fused aggregate's 25 windows of 1025 buckets,
    at 1 and 3 windows of 3, 5, 17 and 1025 buckets and at one window of
    the most it takes (4,097 over Fq, 2,049 over Fq2), empty buckets, P == Q
@@ -44,8 +56,8 @@
    3 (n - 1) products and one inversion, with the inversion's latency floor
    of a chunk's 22 serial calls printed apart), and nvcc's register count;
    fails if a `jdbl_n`,
-   `jadd` (warp.cuh), `batch_inv` or `bucket_reduce` (bucket.cuh) kernel
-   spills.
+   `jadd` (warp.cuh), `batch_inv`, `bucket_reduce` (bucket.cuh), `madd` or
+   `fixed_base` (madd.cuh) kernel spills.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -58,16 +70,18 @@
    direct path: scalar_mul by jdbl and jadd, then a jadd tree) against the
    native MSMs.
 5. Fixed-base phase: one FixedBaseMSM run per group (G1, and G2 over Fq2)
-   of 2^17 scalars (two chunks of 2^16) on the card; 4,096 sampled rows,
-   0, 1, n-1 and (n+1)/2 among them, equal the native fixed base.
+   of 2^17 scalars (one `fixed_base` launch) on the
+   card; 4,096 sampled rows, 0, 1, n-1 and (n+1)/2 among them, equal the
+   native fixed base.
 6. Setup cross-check: dummy_circuit(14) set up through the device branch
    and through the native branch from one seed gives equal keys, table
    for table; a small circuit is proved on the card in both MSM
    configurations and on the CPU, and h and the proofs must be equal.
 7. Main path: Groth16 on dummy_circuit(21) (the reference's proof-benchmark
    circuit, domain 2^21) with random keys from a fixed seed: `setup` on the
-   card (the device branch: both SRS fixed-base batches through madd and
-   the Fq2 kernels), then `prove(..., device="cuda")` in its default
+   card (the device branch: each SRS fixed-base batch one `fixed_base`
+   launch, G1's over Fq and G2's over Fq2, and no `madd`; its affine
+   conversion by `batch_inv` and `mul`), then `prove(..., device="cuda")` in its default
    configuration (h(x) and the four G1 MSMs on the card, the G2 MSM on the
    host beside them) on that key, each with launch counts reset just
    before it and read just after (`batch_inv` 22 launches a chunk, the
@@ -101,7 +115,7 @@ import time
 LOG_SIZE = 21      # dummy_circuit(21): domain 2^21
 SMALL_LOG = 8      # cross-check circuit, card vs CPU
 SETUP_LOG = 14     # setup cross-check circuit, device branch vs native
-FB_CHUNK_LOG = 16  # scalars per chunk of the fixed base (the reference's)
+FB_CHUNK_LOG = 16  # the reference's fixed-base chunk: lanes of the madd checks
 SEED = 20261016
 REPS = 50
 CHUNK_LOG = 17     # points per chunk MSM on the prove path
@@ -156,13 +170,19 @@ def _registers(reports: dict) -> dict:
     return out
 
 
+# the kernels with several instances (a == 0 and a != 0, executors): the
+# part of their mangled names before the field type
+INSTANCES = {"jadd": "_jadd_kernel", "bucket_reduce": "bucket_reduce_kernel",
+             "madd": "11madd_kernel", "fixed_base": "fixed_base_kernel"}
+
+
 def _jadd_registers(regs: dict, name: str) -> dict:
     """(registers, spill store bytes) of each instance of warp.cuh's `jadd`
-    kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), or of bucket.cuh's
-    `bucket_reduce` kernel (`bucket_reduce`, `fq2_bucket_reduce`), by
-    mangled name."""
+    kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), of bucket.cuh's
+    `bucket_reduce` kernel, or of madd.cuh's `madd` and `fixed_base`
+    kernels, by mangled name."""
     lib, field = ("ec2", "3Fe2") if name.startswith("fq2_") else ("ec", "2Fe")
-    kernel = "bucket_reduce_kernel" if name.endswith("bucket_reduce") else "_jadd_kernel"
+    kernel = INSTANCES[name[4:] if name.startswith("fq2_") else name]
     return {e: v for (l, e), v in regs.items()
             if l == lib and f"{kernel}INS_{field}E" in e}
 
@@ -184,7 +204,7 @@ def _kernel_registers(regs: dict, name: str):
         lib = "ntt" if base in ("mul", "butterfly") else "ec"
         key = {"inv": "divstep_inv_kernel",
                "jdbl_n": warp.format("2Fe")}.get(base, base + "_kernel")
-    if base in ("jadd", "bucket_reduce"):  # the most registers and spills of any, a == 0
+    if base in INSTANCES:  # the most registers and spills of any, a == 0
         hits = [v for e, v in _jadd_registers(regs, name).items() if "ELb1E" in e]
         return (max(h[0] for h in hits), max(h[1] for h in hits)) if hits else None
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
@@ -267,6 +287,42 @@ def _bound(nbytes: float, mads: float) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = mads / IMAD_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def setup_batches(log_size: int) -> tuple[int, int]:
+    """The scalars of setup's two fixed-base batches on
+    dummy_circuit(log_size), nv = 2^log_size + 1 variables and a domain of
+    2^log_size: G1's 3 nv + (2^log_size - 1) + 3, G2's nv + 3."""
+    nv = (1 << log_size) + 1
+    return 3 * nv + (1 << log_size) + 2, nv + 3
+
+
+def fixed_base_adds(torch, sc) -> int:
+    """Additions the fixed base's 32 windows need on the (n, 8) standard-form
+    scalar words `sc` (reduced mod the group order n) over a table of
+    distinct multiples d 2^(8w) G, a setup's: one for each nonzero digit
+    after a lane's first, which Q only copies.  No window doubles or
+    cancels there: before window w the sum is k G with k < 2^(8w), and
+    k -+ d 2^(8w) lies strictly between -n and n and is not 0
+    (setup_kernel_phase checks it against the plain chain's count)."""
+    nz = (sc.view(torch.uint8) != 0).sum(1)
+    return int((nz - 1).clamp(min=0).sum().item())
+
+
+def fixed_base_cost(n: int, width: int, adds: int) -> tuple[float, float]:
+    """(bytes, multiply-adds) of the fixed base over n lanes of `width` words
+    (8: Fq, 16: Fq2) with `adds` additions: the table, the scalars and the
+    three output planes; 11 products an addition (29 base products over
+    Fq2, the least; `_madd_products`' count)."""
+    sqr, mul = (2, 3) if width == 16 else (1, 1)
+    return (8192 * 2 * width * 4 + 32 * n + 3 * 4 * width * n,
+            adds * (4 * sqr + 7 * mul) * MONT_MUL_MADS)
+
+
+def fixed_base_bound(n: int, width: int, adds: int) -> tuple[float, str]:
+    """The fixed base's bound (ms, 'bytes' or 'operations'): fixed_base_cost
+    over the card's rates."""
+    return _bound(*fixed_base_cost(n, width, adds))
 
 
 def _timed_once(torch, fn):
@@ -769,12 +825,12 @@ def _madd_inputs(torch, f, elems, n: int, seed: int):
 
 def _madd_products(torch, f, args, sqr: int, mul: int, a_terms: int) -> int:
     """Base-field products this run's madd inputs need, lane by lane: none
-    where valid == 0; the first square and three products (Z1^2, U2, S2)
-    where P is the identity; those and the doubling's six squares and one
-    product (plus `a_terms` for a != 0) where P == (+-)Q; else those and the
-    addition's three squares and four products.  `sqr` and `mul` count base
-    products per field square and product (1 and 1 over Fq; 2 and 3 over
-    Fq2)."""
+    where valid == 0 or P is the identity (the sum is Q, copied); the first
+    square and three products (Z1^2, U2, S2) and the doubling's six squares
+    and one product (plus `a_terms` for a != 0) where P == Q; the first four
+    and the addition's three squares and four products elsewhere (P == -Q
+    too).  `sqr` and `mul` count base products per field square and product
+    (1 and 1 over Fq; 2 and 3 over Fq2)."""
     x1, y1, z1, qx, qy, valid, sign = args
     qy = f.select(sign != 0, f.neg_mod(qy), qy)
     zz = f.mont_sqr(z1)
@@ -786,17 +842,170 @@ def _madd_products(torch, f, args, sqr: int, mul: int, a_terms: int) -> int:
     n_inf = int((v & inf).sum().item())
     n_dbl = int((v & ~inf & h & r).sum().item())
     n_add = int(v.sum().item()) - n_inf - n_dbl
-    return (n_inf * first + n_dbl * (first + 6 * sqr + mul + a_terms)
-            + n_add * (first + 3 * sqr + 4 * mul))
+    return n_dbl * (first + 6 * sqr + mul + a_terms) + n_add * (first + 3 * sqr + 4 * mul)
 
 
-def setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv) -> dict:
-    """The four kernels of setup's fixed base against their plain versions:
-    madd over Fq (a = 0 and a != 0) at 2^16 lanes, and over Fq2 mul at
-    2^22 lanes, inv at 512 lanes, madd at 2^16 lanes."""
+def _fixed_base_scalars(torch, n: int, order: int, seed: int):
+    """n standard-form scalar words on the card: seeded, with 0, 1, n - 1
+    and (n + 1) / 2 first and two zero bytes (digits) in every eighth."""
+    from crescent_tpu_torch.ops import limb
+
+    import numpy as np
+
+    w = _rand_scalars(n, order, seed)
+    w[:4] = limb.limbs_to_u64(limb.ints_to_limbs([0, 1, order - 1, (order + 1) // 2]))
+    b = w.view("u1").reshape(n, 32)
+    rows = np.arange(4, n, 8)
+    b[rows, rows % 30] = 0
+    b[rows, rows % 30 + 1] = 0
+    return limb.u64_to_words(w, "cuda")
+
+
+def _setup_batch_scalars(torch, n: int, order: int, sparse: bool, seed: int):
+    """n scalar words like those of a setup's batch on dummy_circuit: seeded
+    (G1's), or (`sparse`, G2's: the circuit's B column holds one nonzero
+    entry, variable b) zero but for lane 3 and the last three (beta, 1,
+    delta)."""
+    from crescent_tpu_torch.ops import limb
+
+    if not sparse:
+        return _fixed_base_scalars(torch, n, order, seed)
+    import numpy as np
+
+    w = np.zeros((n, 4), dtype=np.uint64)
+    w[[3, n - 3, n - 1]] = _rand_scalars(3, order, seed + 1)
+    w[n - 2, 0] = 1
+    return limb.u64_to_words(w, "cuda")
+
+
+def _fixed_base_products(torch, ec, table, sc, sqr: int, mul: int, a_terms: int) -> int:
+    """Base-field products the fixed base's 32 windows need on these inputs:
+    _madd_products over each window's madd, along the plain chain of row
+    gathers and madd_plain (fixed_base_plain's)."""
+    from crescent_tpu_torch.ops.cuda_ec import fixed_base_windows
+
+    total = 0
+
+    def madd(*args):
+        nonlocal total
+        total += _madd_products(torch, ec.ctx, args, sqr, mul, a_terms)
+        return ec.madd_plain(*args)
+
+    fixed_base_windows(madd, table, sc)
+    return total
+
+
+def _fixed_base_checks(torch, ec, name: str, label: str, tables: dict, sc, sqr: int,
+                       mul: int, a_terms: int, out: dict) -> None:
+    """The window kernel against fixed_base_plain on each of `tables` (the
+    first, the real one, timed with its bound), one launch each; on the
+    real table the plain chain's count of products must be
+    fixed_base_adds's."""
+    W = ec.WIDTH
+    n = sc.shape[0]
+    for k, (tname, table) in enumerate(tables.items()):
+        before = ec.fixed_base_launches
+        got = ec.fixed_base(table, sc)
+        torch.cuda.synchronize()
+        if ec.fixed_base_launches != before + 1:
+            fail(f"{name} [{label}, {tname}]: not one launch")
+        want = ec.fixed_base_plain(table, sc)
+        err = _errs(torch, got, want)
+        shape = f"2^{FB_CHUNK_LOG} lanes x 32 windows"
+        if k:
+            say(f"kernel {name} [{label}] {shape}, {tname}: max_abs_err={err}")
+            if err:
+                fail(f"{name} [{label}, {tname}] differs from fixed_base_plain")
+            continue
+        products = _fixed_base_products(torch, ec, table, sc, sqr, mul, a_terms)
+        adds = fixed_base_adds(torch, sc)
+        if products != adds * (4 * sqr + 7 * mul):
+            fail(f"{name} [{label}]: the plain chain's {products} products are not "
+                 f"fixed_base_adds's {adds} additions")
+        _record(out, name, f"{label}, {tname}", shape, err,
+                _time_ms(torch, lambda: ec.fixed_base(table, sc), 20),
+                _time_ms(torch, lambda: ec.fixed_base_plain(table, sc), 1),
+                *fixed_base_cost(n, W, adds))
+
+
+def _fixed_base_batch(torch, ec, name: str, label: str, table, sc, out: dict) -> None:
+    """The window kernel at one of setup's batches, one launch, against
+    fixed_base_plain on a strided sample of its lanes (the first, the last
+    and the nonzero scalars of a sparse batch among them: the plain chain
+    is lane by lane, so these are the same inputs); timed with its bound."""
+    import numpy as np
+
+    n = sc.shape[0]
+    before = ec.fixed_base_launches
+    got = ec.fixed_base(table, sc)
+    torch.cuda.synchronize()
+    if ec.fixed_base_launches != before + 1:
+        fail(f"{name} [{label}] at {n} lanes: not one launch")
+    lanes = set(np.linspace(0, n - 1, 4096).astype(np.int64).tolist()) | {
+        0, 1, 2, 3, n - 3, n - 2, n - 1}
+    idx = torch.tensor(sorted(lanes), dtype=torch.int64, device="cuda")
+    sub = sc[idx]
+    want, plain_ms = _timed_once(torch, lambda: ec.fixed_base_plain(table, sub))
+    err = _errs(torch, tuple(g[idx] for g in got), want)
+    del got
+    adds = fixed_base_adds(torch, sc)
+    _record(out, name, label, f"setup's batch of {n} lanes x 32 windows, {adds} additions "
+            f"(plain: {len(idx)} sampled lanes)", err,
+            _time_ms(torch, lambda: ec.fixed_base(table, sc), 5), plain_ms,
+            *fixed_base_cost(n, ec.WIDTH, adds))
+
+
+def setup_kernel_phase(torch, fields, curves, nb, get_cuda_ec, get_cuda_quad_ec,
+                       batch_inv) -> dict:
+    """The kernels of setup's fixed base against their plain versions: the
+    window kernel `fixed_base` over Fq (a = 0 on G1's table and the planted
+    ones, a != 0 on seeded rows) and over Fq2 (G2's) at 2^16 lanes x 32
+    windows, and at setup's two batches on dummy_circuit(LOG_SIZE) (G1's
+    seeded, G2's as sparse as a setup's) on a sample of their lanes; madd
+    over Fq (a = 0 and a != 0) and Fq2 at 2^16 lanes (its lane body), and
+    over Fq2 mul at 2^22 lanes and inv at 512 lanes."""
+    from crescent_tpu_torch.ops.ec import get_curve_ctx, get_g2_ctx
+    from crescent_tpu_torch.ops.fixed_base import FixedBaseMSM
+
     p = fields.BN254_FQ
     out = {}
     nm = 1 << FB_CHUNK_LOG
+
+    # -- fixed_base: a table of G1 (or G2) multiples, and two planted ones:
+    # every row G (the second valid window doubles) and G in even windows,
+    # -G in odd ones (sums at the identity mid-chain)
+    for name, ctx, curve, g, native, costs in (
+            ("fixed_base", get_curve_ctx(curves.BN254_G1), curves.BN254_G1,
+             curves.BN254_G1.generator, lambda b, ks: nb.fixed_base("bn254_g1", b, ks),
+             (1, 1, 0)),
+            ("fq2_fixed_base", get_g2_ctx(), curves.BN254G2, curves.BN254G2.generator(),
+             nb.fixed_base_g2, (2, 3, 0))):
+        fb = FixedBaseMSM(ctx)
+        tables = {"real table": fb.table_planes(native(g, fb.table_scalars()), "cuda"),
+                  "every row G": fb.table_planes([g] * 8192, "cuda"),
+                  "G and -G": fb.table_planes([g if i // 256 % 2 == 0 else curve.neg(g)
+                                               for i in range(8192)], "cuda")}
+        sc = _fixed_base_scalars(torch, nm, ctx.n, SEED + 160)
+        label = "BN254 Fq2" if ctx.quad else "BN254 Fq"
+        _fixed_base_checks(torch, ctx.ec, name, label, tables, sc, *costs, out)
+        # setup's batch on dummy_circuit(LOG_SIZE), on the real table
+        nbatch = setup_batches(LOG_SIZE)[1 if ctx.quad else 0]
+        sc = _setup_batch_scalars(torch, nbatch, ctx.n, ctx.quad, SEED + 164)
+        _fixed_base_batch(torch, ctx.ec, name, label, tables["real table"], sc, out)
+        del sc, tables
+    # a != 0: seeded rows (the formulas hold for any elements), and one row
+    # repeated (P == Q at the second valid window)
+    ec = get_cuda_ec(p, 0x1234567)
+    rows = torch.cat([_rand_elems(torch, 8192, p, SEED + 161),
+                      _rand_elems(torch, 8192, p, SEED + 162)], dim=1)
+    sc = _fixed_base_scalars(torch, 1 << 12, curves.BN254_G1.n, SEED + 163)
+    for tname, table in (("seeded rows", rows), ("one row", rows[:1].expand(8192, -1))):
+        table = table.contiguous()
+        err = _errs(torch, ec.fixed_base(table, sc), ec.fixed_base_plain(table, sc))
+        say(f"kernel fixed_base [BN254 Fq, a = 0x1234567] 2^12 lanes x 32 windows, {tname}: "
+            f"max_abs_err={err}")
+        if err:
+            fail(f"fixed_base [a != 0, {tname}] differs from fixed_base_plain")
 
     def check_madd(name, label, ec, args, width, sqr, mul, a_terms, time_it):
         # Q as the halves of gathered [x | y] rows, as the fixed base passes it
@@ -900,8 +1109,8 @@ def setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv) 
 
 
 def fixed_base_phase(torch, curves, nb) -> None:
-    """One FixedBaseMSM run per group at the reference's chunk width
-    (2^17 scalars, two chunks of 2^16) on the card; 4,096 sampled rows
+    """One FixedBaseMSM run per group of 2^17 scalars (two of the
+    reference's chunks) on the card; 4,096 sampled rows
     against the native fixed base on the same scalars."""
     from crescent_tpu_torch.ops import limb
     from crescent_tpu_torch.ops.ec import get_curve_ctx, get_g2_ctx
@@ -915,7 +1124,7 @@ def fixed_base_phase(torch, curves, nb) -> None:
         rng = random.Random(SEED + 130)
         ks = [rng.randrange(ctx.n) for _ in range(n)]
         ks[:4] = [0, 1, ctx.n - 1, (ctx.n + 1) // 2]
-        fb = FixedBaseMSM(ctx, chunk=1 << FB_CHUNK_LOG)
+        fb = FixedBaseMSM(ctx)
         table = native(base, fb.table_scalars())
         limbs = limb.ints_to_limbs(ks)
         fb.run(table, limbs[: 1 << FB_CHUNK_LOG], "cuda")  # warm: allocator
@@ -929,7 +1138,7 @@ def fixed_base_phase(torch, curves, nb) -> None:
             fail(f"FixedBaseMSM {label} of 2^{FB_CHUNK_LOG + 1} scalars differs from the "
                  "native fixed base")
         say(f"fixed base {label}: 2^{FB_CHUNK_LOG + 1} scalars on the card in {run_s:.3f} s "
-            f"(upload, 64 madd launches, affine conversion, download); {len(rows)} "
+            f"(upload, one fixed_base launch, affine conversion, download); {len(rows)} "
             "sampled rows equal the native fixed base")
 
 
@@ -1032,7 +1241,7 @@ def _g2_points_on_card(torch, nb, ctx, n: int, seed: int):
     from crescent_tpu_torch.ops import limb
     from crescent_tpu_torch.ops.fixed_base import FixedBaseMSM
 
-    fb = FixedBaseMSM(ctx, chunk=1 << FB_CHUNK_LOG)
+    fb = FixedBaseMSM(ctx)
     table = nb.fixed_base_g2(ctx.curve.generator(), fb.table_scalars())
     words = _rand_scalars(n, ctx.n, seed)
     words[:, 0] |= 1  # never 0: every point is finite
@@ -1304,7 +1513,8 @@ def main() -> None:
 
     kres = kernel_phase(torch, fields, ntt, get_cuda_ec)
     kres.update(ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv))
-    kres.update(setup_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec, batch_inv))
+    kres.update(setup_kernel_phase(torch, fields, curves, nb, get_cuda_ec, get_cuda_quad_ec,
+                                   batch_inv))
     # the G2 MSM's five Fq2 point kernels
     _point_kernel_checks(torch, get_cuda_quad_ec(fields.BN254_FQ), "BN254 Fq2", "fq2_",
                          SEED + 150, batch_inv, kres)
@@ -1348,17 +1558,21 @@ def main() -> None:
         + ", ".join(f"{k} {v:.3f} s" for k, v in setup_t.items()))
     say(f"launches during that setup: {setup_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    for k in ("madd", "fq2_mul", "fq2_batch_inv", "fq2_madd", "mul", "batch_inv"):
+    for k in ("fixed_base", "fq2_mul", "fq2_batch_inv", "fq2_fixed_base", "mul", "batch_inv"):
         if setup_launches[k] == 0:
             fail(f"the {k} kernel was not launched during setup")
     if setup_launches["inv"] or setup_launches["fq2_inv"]:
         fail("setup launched inv: the fixed base's inversion is batch_inv's")
+    # the fixed base: one window-kernel launch a batch (G1's, G2's), no madd
+    want = {"fixed_base": 1, "fq2_fixed_base": 1, "madd": 0, "fq2_madd": 0}
+    if any(setup_launches[k] != v for k, v in want.items()):
+        fail(f"setup's fixed-base launches {setup_launches} differ from one window kernel "
+             f"a batch: {want}")
     nv = r1cs.num_vars
     dom_n = groth16._domain_for(r1cs).n
-    ck = 1 << FB_CHUNK_LOG
-    want = {"madd": 32 * -(-(3 * nv + dom_n + 2) // ck), "fq2_madd": 32 * -(-(nv + 3) // ck)}
-    if any(setup_launches[k] != v for k, v in want.items()):
-        fail(f"setup's madd launches {setup_launches} differ from 32 a chunk: {want}")
+    if setup_batches(LOG_SIZE) != (3 * nv + dom_n + 2, nv + 3):
+        fail(f"setup's batches on this circuit differ from setup_batches({LOG_SIZE}), the "
+             "kernel phase's")
     # prove's chunks of 2^CHUNK_LOG points: G1's a, b1, h (dom_n - 1) and l
     # (nv - num_instance) in one fold, G2's b on its own
     pck = 1 << CHUNK_LOG
@@ -1388,7 +1602,8 @@ def main() -> None:
     for k in KERNELS:
         # no caller in prove; bucket_reduce: the opt-in aggregate, below;
         # inv: its body runs inside batch_inv
-        if prove_launches[k] == 0 and k not in ("jdbl", "madd", "bucket_reduce", "inv"):
+        if prove_launches[k] == 0 and k not in ("jdbl", "madd", "fixed_base", "bucket_reduce",
+                                                "inv"):
             fail(f"the {k} kernel was not launched during prove")
     _tree_replaced(prove_launches, "the default prove", {"": g1_chunks})
 
@@ -1413,8 +1628,8 @@ def main() -> None:
     native0_launches = counts()
     say(f"launches during that prove: {native0_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    unused = ("jdbl", "madd", "bucket_reduce", "inv", "fq2_jdbl", "fq2_madd",
-              "fq2_bucket_reduce", "fq2_butterfly", "fq2_mul", "fq2_inv")
+    unused = ("jdbl", "madd", "fixed_base", "bucket_reduce", "inv", "fq2_jdbl", "fq2_madd",
+              "fq2_fixed_base", "fq2_bucket_reduce", "fq2_butterfly", "fq2_mul", "fq2_inv")
     for k in names:
         if native0_launches[k] == 0 and k not in unused:
             fail(f"the {k} kernel was not launched during the CRESCENT_NATIVE=0 prove")
@@ -1487,6 +1702,9 @@ def main() -> None:
                 "affine_add": 566, "jadd": 505, "jdbl_n": 550, "jdbl": 545,
                 "madd": 495, "bucket_reduce": 575, "fq2_mul": 362, "fq2_inv": 858,
                 "fq2_madd": 831, "fq2_affine_denom": 757, "fq2_affine_add": 771,
+                # the window kernel: the madd kernel that the reference's scan
+                # (crescent_tpu/ops/fixed_base.py:138-144) runs 32 times
+                "fixed_base": 495, "fq2_fixed_base": 831,
                 "fq2_jadd": 670, "fq2_jdbl_n": 744, "fq2_jdbl": 735,
                 "fq2_bucket_reduce": 790, "fq2_butterfly": 689}
     regs = _registers(reports)
@@ -1495,9 +1713,10 @@ def main() -> None:
         spill = (_kernel_registers(regs, name) or (None, None))[1]
         if spill:
             fail(f"{name}'s kernel spills {spill} bytes (nvcc -Xptxas -v)")
-    # and its additions (warp.cuh) and the fused aggregate (bucket.cuh), every
-    # instance
-    for name in ("jadd", "fq2_jadd", "bucket_reduce", "fq2_bucket_reduce"):
+    # and its additions (warp.cuh), the fused aggregate (bucket.cuh) and the
+    # fixed base's mixed additions (madd.cuh), every instance
+    for name in ("jadd", "fq2_jadd", "bucket_reduce", "fq2_bucket_reduce", "madd", "fq2_madd",
+                 "fixed_base", "fq2_fixed_base"):
         for entry, (r, spill) in _jadd_registers(regs, name).items():
             say(f"{name}: {entry} {r} registers, {spill} bytes spill stores")
             if spill:
@@ -1507,6 +1726,7 @@ def main() -> None:
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     source.update(batch_inv="batch_inv.cuh", fq2_batch_inv="batch_inv.cuh")
+    source.update({k: "madd.cuh" for k in ("madd", "fq2_madd", "fixed_base", "fq2_fixed_base")})
     kernels = []
     for name in names:
         rows = kres[name]
@@ -1538,9 +1758,11 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes these
         })
-        if name.endswith(("jadd", "bucket_reduce")):  # every instance, a == 0 and a != 0
+        if name.endswith(tuple(INSTANCES)):  # every instance, a == 0 and a != 0
             kernels[-1]["registers_by_entry"] = {
                 e: r for e, (r, _) in _jadd_registers(regs, name).items()}
+        if name.endswith("fixed_base"):  # the scan of the reference it replaces
+            kernels[-1]["replaces_scan"] = "crescent_tpu/ops/fixed_base.py:138"
         if name.endswith("bucket_reduce"):  # the unfused levels beside it, its launch
             kernels[-1].update(kres[name + "_levels"])
         if len(rows) > 1:  # every shape the kernel phase timed

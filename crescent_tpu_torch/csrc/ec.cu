@@ -1,5 +1,6 @@
 // Short-Weierstrass point kernels over Fq for Hopper (sm_90a): the G1 MSM's
-// six, its fused bucket aggregate, and the fixed base's mixed addition.
+// six, its fused bucket aggregate, and the fixed base's mixed addition and
+// window kernel.
 //
 // Each replaces one Pallas TPU kernel of crescent_tpu/ops/pallas_ec.py:
 //   * `inv`          -> PallasEC._inv_kernel    (:527, core :533; op :698)
@@ -9,6 +10,10 @@
 //   * `jdbl_n`       -> PallasEC._dbln_kernel   (:550, body :243; op :744)
 //   * `jdbl`         -> PallasEC._dbl_kernel    (:545, body :243; op :735)
 //   * `madd`         -> PallasEC._madd_kernel   (:495, body :261; op :657)
+//   * `fixed_base`   -> the reference's scan of row gathers and
+//                       `_madd_kernel` (crescent_tpu/ops/fixed_base.py:
+//                       138-144): one launch a batch, a lane's 32 windows
+//                       in turn (madd.cuh)
 //   * `bucket_reduce` -> PallasEC._bucket_reduce_kernel (:575; op :790, call
 //                       :805)
 //   * `batch_inv`    -> the reference's product tree of `mul` (:680) with
@@ -30,10 +35,11 @@
 // What bounds them on this card.  `affine_denom` (4 rows in, 1 out, a few
 // subtractions) is bound by bytes.  `affine_add` (5 rows in, 2 out, three
 // products) sits near the point where integer multiply-adds overtake
-// bytes.  `madd` (5 rows in, 3 out, eleven products) is bound by
-// operations, its rare doubling case a branch taken only by lanes with
-// P == Q instead of a second formula evaluated by every lane (the value is
-// the same).  `bucket_reduce` (a window of the dense bucket table, 12,298
+// bytes.  `madd` (5 rows in, 3 out, eleven products) and `fixed_base`
+// (a scalar in, three rows out, eleven products a nonzero window, the
+// table rows from L2) are bound by operations: madd.cuh runs them one
+// thread a lane on warp.cuh's `madd_rounds`, their rare doubling a call
+// of its own taken only by lanes with P == Q.  `bucket_reduce` (a window of the dense bucket table, 12,298
 // additions in 21 dependent levels at c = 11) is bound by the latency of
 // its levels: bucket.cuh runs a window on a cluster of blocks, its level
 // tables in their distributed shared memory, each level's additions on
@@ -91,6 +97,7 @@
 #include "batch_inv.cuh"
 #include "bucket.cuh"
 #include "field.cuh"
+#include "madd.cuh"
 #include "point.cuh"
 #include "warp.cuh"
 
@@ -191,8 +198,24 @@ extern "C" int crescent_madd(const uint32_t* curve26, const void* x1,
                              const void* qy, long long qxs, long long qys,
                              const void* valid, const void* sign, void* ox,
                              void* oy, void* oz, long long n, void* stream) {
-  return crescent::launch_madd<Fe>(curve26, x1, y1, z1, qx, qy, qxs, qys, valid,
-                                   sign, ox, oy, oz, n, stream);
+  // the lane body of the fixed base's windows (madd.cuh), a == 0 and a != 0
+  const Curve C = make_curve(curve26);
+  const crescent::MaddRows in{(const uint4*)x1, (const uint4*)y1, (const uint4*)z1,
+                              (const uint4*)qx, (const uint4*)qy, qxs, qys,
+                              (const int*)valid, (const int*)sign};
+  return C.a_is_zero ? crescent::launch_madd_lanes<Fe, true>(C, in, ox, oy, oz, n, stream)
+                     : crescent::launch_madd_lanes<Fe, false>(C, in, ox, oy, oz, n, stream);
+}
+
+// k_i * G for n scalars (n, 8) from the (8192, 16) table, one launch
+// (madd.cuh), a == 0 and a != 0
+extern "C" int crescent_fixed_base(const uint32_t* curve26, const void* table,
+                                   const void* sc, void* ox, void* oy, void* oz,
+                                   long long n, void* stream) {
+  const Curve C = make_curve(curve26);
+  return C.a_is_zero
+             ? crescent::launch_fixed_base<Fe, true>(C, table, sc, ox, oy, oz, n, stream)
+             : crescent::launch_fixed_base<Fe, false>(C, table, sc, ox, oy, oz, n, stream);
 }
 
 // W windows of B buckets, a cluster of blocks a window (bucket.cuh), a == 0

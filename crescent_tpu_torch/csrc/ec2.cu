@@ -1,4 +1,4 @@
-// Fq2 kernels for Hopper (sm_90a): the G2 fixed base's three, the G2 MSM's
+// Fq2 kernels for Hopper (sm_90a): the G2 fixed base's four, the G2 MSM's
 // five more and its fused bucket aggregate, and the Fq2 butterfly.
 //
 // Each replaces one op of the Pallas TPU class QuadPallasEC
@@ -7,6 +7,10 @@
 //   * `mul`          -> PallasEC.mul at ROWS = 32 (op :680; body _F2.mont_mul :362)
 //   * `inv`          -> QuadPallasEC.inv (op :698; core _inv_core :858)
 //   * `madd`         -> PallasEC.madd at ROWS = 32 (op :657; body :261)
+//   * `fixed_base`   -> the reference's scan of row gathers and
+//                       PallasEC.madd at ROWS = 32
+//                       (crescent_tpu/ops/fixed_base.py:138-144): one
+//                       launch a batch (madd.cuh)
 //   * `affine_denom` -> PallasEC.affine_denom at ROWS = 32 (op :757; kernel
 //                       :560; body :408)
 //   * `affine_add`   -> PallasEC.affine_add at ROWS = 32 (op :771; kernel
@@ -49,10 +53,12 @@
 // The other point kernels are point.cuh's templates over Fe2, with ec.cu's
 // launch shapes: `affine_denom` (328 bytes a lane, no product) is bound by
 // bytes, `affine_add` (460 bytes, 10 base products) near the line where
-// products overtake bytes, `madd` (29 base products on the addition path)
-// and `jdbl` (17) by operations.  An Fq2 element is twice an Fq one in
-// registers, so `madd` runs at the 255-register limit and spills; its
-// doubling stays a branch that only lanes with P == Q take.
+// products overtake bytes, `jdbl` (17 base products) by operations.
+// `madd` and the window kernel `fixed_base` (29 base products an addition
+// at least, 30 as madd.cuh runs them) are bound by operations too: one
+// thread a lane on warp.cuh's `madd_rounds`, which writes the sum over P
+// as the rounds free its coordinates so that an Fq2 lane fits in 255
+// registers without spilling; the doubling is inlined (kMaddDoubleCall).
 // `bucket_reduce` is bucket.cuh's cluster of blocks a window over Fe2, its
 // additions on eight product threads a lane.  `butterfly` (a, b, tw in, two
 // rows out: 320 bytes and 3 base products a lane) is bound by bytes; no
@@ -71,6 +77,7 @@
 #include "batch_inv.cuh"
 #include "bucket.cuh"
 #include "field.cuh"
+#include "madd.cuh"
 #include "point.cuh"
 #include "warp.cuh"
 
@@ -161,8 +168,22 @@ extern "C" int crescent_fq2_madd(const uint32_t* curve26, const void* x1,
                                  const void* qy, long long qxs, long long qys,
                                  const void* valid, const void* sign, void* ox,
                                  void* oy, void* oz, long long n, void* stream) {
-  return crescent::launch_madd<Fe2>(curve26, x1, y1, z1, qx, qy, qxs, qys,
-                                    valid, sign, ox, oy, oz, n, stream);
+  const Curve C = make_curve(curve26);
+  if (!C.a_is_zero) return (int)cudaErrorInvalidValue;  // a = 0 only
+  const crescent::MaddRows in{(const uint4*)x1, (const uint4*)y1, (const uint4*)z1,
+                              (const uint4*)qx, (const uint4*)qy, qxs, qys,
+                              (const int*)valid, (const int*)sign};
+  return crescent::launch_madd_lanes<Fe2, true>(C, in, ox, oy, oz, n, stream);
+}
+
+// k_i * G for n scalars (n, 8) from the (8192, 32) table, one launch
+// (madd.cuh)
+extern "C" int crescent_fq2_fixed_base(const uint32_t* curve26, const void* table,
+                                       const void* sc, void* ox, void* oy, void* oz,
+                                       long long n, void* stream) {
+  const Curve C = make_curve(curve26);
+  if (!C.a_is_zero) return (int)cudaErrorInvalidValue;  // a = 0 only
+  return crescent::launch_fixed_base<Fe2, true>(C, table, sc, ox, oy, oz, n, stream);
 }
 
 extern "C" int crescent_fq2_affine_denom(const uint32_t* curve26,

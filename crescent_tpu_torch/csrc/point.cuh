@@ -2,8 +2,8 @@
 // shared by ec.cu (Fq) and ec2.cu (Fq2).
 //
 // The reference writes each formula once and runs it over `_F` or `_F2`
-// (crescent_tpu/ops/pallas_ec.py: `_double` :243, `_madd_body` :261,
-// `_jadd_body` :300, `_affine_denom_body` :408, `_affine_add_body` :421);
+// (crescent_tpu/ops/pallas_ec.py: `_double` :243, `_jadd_body` :300,
+// `_affine_denom_body` :408, `_affine_add_body` :421);
 // here each is a template over F, built on field.cuh's overloads and
 // `FieldRow<F>` (row width, loads, stores, base constants), so one body
 // compiles into the Fq kernels of ec.cu and the Fq2 kernels of ec2.cu.
@@ -11,7 +11,9 @@
 // bits.  The kernels below are one thread per lane; their launch shapes are
 // the C entry points' (ec.cu, ec2.cu).  The Jacobian addition `_jadd_body`
 // runs in rounds on several threads a lane (warp.cuh `jadd_sum` and
-// `jadd_rounds`), for `jadd` and for `bucket_reduce` (bucket.cuh).
+// `jadd_rounds`), for `jadd` and for `bucket_reduce` (bucket.cuh), and the
+// mixed addition `_madd_body` :261 in rounds too (warp.cuh `madd_sum` and
+// `madd_rounds`), for `madd` and `fixed_base` (madd.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,65 +75,6 @@ __device__ __forceinline__ PtT<F> pt_double(const Curve& C, const PtT<F>& P) {
   R.y = fe_sub(fe_mont_mul(Mm, fe_sub(S, R.x, M), M), e8, M);
   R.z = fe_sub(fe_sub(fe_sqr(fe_add(P.y, P.z, M), M), YY, M), ZZ, M);
   return R;
-}
-
-// Mixed addition P + (sign ? -Q : Q), Q affine (pallas_ec._madd_body):
-// madd-2007-bl with its edge cases.  Q when P is the identity (Z = 1),
-// the doubling when P == Q, Z = 0 when P == -Q (x and y are then what the
-// addition formula gives, as in the reference).  Eleven products; the
-// doubling is a branch taken only by lanes with P == Q.
-template <class F>
-__device__ __forceinline__ PtT<F> pt_madd(const Curve& C, const PtT<F>& P,
-                                          const F& qx, F qy, bool sign) {
-  const Mod& M = C.M;
-  if (sign) qy = fe_neg(qy, M);
-  const F Z1Z1 = fe_sqr(P.z, M);
-  const F U2 = fe_mont_mul(qx, Z1Z1, M);
-  const F S2 = fe_mont_mul(fe_mont_mul(qy, P.z, M), Z1Z1, M);
-  const F H = fe_sub(U2, P.x, M);
-  const F r = fe_sub(S2, P.y, M);
-  const bool h_zero = fe_is_zero(H);
-  const bool r_zero = fe_is_zero(r);
-  PtT<F> R;
-  if (fe_is_zero(P.z)) {
-    R.x = qx;
-    R.y = qy;
-    R.z = FieldRow<F>::from_base(C.one);
-  } else if (h_zero && r_zero) {
-    R = pt_double(C, P);
-  } else {
-    const F HH = fe_sqr(H, M);
-    const F I = fe_dbl(fe_dbl(HH, M), M);
-    const F J = fe_mont_mul(H, I, M);
-    const F rr = fe_add(r, r, M);
-    const F V = fe_mont_mul(P.x, I, M);
-    R.x = fe_sub(fe_sub(fe_sqr(rr, M), J, M), fe_add(V, V, M), M);
-    const F YJ = fe_mont_mul(P.y, J, M);
-    R.y = fe_sub(fe_mont_mul(rr, fe_sub(V, R.x, M), M), fe_add(YJ, YJ, M), M);
-    // P == -Q: (Z1 + 0)^2 - Z1Z1 - 0 is already 0; kept explicit
-    R.z = h_zero ? FieldRow<F>::zero()
-                 : fe_sub(fe_sub(fe_sqr(fe_add(P.z, H, M), M), Z1Z1, M), HH, M);
-  }
-  return R;
-}
-
-// One mixed addition per lane: (ox, oy, oz) = valid ? P + (+-Q) : P.  P's
-// planes are packed; Q's rows lie qxs / qys 16-byte vectors apart (the x
-// and y halves of one gathered table row, say).  Outputs may alias P.
-template <class F>
-__global__ void madd_kernel(Curve C, const uint4* x1, const uint4* y1,
-                            const uint4* z1, const uint4* qx, const uint4* qy,
-                            long long qxs, long long qys, const int* valid,
-                            const int* sign, uint4* ox, uint4* oy, uint4* oz,
-                            long long n) {
-  const long long i = lane();
-  if (i >= n) return;
-  PtT<F> P = pt_load<F>(x1, y1, z1, i);
-  if (valid[i] != 0) {
-    P = pt_madd<F>(C, P, FieldRow<F>::load(qx + qxs * i),
-                   FieldRow<F>::load(qy + qys * i), sign[i] != 0);
-  }
-  pt_store<F>(ox, oy, oz, i, P);
 }
 
 // Denominator of the affine sum L + R (pallas_ec._affine_denom_body): 2*ly
@@ -276,20 +219,6 @@ int launch_jdbl(const uint32_t* curve26, const void* x, const void* y,
     jdbl_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
                      (cudaStream_t)stream>>>(
         make_curve(curve26), (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class F>
-int launch_madd(const uint32_t* curve26, const void* x1, const void* y1,
-                const void* z1, const void* qx, const void* qy, long long qxs,
-                long long qys, const void* valid, const void* sign, void* ox,
-                void* oy, void* oz, long long n, void* stream) {
-  if (n > 0) {
-    madd_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>(
-        make_curve(curve26), (In)x1, (In)y1, (In)z1, (In)qx, (In)qy, qxs, qys,
-        (const int*)valid, (const int*)sign, (Out)ox, (Out)oy, (Out)oz, n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
 // The latency-bound point kernels with several threads a lane, over Fq and
-// over Fq2: `jdbl_n` and `jadd`.  The window combine's doubling chains (16,
+// over Fq2: `jdbl_n` and `jadd`; and the round plan of the mixed addition
+// (`madd_sum`, `madd_rounds`) that madd.cuh's `madd` and `fixed_base` run
+// on one thread a lane.  The window combine's doubling chains (16,
 // 8, 4, 2 and 1 lanes of 11 to 176 doublings in a chunk) and the bucket
 // aggregate's additions (one launch a level: 25,625 lanes for the suffix
 // sums, then 12,800 down to 1 for the weights and the combine) are too few
@@ -727,6 +729,212 @@ __device__ __forceinline__ void jadd_rounds(const Curve& C, X& ex, const JaddRow
   } else if (k.q_inf) {
     R = pt_load<F>(in.x1, in.y1, in.z1, i);
   }
+}
+
+// P = 2 P on executor ex (warp_double), in a function of its own: only
+// lanes with P == Q take it, and its rounds' registers then do not add to
+// the addition's.  The caller passes copies, so that its own P and
+// executor stay in registers.
+template <bool kAZero, class F, class X>
+__device__ __noinline__ void madd_double(const Curve& C, X& ex, PtT<F>& P) {
+  P = warp_double<kAZero>(C, P, ex);
+}
+
+// Whether madd's doubling over F is the call above (true) or inlined.
+// Measured on the card (PERF.md, scripts/chain_designs.py): over Fq the
+// call, inlined `fixed_base` is 1.26x slower; over Fq2 inlined, the call
+// is 1.02x (`fixed_base`) and 1.11x (`madd`) slower, and neither spills.
+template <class F>
+constexpr bool kMaddDoubleCall = true;
+template <>
+constexpr bool kMaddDoubleCall<Fe2> = false;
+
+// P = 2 P where `dbl` (P == Q), the doubling run wherever a lane run
+// together with this one needs it.
+template <bool kAZero, class F, class X>
+__device__ __forceinline__ void madd_doubles(const Curve& C, X& ex, bool dbl, PtT<F>& P) {
+  if (ex.any(dbl)) {
+    PtT<F> D = P;
+    X e = ex;
+    if constexpr (kMaddDoubleCall<F>) {
+      madd_double<kAZero>(C, e, D);
+    } else {
+      D = warp_double<kAZero>(C, D, e);
+    }
+    if (dbl) P = D;
+  }
+}
+
+// P = P + Q where `add` (P finite), Q = (qx, qy) affine (madd-2007-bl,
+// pallas_ec._madd_body), on an executor of two slots or more: 11 products
+// in five rounds, the formula's dependent depth,
+//   1. Z1Z1, qy Z1;
+//   2. U2 = qx Z1Z1, S2 = qy Z1 Z1Z1;
+//   3. HH = H^2, rr^2, (Z1 + H)^2   (H = U2 - X1, rr = 2 (S2 - Y1));
+//   4. J = H I, V = X1 I   (I = 4 HH);
+//   5. Y1 J, rr (V - X3).
+// P == Q (H == 0 and r == 0) takes the doubling at the end, from P, which
+// the rounds leave as it is there, so that only P (and over Fq the sum) is
+// live across that call.  P == -Q needs nothing more: Z3 = (Z1 + 0)^2
+// - Z1Z1 - 0 is 0, with x and y what the formula gives.  Every value is the
+// one `madd_plain` (ops/cuda_ec.py) computes (canonical), so the result is
+// bit-equal to it (tests/test_torch_madd_rounds.py models the plan).
+template <bool kAZero, class X>
+__device__ __forceinline__ void madd_sum(const Curve& C, X& ex, bool add, const Fe& qx,
+                                         const Fe& qy, PtT<Fe>& P) {
+  const Mod& M = C.M;
+  Fe r1[2];
+  {
+    const Fe a[2] = {P.z, qy};
+    const Fe b[2] = {P.z, P.z};
+    ex.run(a, b, r1);
+  }
+  const Fe& Z1Z1 = r1[0];
+  Fe r2[2];
+  {
+    const Fe a[2] = {qx, r1[1]};
+    const Fe b[2] = {Z1Z1, Z1Z1};
+    ex.run(a, b, r2);
+  }
+  const Fe H = fe_sub_cc(r2[0], P.x, M);
+  const Fe r = fe_sub_cc(r2[1], P.y, M);
+  const bool dbl = add && fe_is_zero(H) && fe_is_zero(r);
+  const bool sum = add && !dbl;
+  PtT<Fe> R;  // over Fq the registers have room for the sum beside P
+  if (ex.any(sum)) {
+    const Fe rr = fe_add_cc(r, r, M);
+    Fe r3[3];
+    {
+      const Fe a[3] = {H, rr, fe_add_cc(P.z, H, M)};
+      ex.run(a, a, r3);
+    }
+    const Fe& HH = r3[0];
+    R.z = fe_sub_cc(fe_sub_cc(r3[2], Z1Z1, M), HH, M);
+    Fe I = fe_add_cc(HH, HH, M);
+    I = fe_add_cc(I, I, M);
+    Fe r4[2];
+    {
+      const Fe a[2] = {H, P.x};
+      const Fe b[2] = {I, I};
+      ex.run(a, b, r4);
+    }
+    const Fe& J = r4[0];
+    const Fe& V = r4[1];
+    R.x = fe_sub_cc(fe_sub_cc(r3[1], J, M), fe_add_cc(V, V, M), M);
+    Fe r5[2];
+    {
+      const Fe a[2] = {P.y, rr};
+      const Fe b[2] = {J, fe_sub_cc(V, R.x, M)};
+      ex.run(a, b, r5);
+    }
+    R.y = fe_sub_cc(r5[1], fe_add_cc(r5[0], r5[0], M), M);
+  }
+  madd_doubles<kAZero>(C, ex, dbl, P);
+  if (sum) P = R;
+}
+
+// The same over Fq2 (a = 0, BN254 G2): Fq2 squares of two base products
+// each and Karatsuba products of three, 30 base products in the same five
+// rounds, with two changes that keep one thread a lane below the
+// 255-register limit: the sum is written over P coordinate by coordinate
+// once the rounds no longer read it (Z3 after round 3, X3 after 4, Y3
+// after 5), so that no second point stays live beside P, and
+// Z3 = (Z1 + H)^2 - Z1Z1 - HH is taken as 2 Z1 H (the same element; a
+// Karatsuba product in place of a square, one base product more), so that
+// Z1Z1 dies after round 2:
+//   1. Z1Z1, qy Z1: 5;
+//   2. U2 = qx Z1Z1, S2 = qy Z1 Z1Z1: 6;
+//   3. HH, rr^2, Z1 H: 7;
+//   4. J = H I, V = X1 I: 6;
+//   5. Y1 J, rr (V - X3): 6.
+template <bool kAZero, class X>
+__device__ __forceinline__ void madd_sum(const Curve& C, X& ex, bool add, const Fe2& qx,
+                                         const Fe2& qy, PtT<Fe2>& P) {
+  static_assert(kAZero, "the Fq2 addition serves a = 0 only");
+  const Mod& M = C.M;
+  Fe r1[5];
+  {
+    const Fe zs = fe_add_cc(P.z.c0, P.z.c1, M);
+    const Fe a[5] = {zs, P.z.c0, qy.c0, qy.c1, fe_add_cc(qy.c0, qy.c1, M)};
+    const Fe b[5] = {fe_sub_cc(P.z.c0, P.z.c1, M), P.z.c1, P.z.c0, P.z.c1, zs};
+    ex.run(a, b, r1);
+  }
+  const Fe2 Z1Z1 = fe2_square(r1[0], r1[1], M);
+  Fe r2[6];
+  {
+    const Fe2 QZ = fe2_karatsuba(r1[2], r1[3], r1[4], M);
+    const Fe zz = fe_add_cc(Z1Z1.c0, Z1Z1.c1, M);
+    const Fe a[6] = {qx.c0, qx.c1, fe_add_cc(qx.c0, qx.c1, M), QZ.c0, QZ.c1,
+                     fe_add_cc(QZ.c0, QZ.c1, M)};
+    const Fe b[6] = {Z1Z1.c0, Z1Z1.c1, zz, Z1Z1.c0, Z1Z1.c1, zz};
+    ex.run(a, b, r2);
+  }
+  const Fe2 H = fe2_sub_cc(fe2_karatsuba(r2[0], r2[1], r2[2], M), P.x, M);
+  const Fe2 r = fe2_sub_cc(fe2_karatsuba(r2[3], r2[4], r2[5], M), P.y, M);
+  const bool dbl = add && fe_is_zero(H) && fe_is_zero(r);
+  const bool sum = add && !dbl;
+  if (ex.any(sum)) {
+    const Fe2 rr = fe2_add_cc(r, r, M);
+    Fe r3[7];
+    {
+      const Fe hs = fe_add_cc(H.c0, H.c1, M);
+      const Fe a[7] = {hs, H.c0, fe_add_cc(rr.c0, rr.c1, M), rr.c0, P.z.c0, P.z.c1,
+                       fe_add_cc(P.z.c0, P.z.c1, M)};
+      const Fe b[7] = {fe_sub_cc(H.c0, H.c1, M), H.c1, fe_sub_cc(rr.c0, rr.c1, M), rr.c1,
+                       H.c0, H.c1, hs};
+      ex.run(a, b, r3);
+    }
+    const Fe2 HH = fe2_square(r3[0], r3[1], M);
+    if (sum) {
+      const Fe2 ZH = fe2_karatsuba(r3[4], r3[5], r3[6], M);
+      P.z = fe2_add_cc(ZH, ZH, M);
+    }
+    Fe2 I = fe2_add_cc(HH, HH, M);
+    I = fe2_add_cc(I, I, M);
+    Fe r4[6];
+    {
+      const Fe is = fe_add_cc(I.c0, I.c1, M);
+      const Fe a[6] = {H.c0, H.c1, fe_add_cc(H.c0, H.c1, M), P.x.c0, P.x.c1,
+                       fe_add_cc(P.x.c0, P.x.c1, M)};
+      const Fe b[6] = {I.c0, I.c1, is, I.c0, I.c1, is};
+      ex.run(a, b, r4);
+    }
+    const Fe2 J = fe2_karatsuba(r4[0], r4[1], r4[2], M);
+    const Fe2 V = fe2_karatsuba(r4[3], r4[4], r4[5], M);
+    const Fe2 X3 =
+        fe2_sub_cc(fe2_sub_cc(fe2_square(r3[2], r3[3], M), J, M), fe2_add_cc(V, V, M), M);
+    if (sum) P.x = X3;
+    Fe r5[6];
+    {
+      const Fe2 D = fe2_sub_cc(V, X3, M);
+      const Fe a[6] = {P.y.c0, P.y.c1, fe_add_cc(P.y.c0, P.y.c1, M), rr.c0, rr.c1,
+                       fe_add_cc(rr.c0, rr.c1, M)};
+      const Fe b[6] = {J.c0, J.c1, fe_add_cc(J.c0, J.c1, M), D.c0, D.c1,
+                       fe_add_cc(D.c0, D.c1, M)};
+      ex.run(a, b, r5);
+    }
+    const Fe2 YJ = fe2_karatsuba(r5[0], r5[1], r5[2], M);
+    if (sum) P.y = fe2_sub_cc(fe2_karatsuba(r5[3], r5[4], r5[5], M), fe2_add_cc(YJ, YJ, M), M);
+  }
+  madd_doubles<kAZero>(C, ex, dbl, P);  // P is the input where dbl
+}
+
+// P = valid ? P + Q : P on executor ex, Q = (qx, qy) affine: Q itself
+// (Z = 1) where P is the identity, taken first so that Q is dead after
+// round 2; the formula's rounds (madd_sum) where P is finite, rounds run
+// wherever a lane run together with this one needs them.  The result is
+// madd_plain's (pallas_ec._madd_body's), bit for bit.
+template <bool kAZero, class F, class X>
+__device__ __forceinline__ void madd_rounds(const Curve& C, X& ex, bool valid, const F& qx,
+                                            const F& qy, PtT<F>& P) {
+  const bool p_inf = fe_is_zero(P.z);
+  if (valid && p_inf) {
+    P.x = qx;
+    P.y = qy;
+    P.z = FieldRow<F>::from_base(C.one);
+  }
+  const bool add = valid && !p_inf;
+  if (ex.any(add)) madd_sum<kAZero>(C, ex, add, qx, qy, P);
 }
 
 // Threads that run one lane's `jdbl_n` chain on groups: one warp over Fe,

@@ -49,6 +49,7 @@ SIGNATURES = {
         "crescent_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
         "crescent_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
         "crescent_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
+        "crescent_fixed_base": [_u32p] + [_vp] * 5 + [_ll, _vp],
         "crescent_bucket_reduce": [_u32p] + [_vp] * 6 + [_ll, _ll, _vp],
         "crescent_bucket_reduce_fit": [_ll, _ll, _intp],
     },
@@ -57,6 +58,7 @@ SIGNATURES = {
         "crescent_fq2_inv": [_u32p, _u32p, _vp, _vp, _ll, _vp],
         "crescent_fq2_batch_inv": [_u32p, _u32p, _vp, _vp, _ll, _int, _vp],
         "crescent_fq2_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
+        "crescent_fq2_fixed_base": [_u32p] + [_vp] * 5 + [_ll, _vp],
         "crescent_fq2_affine_denom": [_u32p] + [_vp] * 7 + [_ll, _vp],
         "crescent_fq2_affine_add": [_u32p] + [_vp] * 10 + [_ll, _vp],
         "crescent_fq2_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],

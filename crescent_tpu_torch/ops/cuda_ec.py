@@ -24,7 +24,14 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
   Jacobian doubling (``_dbln_kernel``, ``_dbl_kernel``).
 * ``madd(x1, y1, z1, qx, qy, valid, sign)``: mixed Jacobian + affine
   addition P + (sign ? -Q : Q), P passed through where valid == 0
-  (``_madd_kernel``).
+  (``_madd_kernel``): madd-2007-bl's products in rounds
+  (``csrc/warp.cuh`` ``madd_rounds``, ``csrc/madd.cuh``).
+* ``fixed_base(table, sc)``: k * G for every scalar from the fixed base's
+  window table, the 32 byte windows of a scalar in one launch, the table
+  rows gathered in the kernel and each added by ``madd``'s lane body
+  (``csrc/madd.cuh``); the plain version ``fixed_base_plain`` is the
+  reference's scan of row gathers and ``madd``
+  (``crescent_tpu/ops/fixed_base.py:138-144``, ``fixed_base_windows``).
 * ``bucket_reduce(x, y, z, W, B)``: per-window weighted sums of a dense
   Jacobian bucket table, one launch (``_bucket_reduce_kernel``): a cluster
   of blocks a window, its level tables in their distributed shared memory
@@ -35,7 +42,7 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
   block a root (``csrc/batch_inv.cuh``); the plain version is that tree.
 
 ``CudaQuadEC`` is the counterpart of ``QuadPallasEC``: ``mul``, ``inv``,
-``batch_inv``, ``butterfly`` and the seven point ops over Fq2
+``batch_inv``, ``butterfly``, the seven point ops and ``fixed_base`` over Fq2
 (``csrc/ec2.cu``; ``ops/quadratic.py`` for the layout), for setup's G2 fixed
 base and the G2 MSM of ``prove``.  The point ops of both classes share their wrappers
 (``_Kernels``), their plain versions (the formula bodies below) and their
@@ -106,9 +113,15 @@ def _words32(x: int) -> list[int]:
 
 
 KERNELS = ("mul", "butterfly", "inv", "affine_denom", "affine_add", "jadd",
-           "jdbl_n", "jdbl", "madd", "bucket_reduce", "batch_inv")
+           "jdbl_n", "jdbl", "madd", "fixed_base", "bucket_reduce", "batch_inv")
 QUAD_KERNELS = ("mul", "inv", "affine_denom", "affine_add", "jadd", "jdbl_n",
-                "jdbl", "madd", "bucket_reduce", "butterfly", "batch_inv")
+                "jdbl", "madd", "fixed_base", "bucket_reduce", "butterfly", "batch_inv")
+
+# The fixed base's window table (``fixed_base``, ``ops/fixed_base.py``): a
+# 256-bit scalar's 32 byte windows, 256 rows a window (w-major).
+WBITS = 8
+NWIN = NWORD * 32 // WBITS
+TSIZE = 1 << WBITS
 
 
 def tree_halvings(n: int, inv_floor: int) -> int:
@@ -300,6 +313,30 @@ def bucket_levels(jadd, x, y, z, W: int, B: int):
     return tuple(a[:, 0].contiguous() for a in acc)
 
 
+def fixed_base_windows(madd, table, sc):
+    """The reference's scan of the fixed base
+    (``crescent_tpu/ops/fixed_base.py:138-144``) over ``madd(x1, y1, z1, qx,
+    qy, valid, sign)``: for each of the 32 byte windows of the (n, 8)
+    standard-form scalar words `sc`, one row gather from the (8192, 2 W)
+    table (``index_select``) and one ``madd`` with valid = digit != 0 and
+    sign = 0, into a Jacobian accumulator that starts as the identity.
+    Over ``madd_plain`` it is ``fixed_base_plain``; over the ``madd``
+    kernel, the launches that ``fixed_base`` replaces."""
+    W = table.shape[1] // 2
+    n = sc.shape[0]
+    dev = sc.device
+    digits = sc.contiguous().view(torch.uint8).to(torch.int64).T  # (32, n): byte w
+    rows = digits + torch.arange(NWIN, dtype=torch.int64, device=dev)[:, None] * TSIZE
+    valid = (digits != 0).to(torch.int32).contiguous()
+    sign = torch.zeros(n, dtype=torch.int32, device=dev)
+    zero = torch.zeros((n, W), dtype=torch.int32, device=dev)
+    acc = (zero, zero, zero)
+    for w in range(NWIN):
+        g = table.index_select(0, rows[w])
+        acc = madd(*acc, g[:, :W], g[:, W:], valid[w], sign)
+    return acc
+
+
 def batch_inv_tree(mul, inv, d: torch.Tensor, inv_floor: int = 512) -> torch.Tensor:
     """The reference's product tree (``msm_affine.batch_inv``) over
     ``mul(x, y, out=None)`` and ``inv(x)``: pair products level by level
@@ -420,6 +457,9 @@ class _Kernels:
     def madd_plain(self, x1, y1, z1, qx, qy, valid, sign):
         return madd_plain(self.ctx, self._a(x1.device), x1, y1, z1, qx, qy,
                           valid, sign)
+
+    def fixed_base_plain(self, table, sc):
+        return fixed_base_windows(self.madd_plain, table, sc)
 
     def butterfly_plain(self, a, b, tw):
         t = self.ctx.mont_mul(b, tw)
@@ -551,6 +591,28 @@ class _Kernels:
             self._curve26, x1.data_ptr(), y1.data_ptr(), z1.data_ptr(),
             qx.data_ptr(), qy.data_ptr(), qs[0], qs[1], valid.data_ptr(),
             sign.data_ptr(), *(t.data_ptr() for t in outs), n, _stream(dev)))
+        return tuple(outs)
+
+    def fixed_base(self, table, sc):
+        """k * G in Jacobian form (three (n, WIDTH) planes, the identity
+        Z == 0) for the (n, 8) int32 standard-form scalar words `sc`, from
+        the (8192, 2 * WIDTH) table of Montgomery rows [x | y], row
+        w * 256 + d holding d * 2^(8 w) * G: one launch for the whole
+        batch, each lane's 32 windows added in turn (``csrc/madd.cuh``).
+        Bit-identical to ``fixed_base_plain``."""
+        if self._device(sc) == "cpu":
+            return self.fixed_base_plain(table, sc)
+        dev = sc.device
+        _check_rows("sc", sc, dev)
+        _check_rows("table", table, dev, 2 * self.WIDTH)
+        if table.shape[0] != NWIN * TSIZE:
+            raise ValueError(f"the table holds {NWIN * TSIZE} rows, got {table.shape[0]}")
+        n = sc.shape[0]
+        outs = [torch.empty((n, self.WIDTH), dtype=torch.int32, device=dev) for _ in range(3)]
+        if n:
+            self._launched("fixed_base", self._entry("fixed_base")(
+                self._curve26, table.data_ptr(), sc.data_ptr(), *(t.data_ptr() for t in outs),
+                n, _stream(dev)))
         return tuple(outs)
 
     @staticmethod

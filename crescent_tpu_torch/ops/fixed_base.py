@@ -9,10 +9,14 @@ the same order, so its affine results equal the reference's bit for bit.
   on the host by the native backend and uploaded as Montgomery rows
   [x | y] (16 words a row over Fq, 32 over Fq2).
 * Every scalar gives 32 byte digits (a byte view of its standard-form
-  words).  Per chunk of `chunk` scalars and per window, one row gather from
-  the table (``index_select``, as the reference gathers outside its kernel)
-  and one ``madd`` launch with valid = digit != 0 and sign = 0 accumulate
-  into a Jacobian (x, y, z) that starts as the identity.
+  words).  One ``fixed_base`` launch for the whole batch: each lane
+  takes its 32 windows in turn, reads the table row of each nonzero digit
+  itself and adds it by ``madd``'s lane body into a Jacobian (x, y, z)
+  that starts as the identity (``csrc/madd.cuh``); the reference runs the
+  same additions as a scan of row gathers and ``madd`` over chunks of
+  scalars, which is ``fixed_base_plain``, the CPU's path.  A lane's result
+  depends on its scalar only, so the batch is the scalars as given, with
+  no padding lanes.
 * Jacobian -> affine for the whole batch at once: the identity mask, padding
   to a power of two with Montgomery 1, one ``batch_inv`` (the product tree,
   one launch on a card), x z^-2 and y z^-3, then a ``mul`` by standard-form 1
@@ -31,13 +35,10 @@ import numpy as np
 import torch
 
 from ..utils.pointvec import ArrayPointVec
+from .cuda_ec import NWIN, TSIZE, WBITS
 from .ec import CurveCtx
 from .limb import NLIMB, NWORD
 from .msm_affine import batch_inv
-
-WBITS = 8
-NWIN = NLIMB * 16 // WBITS  # 32 byte windows cover a 256-bit scalar
-TSIZE = 1 << WBITS
 
 
 def pec_for(ctx: CurveCtx):
@@ -51,11 +52,10 @@ def pec_for(ctx: CurveCtx):
 class FixedBaseMSM:
     """[k_i * G] for one fixed base G, batched on a device."""
 
-    def __init__(self, ctx: CurveCtx, chunk: int = 1 << 16):
+    def __init__(self, ctx: CurveCtx):
         self.ctx = ctx
         self.pec = pec_for(ctx)
         self.width = ctx.fctx.nword
-        self.chunk = chunk
 
     # -- table --------------------------------------------------------------
     def table_scalars(self) -> list[int]:
@@ -73,38 +73,20 @@ class FixedBaseMSM:
         P = self.ctx.points_to_device(table_pts, device)
         return torch.cat([P.x, P.y], dim=1)
 
-    # -- accumulation and conversion ----------------------------------------
-    def _accumulate(self, table: torch.Tensor, sc: torch.Tensor):
-        """One chunk: (ck, 8) standard-form scalar words -> Jacobian
-        (x, y, z) planes of (ck, W)."""
-        W = self.width
-        ck = sc.shape[0]
-        dev = sc.device
-        digits = sc.view(torch.uint8).to(torch.int64).T  # (32, ck): byte w of each scalar
-        rows = (digits + torch.arange(NWIN, dtype=torch.int64, device=dev)[:, None]
-                * TSIZE).contiguous()
-        valid = (digits != 0).to(torch.int32).contiguous()
-        sign = torch.zeros(ck, dtype=torch.int32, device=dev)
-        zero = torch.zeros((ck, W), dtype=torch.int32, device=dev)
-        acc = (zero, zero, zero)  # the identity: Z == 0
-        for w in range(NWIN):
-            g = table.index_select(0, rows[w])
-            acc = self.pec.madd(*acc, g[:, :W], g[:, W:], valid[w], sign)
-        return acc
-
+    # -- conversion -----------------------------------------------------------
     def _to_affine(self, AX, AY, AZ):
-        """Jacobian (npad, W) planes -> standard-form affine x, y (identity
-        rows zeroed) and the (npad,) identity mask."""
+        """Jacobian (n, W) planes -> standard-form affine x, y (identity
+        rows zeroed) and the (n,) identity mask."""
         pec, f = self.pec, self.ctx.fctx
-        npad = AX.shape[0]
+        n = AX.shape[0]
         dev = AX.device
-        p2 = 1 << (npad - 1).bit_length()
+        p2 = 1 << (n - 1).bit_length()
         inf = f.is_zero(AZ)
         one_m = f.one_mont(dev)
         zm = torch.where(inf[:, None], one_m, AZ)
-        if p2 != npad:  # the product tree halves down to its floor
-            zm = torch.cat([zm, one_m.expand(p2 - npad, -1)])
-        zi = batch_inv(pec, zm, min(512, p2))[:npad]
+        if p2 != n:  # the product tree halves down to its floor
+            zm = torch.cat([zm, one_m.expand(p2 - n, -1)])
+        zi = batch_inv(pec, zm, min(512, p2))[:n]
         zi2 = pec.mul(zi, zi)
         xa = pec.mul(AX, zi2)
         ya = pec.mul(AY, pec.mul(zi2, zi))
@@ -127,29 +109,17 @@ class FixedBaseMSM:
         n = int(scalar_limbs.shape[0])
         if n == 0:
             raise ValueError("no scalars")
-        ck = min(self.chunk, 1 << (n - 1).bit_length() if n > 1 else 1)
-        nchunks = -(-n // ck)
-        npad = nchunks * ck
-        sc16 = np.zeros((npad, NLIMB), dtype="<u2")
-        sc16[:n] = scalar_limbs
-        sc = torch.from_numpy(sc16.view("<i4").reshape(npad, NWORD)).to(device)
+        sc16 = np.ascontiguousarray(scalar_limbs, dtype="<u2").reshape(n, NLIMB)
+        sc = torch.from_numpy(sc16.view("<i4").reshape(n, NWORD)).to(device)
         table = self.table_planes(table_pts, device)
-        W = self.width
-        AX, AY, AZ = (torch.empty((npad, W), dtype=torch.int32, device=device)
-                      for _ in range(3))
-        for c in range(nchunks):
-            s = slice(c * ck, (c + 1) * ck)
-            for dst, src in zip((AX, AY, AZ), self._accumulate(table, sc[s])):
-                dst[s] = src
-        xa, ya, inf = self._to_affine(AX, AY, AZ)
-        return xa, ya, inf, n
+        return self._to_affine(*self.pec.fixed_base(table, sc))
 
     def fetch(self, handle) -> ArrayPointVec:
         """Wait for a ``dispatch`` handle and download it as an
         ``ArrayPointVec`` (standard-form u16 limb planes)."""
-        xa, ya, inf, n = handle
-        xs, ys = (np.ascontiguousarray(a[:n].cpu().numpy()).view("<u2") for a in (xa, ya))
-        return ArrayPointVec(xs, ys, inf[:n].cpu().numpy(), g2=self.ctx.quad)
+        xa, ya, inf = handle
+        xs, ys = (a.cpu().numpy().view("<u2") for a in (xa, ya))
+        return ArrayPointVec(xs, ys, inf.cpu().numpy(), g2=self.ctx.quad)
 
     def run(self, table_pts, scalar_limbs: np.ndarray, device="cuda") -> ArrayPointVec:
         """The affine results k_i * G (the identity for k_i == 0)."""

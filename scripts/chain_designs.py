@@ -9,7 +9,7 @@ one card.
 
 Each design is a copy of this checkout's `crescent_tpu_torch/` under
 `build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh`,
-`csrc/batch_inv.cuh` or `csrc/bucket.cuh`:
+`csrc/batch_inv.cuh`, `csrc/bucket.cuh` or `csrc/madd.cuh`:
 
 * `field_sums`: the sums and differences between the rounds of both
   doublings (and of the additions) by field.cuh's `fe_add` / `fe_sub`
@@ -47,7 +47,14 @@ Each design is a copy of this checkout's `crescent_tpu_torch/` under
   registers a thread): a block's 257 suffix pairs in four passes of 80
   lanes of four product threads, not three of 96;
 * `bucket_inline`: each lane's addition inlined into the pass loop in
-  place of a call of a function of its own (`__noinline__`).
+  place of a call of a function of its own (`__noinline__`);
+* `madd_threads`: `madd` and `fixed_base` (csrc/madd.cuh) on four
+  product threads a lane over Fq and eight over Fq2, in place of one;
+* `madd_fq2_four`, `madd_fq2_eight`: over Fq2 on four or eight product
+  threads a lane, in place of one;
+* `madd_inline`: the doubling of `madd_rounds` (P == Q) over Fq inlined
+  in place of a call of a function of its own (`__noinline__`);
+* `madd_fq2_call`: the doubling over Fq2 such a call in place of inlined.
 
 The designs are built at once with this checkout (one nvcc a source), then
 `scripts/time_chain_kernels.py --turns` checks every build bit-equal to the
@@ -252,6 +259,25 @@ DESIGNS = {"field_sums": _field_sums, "thread_product": _thread_product, "one_wa
                src, "template <class F, bool kAZero, int G, class X>\n__device__ __noinline__ "
                "void bucket_add(", "template <class F, bool kAZero, int G, class X>\n"
                "__device__ __forceinline__ void bucket_add(")}
+# csrc/madd.cuh's executors (kMaddThreads<F>) and warp.cuh's madd_double
+def _madd_threads(fq: int, fq2: int):
+    """madd.cuh with kMaddThreads fq over Fq and fq2 over Fq2."""
+    old = "constexpr int kMaddThreads = 1;\n"
+    return lambda src: _set_constant(src, old, f"constexpr int kMaddThreads = {fq};\n"
+                                     f"template <>\nconstexpr int kMaddThreads<Fe2> = {fq2};\n")
+
+
+MADD_DESIGNS = {
+    "madd_threads": _madd_threads(4, 8), "madd_fq2_four": _madd_threads(1, 4),
+    "madd_fq2_eight": _madd_threads(1, 8),
+    "madd_inline": lambda src: _set_constant(
+        src, "__device__ __noinline__ void madd_double(",
+        "__device__ __forceinline__ void madd_double("),
+    "madd_fq2_call": lambda src: _set_constant(
+        src, "constexpr bool kMaddDoubleCall<Fe2> = false;",
+        "constexpr bool kMaddDoubleCall<Fe2> = true;")}
+DESIGNS.update(MADD_DESIGNS)
+MADD_WARP = ("madd_inline", "madd_fq2_call")  # designs of warp.cuh, not madd.cuh
 
 
 def make(name: str) -> str:
@@ -264,6 +290,8 @@ def make(name: str) -> str:
                     ignore=shutil.ignore_patterns("__pycache__"))
     header = {"batch_inv": "batch_inv.cuh", "bucket": "bucket.cuh"}.get(name.split("_")[0],
                                                                          "warp.cuh")
+    if name in MADD_DESIGNS and name not in MADD_WARP:
+        header = "madd.cuh"
     path = os.path.join(root, "crescent_tpu_torch", "csrc", header)
     with open(path) as f:
         src = f.read()
@@ -290,14 +318,16 @@ def main() -> None:
         for i, line in enumerate(lines):  # the chain kernels' registers and spills
             if "Compiling entry" in line and any(
                     k in line for k in ("jdbl_n", "jadd_kernel", "batch_inv_kernel",
-                                        "bucket_reduce_kernel")):
+                                        "bucket_reduce_kernel", "madd_kernel",
+                                        "fixed_base_kernel")):
                 info = " ".join(lines[i + 1:i + 4])
                 regs = re.search(r"Used (\d+) registers", info)
                 spill = re.search(r"(\d+) bytes spill stores", info)
                 print(os.path.relpath(root, HERE), line.split("'")[1], "|",
                       f"{regs and regs.group(1)} registers, {spill and spill.group(1)} bytes "
                       "spill stores", flush=True)
-            elif "Function properties for" in line and "bucket_add" in line:  # a callee
+            elif "Function properties for" in line and (
+                    "bucket_add" in line or "madd_double" in line):  # a callee
                 spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
                 print(os.path.relpath(root, HERE), line.split()[-1], "|",
                       f"{spill and spill.group(1)} bytes spill stores", flush=True)

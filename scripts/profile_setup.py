@@ -9,8 +9,11 @@ Builds the CUDA kernels and the native backend, makes dummy_circuit(log2_size)
 allocator and loads the kernel libraries, the second is timed by phase
 (``setup(timings=)``), the third runs under ``torch.profiler``.  The keys
 must be equal.  Prints the split by phase, the device's busy time by kernel
-group (busy time only; copies included), and the idle share of the timed
-run: 1 - busy / wall.
+group (busy time only; copies included), each fixed-base batch's window
+kernel (``fixed_base``: its device time beside its bound, counted in the
+first run from the batch's scalars by chip_smoke.py's ``fixed_base_adds``
+and ``fixed_base_bound``, the kernels line's yardstick), and the idle share
+of the timed run: 1 - busy / wall.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -27,6 +30,8 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from chip_smoke import fixed_base_adds, fixed_base_bound  # noqa: E402
+
 GROUPS = (  # (substring of the kernel's name, group); the first match wins
     ("fq2_mul_kernel", "port kernel fq2 mul"),
     ("fq2_inv_kernel", "port kernel fq2 inv"),
@@ -36,8 +41,10 @@ GROUPS = (  # (substring of the kernel's name, group); the first match wins
 
 
 def _group(name: str) -> str:
-    if "madd_kernel" in name:  # one template: Fe (Fq) or Fe2 (Fq2)
-        return "port kernel fq2 madd" if "Fe2" in name else "port kernel madd"
+    for kernel in ("fixed_base_kernel", "madd_kernel"):  # templates over Fe (Fq) or Fe2
+        if kernel in name:
+            op = kernel[:-len("_kernel")]
+            return f"port kernel fq2 {op}" if "Fe2" in name else f"port kernel {op}"
     for key, label in GROUPS:
         if key in name:
             return label
@@ -72,9 +79,30 @@ def main() -> None:
         torch.cuda.synchronize()
         return pk
 
+    from crescent_tpu_torch.ops import cuda_ec
+
+    batches = []
+    kernel = getattr(cuda_ec._Kernels, "fixed_base", None)  # None: a checkout before it
+
+    def counted(ec, table, sc):
+        """The batch's bound, from its digits (this run only: it waits)."""
+        adds = fixed_base_adds(torch, sc)
+        batches.append((ec.WIDTH, sc.shape[0], adds,
+                        fixed_base_bound(sc.shape[0], ec.WIDTH, adds)[0]))
+        return kernel(ec, table, sc)
+
+    if kernel:
+        cuda_ec._Kernels.fixed_base = counted
     t0 = time.perf_counter()
-    first = run()
+    try:
+        first = run()
+    finally:
+        if kernel:
+            cuda_ec._Kernels.fixed_base = kernel
     print(f"setup, first: {time.perf_counter() - t0:.3f} s", flush=True)
+    for w, n, adds, bound_ms in batches:
+        print(f"fixed-base batch over {'Fq2' if w == 16 else 'Fq'}: {n} lanes, {adds} "
+              f"additions, bound {bound_ms:.3f} ms", flush=True)
     timings: dict = {}
     t0 = time.perf_counter()
     pk = run(timings)
@@ -107,6 +135,9 @@ def main() -> None:
           f"{prof_wall:.3f} s under the profiler): {busy * 1e3:.3f} ms")
     for g, (us, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:40s} {us / 1e3:9.3f} ms  {100 * us / 1e6 / busy:5.1f}%  {cnt:6d} launches")
+    for us, cnt, name in rows:
+        if "fixed_base_kernel" in name:
+            print(f"window kernel {name[:60]}: {us / 1e3:.3f} ms in {cnt} launches")
     print("top 10 kernels:")
     for us, cnt, name in sorted(rows, reverse=True)[:10]:
         print(f"  {us / 1e3:9.3f} ms  {cnt:5d}x  {name[:110]}")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the latency-bound chain kernels of the fold, `inv`, `jdbl_n`,
-`jadd`, `batch_inv` and the fused aggregate `bucket_reduce`, and the
-older point kernels `madd`, `jdbl`, `affine_denom` and `affine_add`, over
+`jadd`, `batch_inv` and the fused aggregate `bucket_reduce`, the fixed
+base's window kernel `fixed_base`, and the older point kernels `madd`,
+`jdbl`, `affine_denom` and `affine_add`, over
 Fq (G1) and over Fq2 (G2), at the prove path's shapes, and compares trees
 in turns.
 
@@ -26,7 +27,10 @@ d * (1/d) == 1 where it has not (a tree before the kernel: `batch_inv` is
 then that tree), `bucket_reduce` at a chunk's 25 windows of 1025 buckets
 (seeded rows, the top bucket empty) equal to the card's unfused levels
 (`bucket_levels` over the `jadd` kernel, 21 launches, which it also
-times), and `madd` at setup's 2^16 lanes, `jdbl` at 2^17, `affine_denom`
+times), the fixed base's 32 windows at 2^16 scalars (`fixed_base` where
+the port has it, and the chain of 32 row gathers and `madd` launches it
+replaces, both equal to the plain chain on their first 2^12 lanes), and
+`madd` at setup's 2^16 lanes, `jdbl` at 2^17, `affine_denom`
 and `affine_add` at a chunk's first pair level of 2^21 lanes, each equal
 to its plain version on its first 2^12 lanes; times each by CUDA events
 around a CUDA graph of many launches (a mean, after a warm-up: the
@@ -70,8 +74,8 @@ def _card() -> str:
         capture_output=True, text=True).stdout.strip()
 
 
-KERNELS = ("inv", "jdbl_n", "jadd", "batch_inv", "bucket_reduce", "madd", "jdbl",
-           "affine_denom", "affine_add")
+KERNELS = ("inv", "jdbl_n", "jadd", "batch_inv", "bucket_reduce", "madd", "fixed_base",
+           "jdbl", "affine_denom", "affine_add")
 OLDER = ("madd", "jdbl", "affine_denom", "affine_add")  # the rows PR 3-6 timed in event loops
 
 
@@ -143,6 +147,8 @@ def measure(root: str, kernels=KERNELS) -> dict:
             _batch_inv(ec, prefix, root, calls, elems(max(calls), width), time_ms, out)
         if "bucket_reduce" in kernels:
             _bucket_reduce(ec, prefix, root, elems, time_ms, out)
+        if "fixed_base" in kernels:
+            _fixed_base(ec, prefix, root, elems, time_ms, out)
         for name in (k for k in OLDER if k in kernels):
             _older(ec, prefix, name, root, elems, time_ms, out)
     return out
@@ -164,6 +170,51 @@ def _bucket_reduce(ec, prefix, root, elems, time_ms, out) -> None:
     out[f"{prefix}bucket_reduce {W} x {B}"] = time_ms(lambda: ec.bucket_reduce(*table, W, B), 20)
     out[f"{prefix}bucket_reduce levels {W} x {B}"] = time_ms(
         lambda: bucket_levels(ec.jadd, *table, W, B), 20)
+
+
+FB_LANES = 1 << 16  # a chunk of setup's fixed base
+
+
+def _fixed_base(ec, prefix, root, elems, time_ms, out) -> None:
+    """The fixed base's 32 windows at a chunk of 2^16 seeded scalars (a
+    table of seeded rows): the `fixed_base` kernel where the port has it,
+    and the chain it replaces, 32 row gathers (`index_select`) and `madd`
+    launches (written out here: a checkout before the kernel has no
+    `fixed_base_windows`), both checked against the plain chain on the
+    first 2^12 lanes and timed as graph replays."""
+    import numpy as np
+    import torch
+
+    width = ec.WIDTH
+    table = torch.cat([elems(8192, width), elems(8192, width)], dim=1)
+    rng = np.random.default_rng(SEED + 7)
+    sc = torch.from_numpy(rng.integers(0, 1 << 32, size=(FB_LANES, 8), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32)).cuda()
+    digits = sc.view(torch.uint8).to(torch.int64).T
+    rows = (digits + torch.arange(32, device="cuda")[:, None] * 256).contiguous()
+    valid = (digits != 0).to(torch.int32).contiguous()
+    sign = torch.zeros(FB_LANES, dtype=torch.int32, device="cuda")
+    zero = torch.zeros((FB_LANES, width), dtype=torch.int32, device="cuda")
+
+    def chain(madd, n=FB_LANES):
+        acc = (zero[:n], zero[:n], zero[:n])
+        for w in range(32):
+            g = table.index_select(0, rows[w, :n])
+            acc = madd(*acc, g[:, :width], g[:, width:], valid[w, :n], sign[:n])
+        return acc
+
+    head = 1 << 12
+    want = chain(ec.madd_plain, head)
+    got = [chain(ec.madd, head)]
+    kernel = getattr(ec, "fixed_base", None)
+    if kernel:
+        got.append(kernel(table, sc[:head].contiguous()))
+    if not all(torch.equal(g, w) for res in got for g, w in zip(res, want)):
+        sys.exit(f"time_chain_kernels: {prefix}fixed_base differs from the plain chain in {root}")
+    chain_ms = out[f"{prefix}fixed_base chain {FB_LANES} lanes"] = time_ms(
+        lambda: chain(ec.madd), 4)
+    out[f"{prefix}fixed_base {FB_LANES} lanes"] = (
+        time_ms(lambda: kernel(table, sc), 20) if kernel else chain_ms)
 
 
 def _older(ec, prefix, name, root, elems, time_ms, out) -> None:

@@ -302,8 +302,9 @@ def test_cuda_g2_chunk_matches_native(cuda):
 
 @pytest.mark.cuda
 def test_cuda_fixed_base_matches_native(cuda):
-    """FixedBaseMSM on the card for G1 and G2 (several chunks, padding
-    lanes, 0, 1, n - 1) against the native fixed base."""
+    """FixedBaseMSM on the card for G1 and G2 (704 scalars, padded to 1024
+    in the affine conversion; 0, 1, n - 1) against the native fixed base:
+    one `fixed_base` launch for the batch, no `madd`."""
     import random
 
     from crescent_tpu_torch.core.curves import BN254_G1, BN254G2
@@ -316,13 +317,107 @@ def test_cuda_fixed_base_matches_native(cuda):
             (get_curve_ctx(BN254_G1), BN254_G1.generator,
              lambda b, ks: nb.fixed_base("bn254_g1", b, ks)),
             (get_g2_ctx(), BN254G2.generator(), nb.fixed_base_g2)):
-        fb = FixedBaseMSM(ctx, chunk=256)
+        fb = FixedBaseMSM(ctx)
         table = native(base, fb.table_scalars())
         ks = [0, 1, ctx.n - 1, (ctx.n + 1) // 2] + [rng.randrange(ctx.n) for _ in range(700)]
-        before = ctx.ec.madd_launches
+        before = ctx.ec.launches()
         out = fb.run(table, limb.ints_to_limbs(ks), cuda)
         assert list(out) == native(base, ks)
-        assert ctx.ec.madd_launches == before + 3 * 32
+        after = ctx.ec.launches()
+        assert (after["fixed_base"], after["madd"]) == (before["fixed_base"] + 1,
+                                                        before["madd"])
+
+
+def _fixed_base_inputs(group: str, n: int, seed: int, device):
+    """The curve context, its generator G, a real window table (row
+    w * 256 + d = max(d, 1) * 2^(8 w) * G), two planted ones (every row G,
+    so that the second valid window doubles; G in even windows and -G in odd
+    ones, so that sums reach the identity mid-chain) as (8192, 2 W) planes,
+    and n scalar words with 0, 1, n - 1 and (n + 1) / 2 first and zero
+    digits in every eighth scalar."""
+    import random
+
+    from crescent_tpu_torch.core.curves import BN254_G1, BN254G2
+    from crescent_tpu_torch.native import backend as nb
+    from crescent_tpu_torch.ops.ec import get_curve_ctx, get_g2_ctx
+    from crescent_tpu_torch.ops.fixed_base import FixedBaseMSM
+
+    if group == "G1":
+        ctx, curve = get_curve_ctx(BN254_G1), BN254_G1
+        g = BN254_G1.generator
+        table = nb.fixed_base("bn254_g1", g, FixedBaseMSM(ctx).table_scalars())
+    else:
+        ctx, curve = get_g2_ctx(), BN254G2
+        g = BN254G2.generator()
+        table = nb.fixed_base_g2(g, FixedBaseMSM(ctx).table_scalars())
+    fb = FixedBaseMSM(ctx)
+    planes = {"real": fb.table_planes(table, device),
+              "every row G": fb.table_planes([g] * 8192, device),
+              "G and -G": fb.table_planes([g if i // 256 % 2 == 0 else curve.neg(g)
+                                           for i in range(8192)], device)}
+    rng = random.Random(seed)
+    ks = [rng.randrange(ctx.n) for _ in range(n)]
+    ks[:4] = [0, 1, ctx.n - 1, (ctx.n + 1) // 2]
+    for i in range(4, n, 8):  # zero bytes among the digits
+        ks[i] &= ~(0xFFFF << (8 * (i % 30)))
+    return ctx, planes, limb.limbs_to_words(limb.ints_to_limbs(ks), device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_cuda_fixed_base_kernel_matches_chain(cuda, group):
+    """The window kernel over Fq (G1) and Fq2 (G2) at 3,100 lanes, on the
+    real table and the two planted ones: Jacobian planes bit-equal to the
+    chain of 32 row gathers and `madd` launches (the port before the window
+    kernel) and to fixed_base_plain, one launch each."""
+    from crescent_tpu_torch.ops.cuda_ec import fixed_base_windows
+
+    ctx, planes, sc = _fixed_base_inputs(group, 3100, 23, cuda)
+    ec = ctx.ec
+    for name, table in planes.items():
+        before = ec.launches()
+        got = ec.fixed_base(table, sc)
+        after = ec.launches()
+        assert (after["fixed_base"], after["madd"]) == (before["fixed_base"] + 1,
+                                                        before["madd"]), name
+        assert _equal(got, fixed_base_windows(ec.madd, table, sc)), name
+        assert _equal(got, ec.fixed_base_plain(table, sc)), name
+        inf = ~got[2].any(1)
+        assert inf[0] and (not inf[1:].any() if name == "real" else True), name
+        if name == "G and -G":  # as many G as -G: a sum at the identity
+            assert inf[1:].any()
+    with pytest.raises(ValueError):
+        ec.fixed_base(planes["real"][:100], sc)  # not the whole table
+
+
+@pytest.mark.cuda
+def test_cuda_setup_launches_the_window_kernel(cuda, monkeypatch):
+    """A setup on the card's device branch launches `fixed_base` once for
+    G1 and once for G2, no `madd` and no row gather, and its key equals the
+    native branch's."""
+    import random
+
+    from crescent_tpu_torch.core.curves import BN254_G1
+    from crescent_tpu_torch.models import groth16
+    from crescent_tpu_torch.ops.ec import get_curve_ctx, get_g2_ctx
+
+    r1cs, _ = groth16.dummy_circuit(8, random.Random(3))
+    monkeypatch.setenv("CRESCENT_SETUP_TPU_MIN", "0")
+    gathers = []
+    real = torch.Tensor.index_select
+    monkeypatch.setattr(torch.Tensor, "index_select",
+                        lambda self, *a, **k: gathers.append(1) or real(self, *a, **k))
+    ecs = (get_curve_ctx(BN254_G1).ec, get_g2_ctx().ec)
+    before = [ec.launches() for ec in ecs]
+    pk = groth16.setup(r1cs, random.Random(4), device="cuda")
+    after = [ec.launches() for ec in ecs]
+    monkeypatch.undo()
+    for b, a in zip(before, after):
+        assert (a["fixed_base"] - b["fixed_base"], a["madd"] - b["madd"]) == (1, 0)
+    assert not gathers
+    monkeypatch.setenv("CRESCENT_SETUP_TPU", "0")
+    native = groth16.setup(r1cs, random.Random(4), device="cuda")
+    assert pk.a_query == native.a_query and pk.b_g2_query == native.b_g2_query
 
 
 def _bucket_table(ec, W: int, B: int, seed: int, device):

@@ -54,7 +54,7 @@ def _scalars(rng, order, n):
 def test_fixed_base_g1_matches_native():
     rng = random.Random(11)
     ctx = get_curve_ctx(BN254_G1)
-    fb = FixedBaseMSM(ctx, chunk=64)  # three chunks, 42 padding lanes
+    fb = FixedBaseMSM(ctx)  # 150 lanes: 106 padding lanes in the affine conversion
     assert fb.pec is ctx.ec and fb.width == 8
     g = BN254_G1.generator
     table = nb.fixed_base("bn254_g1", g, fb.table_scalars())
@@ -70,7 +70,7 @@ def test_fixed_base_g1_matches_native():
 def test_fixed_base_g2_matches_native():
     rng = random.Random(12)
     ctx = get_g2_ctx()
-    fb = FixedBaseMSM(ctx, chunk=64)
+    fb = FixedBaseMSM(ctx)
     assert pec_for(ctx) is ctx.ec and fb.width == 16
     h = BN254G2.generator()
     table = nb.fixed_base_g2(h, fb.table_scalars())
