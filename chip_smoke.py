@@ -37,7 +37,12 @@
    identities among the lanes, then 100 lanes x 0, 1 and 3; `jadd` over Fq
    and Fq2 at every shape of a chunk's 27 launches, 25,625 lanes down to
    1, and at 2^17, P + P, P + (-P) and the identity on either side run at
-   each; `batch_inv` over Fq and Fq2 at the distinct shapes of a chunk's 22
+   each; `affine_add` over Fq and Fq2 at 2^21 lanes and at the widths of a
+   chunk's 22 pair-level calls (timed as one CUDA graph of the 22); `jdbl`
+   over Fq and Fq2 at its callers' shapes, verify's one lane and the small
+   MSM's 1,024, and at 2^17, identities planted, also against jadd(P, P),
+   and over Fq with a != 0 at the same shapes; `batch_inv` over Fq and Fq2
+   at the distinct shapes of a chunk's 22
    calls, 2^21 down to 32,768 leaves of affine_denom output with a zero
    planted in the second run, also against the card's own tree of `mul`
    launches with `inv` on its root level, the launches it replaces), and
@@ -56,8 +61,9 @@
    3 (n - 1) products and one inversion, with the inversion's latency floor
    of a chunk's 22 serial calls printed apart), and nvcc's register count;
    fails if a `jdbl_n`,
-   `jadd` (warp.cuh), `batch_inv`, `bucket_reduce` (bucket.cuh), `madd` or
-   `fixed_base` (madd.cuh) kernel spills.
+   `jadd`, `jdbl` (warp.cuh), `batch_inv`, `bucket_reduce` (bucket.cuh),
+   `madd`, `fixed_base` (madd.cuh) or `affine_add` (point.cuh,
+   affine_add.cuh) kernel spills.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -170,21 +176,28 @@ def _registers(reports: dict) -> dict:
     return out
 
 
-# the kernels with several instances (a == 0 and a != 0, executors): the
-# part of their mangled names before the field type
-INSTANCES = {"jadd": "_jadd_kernel", "bucket_reduce": "bucket_reduce_kernel",
-             "madd": "11madd_kernel", "fixed_base": "fixed_base_kernel"}
+# the kernels with several instances (a == 0 and a != 0, executors): a
+# pattern of their mangled names, {f} the field type's
+INSTANCES = {"jadd": "_jadd_kernelINS_{f}E", "bucket_reduce": "bucket_reduce_kernelINS_{f}E",
+             "madd": "11madd_kernelINS_{f}E", "fixed_base": "fixed_base_kernelINS_{f}E",
+             # jdbl: the one-thread kernel, product threads, and the jdbl_n
+             # lane body (Fq2's jdbl runs one doubling a lane on it on few
+             # lanes; over Fq it is jdbl_n's alone)
+             "jdbl": "jdbl(?:_n)?_kernelI(?:NS_|N8crescent){f}E",
+             # over Fq point.cuh's template, over Fq2 affine_add.cuh's halves
+             "affine_add": "affine_add(?:_kernelINS_{f}E|_halves_kernelE)"}
 
 
 def _jadd_registers(regs: dict, name: str) -> dict:
     """(registers, spill store bytes) of each instance of warp.cuh's `jadd`
-    kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), of bucket.cuh's
-    `bucket_reduce` kernel, or of madd.cuh's `madd` and `fixed_base`
-    kernels, by mangled name."""
+    and `jdbl` kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), of bucket.cuh's
+    `bucket_reduce` kernel, of madd.cuh's `madd` and `fixed_base` kernels,
+    or of the `affine_add` kernels, by mangled name."""
+    import re
+
     lib, field = ("ec2", "3Fe2") if name.startswith("fq2_") else ("ec", "2Fe")
-    kernel = INSTANCES[name[4:] if name.startswith("fq2_") else name]
-    return {e: v for (l, e), v in regs.items()
-            if l == lib and f"{kernel}INS_{field}E" in e}
+    kernel = INSTANCES[name[4:] if name.startswith("fq2_") else name].format(f=field)
+    return {e: v for (l, e), v in regs.items() if l == lib and re.search(kernel, e)}
 
 
 def _kernel_registers(regs: dict, name: str):
@@ -204,8 +217,8 @@ def _kernel_registers(regs: dict, name: str):
         lib = "ntt" if base in ("mul", "butterfly") else "ec"
         key = {"inv": "divstep_inv_kernel",
                "jdbl_n": warp.format("2Fe")}.get(base, base + "_kernel")
-    if base in INSTANCES:  # the most registers and spills of any, a == 0
-        hits = [v for e, v in _jadd_registers(regs, name).items() if "ELb1E" in e]
+    if base in INSTANCES:  # the most registers and spills of any but a != 0's
+        hits = [v for e, v in _jadd_registers(regs, name).items() if "ELb0E" not in e]
         return (max(h[0] for h in hits), max(h[1] for h in hits)) if hits else None
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
     return hits[0] if len(hits) == 1 else None
@@ -586,6 +599,33 @@ def _jadd_shapes(torch, ec, prefix: str, seed: int, record=None) -> int:
     return worst
 
 
+# jdbl's shapes: verify's public input (one lane, G1), the small MSM's
+# 1,024 lanes (1000 points padded, G1 and G2), and 2^17
+JDBL_SHAPES = (1, 1024, 1 << CHUNK_LOG)
+
+
+def _jdbl_check(torch, ec, pt, lanes: int):
+    """jdbl on the first `lanes` of the planes pt (identities in lanes 3 and
+    5) against jdbl_plain and, off the identities, against jadd(P, P) (the
+    doubling on the addition's P == Q lanes); one lane runs lane 0 and the
+    identity in lane 3 alone.  Returns (the largest difference, the planes
+    of `lanes` lanes)."""
+    err = 0
+    for o in ((0, 3) if lanes == 1 else (0,)):
+        pl = tuple(a[o:o + lanes].contiguous() for a in pt)
+        got = ec.jdbl(*pl)
+        torch.cuda.synchronize()
+        err = max(err, _errs(torch, got, ec.jdbl_plain(*pl)))
+        fin = pl[2].ne(0).any(dim=1)
+        if fin.any().item():
+            twice = ec.jadd(*pl, *pl)
+            err = max(err, _errs(torch, tuple(g[fin] for g in got),
+                                 tuple(w[fin] for w in twice)))
+        if got[2][~fin].any().item():
+            fail("jdbl: the identity does not stay the identity")
+    return err, tuple(a[:lanes].contiguous() for a in pt)
+
+
 def _chunk_batch_inv_shapes() -> list[int]:
     """The leaves of a chunk's 22 batch_inv calls: each of its 11 rounds'
     two pair levels, 2 mn and mn lanes (AffineMSM._round_schedule of
@@ -655,6 +695,20 @@ def _batch_inv_shapes(torch, ec, d, label: str, prefix: str, out: dict) -> None:
                                       "inv_latency_floor_chunk_ms": inv_floor_ms}
 
 
+def _affine_add_products(torch, f, pair, sqr: int, mul: int) -> int:
+    """Base products that affine_add needs on these pairs: none where a
+    side is invalid (the other passes through) or L == -R (the identity);
+    lam, lam^2 and lam (Lx - x3) on a chord, and x^2 too on a tangent
+    (L == R).  `sqr` and `mul`: base products a square and a product."""
+    lx, ly, lv, rx, ry, rv = pair
+    both = (lv != 0) & (rv != 0)
+    same_x = f.is_zero(f.sub_mod(rx, lx))
+    same_y = f.is_zero(f.sub_mod(ry, ly))
+    chord = int((both & ~same_x).sum().item())
+    tangent = int((both & same_x & same_y).sum().item())
+    return chord * (sqr + 2 * mul) + tangent * (2 * sqr + 2 * mul)
+
+
 def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_inv,
                          out: dict) -> None:
     """The MSM path's point kernels of one field against their plain
@@ -698,26 +752,42 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
     if got[2][:7].tolist() != [1, 0, 1, 1, 0, 1, 1]:
         fail(f"{prefix}affine_add: planted cases give valid flags {got[2][:7].tolist()}")
     record("affine_add", f"2^{LOG_SIZE} lanes", err,
-           _time_ms(torch, lambda: ec.affine_add(*pair, inv), REPS),
+           _graph_ms(torch, lambda: ec.affine_add(*pair, inv), 20),
            _time_ms(torch, lambda: ec.affine_add_plain(*pair, inv), 2),
-           (7 * e + 12) * n, (2 * sqr + 2 * mul) * MONT_MUL_MADS * n)
-    del d, inv, pair, got
+           (7 * e + 12) * n, _affine_add_products(torch, f, pair, sqr, mul) * MONT_MUL_MADS)
+    # a chunk's 22 pair-level calls (2 mn and mn lanes a round), the cases
+    # of the first warps planted in each, timed as one CUDA graph of the 22
+    widths = _chunk_batch_inv_shapes()
+    calls = [tuple(a[:w] for a in pair) + (inv[:w],) for w in widths]
+    err = plain_ms = nbytes = products = 0
+    for w, args in zip(widths, calls):
+        want, ms = _timed_once(torch, lambda: ec.affine_add_plain(*args))
+        err = max(err, _errs(torch, ec.affine_add(*args), want))
+        plain_ms += ms
+        nbytes += (7 * e + 12) * w
+        products += _affine_add_products(torch, f, args[:6], sqr, mul)
+    record("affine_add", f"a chunk's {len(widths)} calls", err,
+           _graph_ms(torch, lambda: [ec.affine_add(*args) for args in calls], 5), plain_ms,
+           nbytes, products * MONT_MUL_MADS)
+    del d, inv, pair, got, calls
 
     # -- jadd: every shape of a chunk's launches, and 2^17 lanes --------------
     _jadd_shapes(torch, ec, prefix, seed + 10, record)
 
-    # -- jdbl: 2^17 lanes; jdbl_n: the window combine's shapes ----------------
+    # -- jdbl: its callers' shapes (verify's one lane, the small MSM's 1,024)
+    #    and 2^17 lanes; jdbl_n: the window combine's shapes ----------------
     dbl = (7 * sqr + mul) * MONT_MUL_MADS
     pt = _point_inputs(torch, ec, nck, seed + 20)[:3]
-    got = ec.jdbl(*pt)
-    torch.cuda.synchronize()
-    err = _errs(torch, got, ec.jdbl_plain(*pt))
-    # P + P takes the doubling (past the planted identities, which jadd
-    # passes through)
-    tail = tuple(a[8:] for a in pt)
-    err = max(err, _errs(torch, tuple(a[8:] for a in got), ec.jadd(*tail, *tail)))
-    record("jdbl", f"2^{CHUNK_LOG} lanes", err, _time_ms(torch, lambda: ec.jdbl(*pt), REPS),
-           _time_ms(torch, lambda: ec.jdbl_plain(*pt), 2), 6 * e * nck, dbl * nck)
+    # the caller's shape first: verify's one lane over Fq, the small G2
+    # MSM's 1,024 lanes over Fq2
+    for lanes in sorted(JDBL_SHAPES, key=lambda w: (w != 1024) if fq2 else 0):
+        err, pl = _jdbl_check(torch, ec, pt, lanes)
+        if err:
+            fail(f"{prefix}jdbl differs from its plain version or from jadd(P, P) at {lanes} "
+                 "lanes")
+        record("jdbl", f"{lanes} lane{'s' * (lanes > 1)}", err,
+               _graph_ms(torch, lambda: ec.jdbl(*pl), REPS),
+               _time_ms(torch, lambda: ec.jdbl_plain(*pl), 2), 6 * e * lanes, dbl * lanes)
     # the window combine's five launches a chunk: 16 lanes x c doublings down
     # to 1 lane x 16c (lanes 3 and 5 are identities, Z = 0, as the
     # combine's padding rows are); then counts 0 and 1, and 100 lanes.  The
@@ -781,8 +851,9 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     pt = _point_inputs(torch, eca, na, SEED + 60)
     pair = _pair_inputs(torch, eca, na, SEED + 70)
     inv = batch_inv(eca, eca.affine_denom(*pair))
+    pt17 = _point_inputs(torch, eca, 1 << CHUNK_LOG, SEED + 65)[:3]
     err = max(
-        _errs(torch, eca.jdbl(*pt[:3]), eca.jdbl_plain(*pt[:3])),
+        *(_jdbl_check(torch, eca, pt17, lanes)[0] for lanes in JDBL_SHAPES),
         _errs(torch, eca.jdbl_n(*pt[:3], 3), eca.jdbl_n_plain(*pt[:3], 3)),
         _errs(torch, eca.jadd(*pt), eca.jadd_plain(*pt)),
         _errs(torch, eca.affine_add(*pair, inv), eca.affine_add_plain(*pair, inv)),
@@ -791,9 +862,9 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     )
     if torch.equal(eca.jdbl(*pt[:3])[0], ec.jdbl(*pt[:3])[0]):
         fail("a != 0 does not reach the doubling")
-    say(f"kernels jdbl, jdbl_n, jadd, affine_add [BN254 Fq, a = 0x1234567] 2^14 lanes, "
-        f"jadd at the chunk's shapes and 2^{CHUNK_LOG}, bucket_reduce at the fused "
-        f"aggregate's 25 x 1025: max_abs_err={err}")
+    say(f"kernels jdbl_n, jadd, affine_add [BN254 Fq, a = 0x1234567] 2^14 lanes, jdbl at "
+        f"{', '.join(map(str, JDBL_SHAPES))} lanes, jadd at the chunk's shapes and "
+        f"2^{CHUNK_LOG}, bucket_reduce at the fused aggregate's 25 x 1025: max_abs_err={err}")
     if err:
         fail("a kernel differs from its plain version over a curve with a != 0")
     return out
@@ -1354,7 +1425,9 @@ def g2_msm_phase(torch, curves, nb) -> dict:
 def small_msm_phase(torch, curves, nb) -> dict:
     """get_msm(G1) and get_g2_msm() run_device of 1000 seeded points each
     (padded to 1024, at small_cutoff: the direct path) on the card, the
-    identity, 0 and n - 1 planted, against the native MSMs."""
+    identity, 0 and n - 1 planted, against the native MSMs; each must take
+    one `jdbl` launch a scalar bit (256).  Returns the times and each run's
+    launches by kernel name (fq2_ for G2's)."""
     from crescent_tpu_torch.ops import limb
     from crescent_tpu_torch.ops.ec import JPoints, points_valid
     from crescent_tpu_torch.ops.msm import get_g2_msm, get_msm
@@ -1379,6 +1452,7 @@ def small_msm_phase(torch, curves, nb) -> dict:
         if not m.small_cutoff >= 1 << (n - 1).bit_length():
             fail(f"small MSM {label}: {n} points are not at or under small_cutoff")
         torch.cuda.synchronize()
+        ctx.ec.reset_launches()
         t0 = time.perf_counter()
         res = m.run_device(P.x, P.y, valid, sc)
         got = ctx.points_to_host(JPoints(*(a[None] for a in res)))[0]
@@ -1386,9 +1460,17 @@ def small_msm_phase(torch, curves, nb) -> dict:
         if got != native(ks, pts):
             fail(f"small MSM {label} of {n} points (run_device's direct path) differs from "
                  "the native MSM")
+        launches = ctx.ec.launches()
+        if launches["jdbl"] != 256:
+            fail(f"small MSM {label} launched jdbl {launches['jdbl']} times, not once a "
+                 "scalar bit")
         say(f"small msm {label}: {n} points through run_device's direct path on the card "
-            f"in {dev_s:.3f} s (enqueue to result); equals the native MSM")
+            f"in {dev_s:.3f} s (enqueue to result); equals the native MSM; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
         out[f"small_{label}_s"] = dev_s
+        pre = "fq2_" if label == "G2" else ""
+        out.setdefault("small_launches", {}).update(
+            {pre + k: v for k, v in launches.items()})
     return out
 
 
@@ -1713,10 +1795,12 @@ def main() -> None:
         spill = (_kernel_registers(regs, name) or (None, None))[1]
         if spill:
             fail(f"{name}'s kernel spills {spill} bytes (nvcc -Xptxas -v)")
-    # and its additions (warp.cuh), the fused aggregate (bucket.cuh) and the
-    # fixed base's mixed additions (madd.cuh), every instance
-    for name in ("jadd", "fq2_jadd", "bucket_reduce", "fq2_bucket_reduce", "madd", "fq2_madd",
-                 "fixed_base", "fq2_fixed_base"):
+    # and its additions and `jdbl`'s executors (warp.cuh), the fused
+    # aggregate (bucket.cuh), the fixed base's mixed additions (madd.cuh)
+    # and the pair additions (affine_add.cuh), every instance
+    for name in ("jadd", "fq2_jadd", "jdbl", "fq2_jdbl", "bucket_reduce", "fq2_bucket_reduce",
+                 "madd", "fq2_madd", "fixed_base", "fq2_fixed_base", "affine_add",
+                 "fq2_affine_add"):
         for entry, (r, spill) in _jadd_registers(regs, name).items():
             say(f"{name}: {entry} {r} registers, {spill} bytes spill stores")
             if spill:
@@ -1748,6 +1832,8 @@ def main() -> None:
             "launches_prove_native0": native0_launches[name],
             "launches_prove_fused_native0": fused_launches[name],
             "launches_verify_native0": verify_launches[name],
+            # the 1000-point small MSM of its group (the direct path)
+            "launches_small_msm": mres["small_launches"][name],
             "registers": (_kernel_registers(regs, name) or (None, None))[0],
             "spill_store_bytes": (_kernel_registers(regs, name) or (None, None))[1],
             "max_abs_err": max(r[1] for r in rows),

@@ -32,12 +32,13 @@
 // words, then c1's (field.cuh Fe2).  Results are canonical, so they equal
 // the TPU kernels' bit for bit.
 //
-// One thread per lane, as in ec.cu, but for `jdbl_n`, `jadd` and
-// `batch_inv`.  `mul` (3 base products, 192 bytes a lane) is bound by
-// bytes; it takes row strides (every second row of a plane, or one row
-// broadcast).  `inv` is the norm map: the norm x0^2 + x1^2, its inverse by
-// field.cuh's constant-time divsteps (`fe_inv_divsteps`, as Fq `inv` in
-// ec.cu; the reference runs a Fermat chain there), then two products; it
+// One thread per lane, as in ec.cu, but for `jdbl_n`, `jadd`, `jdbl`,
+// `affine_add` and `batch_inv`.  `mul` (3 base products, 192 bytes a
+// lane) is bound by bytes; it takes row strides (every second row of a
+// plane, or one row broadcast).  `inv` is the norm map: the norm
+// x0^2 + x1^2, its inverse by field.cuh's constant-time divsteps
+// (`fe_inv_divsteps`, as Fq `inv` in ec.cu; the reference runs a Fermat
+// chain there), then two products; it
 // is latency, so it launches one warp a block.  `batch_inv` runs the
 // reference's product tree in one launch, one block a root, with the same
 // inversion on each root (batch_inv.cuh).  `jdbl_n` (16 down to 1 lanes of 11
@@ -50,10 +51,18 @@
 // of at most eight on eight threads a lane (one product a thread) above;
 // one thread a lane ran them in a row at the 255-register limit and
 // spilled.
-// The other point kernels are point.cuh's templates over Fe2, with ec.cu's
-// launch shapes: `affine_denom` (328 bytes a lane, no product) is bound by
-// bytes, `affine_add` (460 bytes, 10 base products) near the line where
-// products overtake bytes, `jdbl` (17 base products) by operations.
+// `affine_add` (460 bytes a lane; 8 base products at the least, 10 on a
+// tangent lane) is affine_add.cuh's two threads a lane, each holding one
+// half (c0 or c1) of every element, so that a lane's loads are in flight
+// on enough warps to be bound by bytes.  The other point kernels are
+// point.cuh's templates over Fe2, with ec.cu's launch shapes:
+// `affine_denom` (328 bytes a lane, no product) is bound by bytes.  `jdbl`
+// (17 base products a lane; the small-N MSM's 256 doublings of 1,024 lanes
+// a G2 MSM) ran them in a row on one thread a lane at 220 registers, on 8
+// SMs at that width: bound by the chain's latency.  It is warp.cuh's
+// `launch_jdbl_lanes` over Fe2: the `jdbl_n` lane body with one doubling
+// (16 base products in three rounds on two warps) up to
+// kJdblGroupLanesMax<Fe2> lanes, eight product threads a lane above.
 // `madd` and the window kernel `fixed_base` (29 base products an addition
 // at least, 30 as madd.cuh runs them) are bound by operations too: one
 // thread a lane on warp.cuh's `madd_rounds`, which writes the sum over P
@@ -63,8 +72,8 @@
 // additions on eight product threads a lane.  `butterfly` (a, b, tw in, two
 // rows out: 320 bytes and 3 base products a lane) is bound by bytes; no
 // path of the reference calls it.
-// BN254 G2 has a = 0, which the wrapper requires and `jdbl_n` and `jadd`
-// check.
+// BN254 G2 has a = 0, which the wrapper requires and `jdbl_n`, `jadd`,
+// `jdbl` and `affine_add` check.
 //
 // Plain C entry points, loaded with ctypes: pointers to device memory, the
 // caller's CUDA stream; each returns cudaGetLastError().  Outputs may alias
@@ -74,6 +83,7 @@
 
 #include <cstdint>
 
+#include "affine_add.cuh"
 #include "batch_inv.cuh"
 #include "bucket.cuh"
 #include "field.cuh"
@@ -201,8 +211,9 @@ extern "C" int crescent_fq2_affine_add(const uint32_t* curve26, const void* lx,
                                        const void* rv, const void* inv,
                                        void* ox, void* oy, void* ov,
                                        long long n, void* stream) {
-  return crescent::launch_affine_add<Fe2>(curve26, lx, ly, lv, rx, ry, rv, inv,
-                                          ox, oy, ov, n, stream);
+  // two threads a lane, a half element each (affine_add.cuh)
+  return crescent::launch_affine_add_halves(curve26, lx, ly, lv, rx, ry, rv, inv, ox, oy,
+                                            ov, n, stream);
 }
 
 extern "C" int crescent_fq2_jadd(const uint32_t* curve26, const void* x1,
@@ -233,7 +244,10 @@ extern "C" int crescent_fq2_jdbl_n(const uint32_t* curve26, const void* x,
 extern "C" int crescent_fq2_jdbl(const uint32_t* curve26, const void* x,
                                  const void* y, const void* z, void* ox,
                                  void* oy, void* oz, long long n, void* stream) {
-  return crescent::launch_jdbl<Fe2>(curve26, x, y, z, ox, oy, oz, n, stream);
+  const Curve C = make_curve(curve26);
+  if (!C.a_is_zero) return (int)cudaErrorInvalidValue;  // a = 0 only
+  // two warps a lane on few lanes, the design by the lane count (warp.cuh)
+  return crescent::launch_jdbl_lanes<Fe2, true>(C, x, y, z, ox, oy, oz, n, stream);
 }
 
 extern "C" int crescent_fq2_bucket_reduce(const uint32_t* curve26, const void* x,

@@ -180,6 +180,61 @@ __device__ __forceinline__ Fe fe_sqr(const Fe& a, const Mod& M) {
   return fe_mont_mul(a, a, M);
 }
 
+// (a0 b0 + a1 b1) 2^-256 mod p: both products accumulated in one CIOS pass
+// with one reduction a word (200 multiply-adds against two fe_mont_mul's
+// 272).  Needs p < 2^254: the accumulator then stays below 4p before each
+// step and below 2^288 within it (nine words; t[9] stays 0), and the end
+// value (a0 b0 + a1 b1 + m p) / 2^256 is below 1.5 p, so one conditional
+// subtraction makes it canonical (tests/test_torch_affine_add_halves.py
+// replays it word by word).
+__device__ __forceinline__ Fe fe_mont_mul_sum(const Fe& a0, const Fe& b0, const Fe& a1,
+                                              const Fe& b1, const Mod& M) {
+  uint32_t t[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    // t += a0 * b0[i] + a1 * b1[i]
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)t[j] + (uint64_t)a0.w[j] * b0.w[i] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s;
+    t[9] = (uint32_t)(s >> 32);
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s = (uint64_t)t[j] + (uint64_t)a1.w[j] * b1.w[i] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s;
+    t[9] += (uint32_t)(s >> 32);
+    // t = (t + m * p) / 2^32 with m chosen so the low word cancels
+    const uint32_t m = t[0] * M.inv;
+    s = (uint64_t)t[0] + (uint64_t)m * M.p[0];
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      s = (uint64_t)t[j] + (uint64_t)m * M.p[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)s;
+    t[8] = t[9] + (uint32_t)(s >> 32);
+  }
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = t[j];
+  return fe_reduce_once(r, t[8], M);
+}
+
 __device__ __forceinline__ Fe fe_dbl(const Fe& a, const Mod& M) {
   return fe_add(a, a, M);
 }

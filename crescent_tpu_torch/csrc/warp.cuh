@@ -1064,4 +1064,64 @@ int launch_jadd_lanes(const Curve& C, const void* x1, const void* y1, const void
   return (int)cudaGetLastError();
 }
 
+// `jdbl` (one doubling a lane; `CurveCtx.double` in the small-N MSM's
+// scalar_mul, 256 launches of 1 to 1,024 lanes an MSM) on the executor that
+// the lane count n picks: the `jdbl_n` lane body with one doubling (a
+// warp's groups a lane over Fe, two warps' over Fe2) for
+// n <= kJdblGroupLanesMax<F>, kJdblProductThreads<F> product threads a
+// lane above, and point.cuh's one thread a lane from
+// kJdblOneThreadLanesMin<F> on (0: never), where the card is full.  One
+// thread a lane runs the doubling's products in a row (8 over Fq, 17 base
+// products over Fq2) on at most 8 of the card's 132 SMs at these lane
+// counts: bound by that chain's latency, which the rounds cut to three
+// products.  Fq2's `jdbl` launches here (ec2.cu); Fq's keeps point.cuh's
+// one thread a lane (ec.cu; scripts/chain_designs.py `fq_jdbl_lanes` times
+// it here).
+template <class F>
+constexpr long long kJdblGroupLanesMax = 256;
+template <class F>
+constexpr int kJdblProductThreads = 4;
+template <>
+constexpr int kJdblProductThreads<Fe2> = 8;
+template <class F>
+constexpr long long kJdblOneThreadLanesMin = 16384;
+template <>
+constexpr long long kJdblOneThreadLanesMin<Fe2> = 0;
+
+// One doubling a lane on T product threads, blocks of 128 threads.
+template <class F, bool kAZero, int T>
+__global__ void __launch_bounds__(128)
+    thread_jdbl_kernel(Curve C, const uint4* x, const uint4* y, const uint4* z, uint4* ox,
+                       uint4* oy, uint4* oz, long long n) {
+  const long long i = ((long long)blockIdx.x * 128 + threadIdx.x) / T;
+  const unsigned live = __ballot_sync(kFullWarp, i < n);
+  if (i >= n) return;  // whole lanes
+  ProductThreads<T> ex{C.M, (int)(threadIdx.x % T), live};
+  const PtT<F> R = warp_double<kAZero>(C, pt_load<F>(x, y, z, i), ex);
+  lane_sync<T>(live);
+  store_coords<F, T>(ox, oy, oz, i, R, threadIdx.x % T);
+}
+
+// Host side: n doublings over F with kAZero == C.a_is_zero, on the design
+// that n lanes take; returns cudaGetLastError().
+template <class F, bool kAZero>
+int launch_jdbl_lanes(const Curve& C, const void* x, const void* y, const void* z, void* ox,
+                      void* oy, void* oz, long long n, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0) {
+    if (n <= kJdblGroupLanesMax<F>) {
+      warp_jdbl_n_kernel<F, kAZero><<<(unsigned)n, kLaneThreads<F>, 0, s>>>(
+          C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, 1);
+    } else if (kJdblOneThreadLanesMin<F> == 0 || n < kJdblOneThreadLanesMin<F>) {
+      constexpr int T = kJdblProductThreads<F>;
+      thread_jdbl_kernel<F, kAZero, T><<<grid_for(n * T, 128), 128, 0, s>>>(
+          C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
+    } else if constexpr (kJdblOneThreadLanesMin<F> > 0) {
+      jdbl_kernel<F><<<grid_for(n, kThreads), kThreads, 0, s>>>(
+          C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace crescent

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Times design alternatives of the chain kernels `jdbl_n`, `jadd`
+"""Times design alternatives of the chain kernels `jdbl_n`, `jadd`, `jdbl`
 (csrc/warp.cuh), `batch_inv` (csrc/batch_inv.cuh) and `bucket_reduce`
-(csrc/bucket.cuh) over Fq and Fq2 against this checkout's, in turns, on
-one card.
+(csrc/bucket.cuh), of `madd` and `fixed_base` (csrc/madd.cuh) and of the
+Fq2 `affine_add` (csrc/affine_add.cuh) over Fq and Fq2 against this
+checkout's, in turns, on one card.
 
     python3 scripts/chain_designs.py [--rounds N] [--designs NAME ...]
         [--kernels NAME ...]
 
 Each design is a copy of this checkout's `crescent_tpu_torch/` under
 `build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh`,
-`csrc/batch_inv.cuh`, `csrc/bucket.cuh` or `csrc/madd.cuh`:
+`csrc/batch_inv.cuh`, `csrc/bucket.cuh`, `csrc/madd.cuh` or
+`csrc/affine_add.cuh`, or a change to several of the sources:
 
 * `field_sums`: the sums and differences between the rounds of both
   doublings (and of the additions) by field.cuh's `fe_add` / `fe_sub`
@@ -54,7 +56,28 @@ Each design is a copy of this checkout's `crescent_tpu_torch/` under
   threads a lane, in place of one;
 * `madd_inline`: the doubling of `madd_rounds` (P == Q) over Fq inlined
   in place of a call of a function of its own (`__noinline__`);
-* `madd_fq2_call`: the doubling over Fq2 such a call in place of inlined.
+* `madd_fq2_call`: the doubling over Fq2 such a call in place of inlined;
+* `aadd_ring`: the Fq2 `affine_add` on persistent blocks, one tile of 64
+  lanes at a time, the next tile's rows copied by cp.async into a
+  double-buffered ring in shared memory while this one computes;
+* `aadd_field_sums`: the Fq2 `affine_add`'s sums and differences by
+  field.cuh's `fe_add` / `fe_sub` in place of warp.cuh's PTX carry chains
+  (`fe_add_cc`, `fe_sub_cc`);
+* `aadd_min5`: the Fq2 `affine_add` held to five blocks of 128 threads an
+  SM (`__launch_bounds__(128, 5)`: at most 102 registers);
+* `aadd_one_thread`: the Fq2 `affine_add` on point.cuh's one thread a
+  lane (the kernel before affine_add.cuh's two threads a lane), with the
+  tangent's x^2 computed only where a lane of the warp is a tangent (Fq's
+  `affine_add`, the same template, takes that change too);
+* `fq_jdbl_lanes`: Fq `jdbl` on warp.cuh's `launch_jdbl_lanes` (the
+  `jdbl_n` lane body, a warp's groups, up to kJdblGroupLanesMax lanes,
+  four product threads to kJdblOneThreadLanesMin, one thread a lane
+  above), as Fq2's runs, in place of point.cuh's one thread a lane;
+* `jdbl_groups`, `jdbl_threads`, `jdbl_one_thread`: `jdbl` over Fq and
+  Fq2 on launch_jdbl_lanes's groups (a warp a lane over Fq, two over Fq2),
+  its product threads (four over Fq, eight over Fq2) or point.cuh's one
+  thread a lane (Fq2's kernel before launch_jdbl_lanes) at every lane
+  count, which time the switch-overs.
 
 The designs are built at once with this checkout (one nvcc a source), then
 `scripts/time_chain_kernels.py --turns` checks every build bit-equal to the
@@ -165,6 +188,93 @@ __device__ __forceinline__ PtT<Fe2> warp_double(const Curve& C, const PtT<Fe2>& 
   return R;
 }
 """
+
+
+AADD_RING = """// Design (c): persistent blocks (as many as the card holds at once), each
+// walking tiles of kRingLanes lanes; a tile's rows (Lx, Ly, Rx, Ry, inv:
+// 64 bytes a lane each) and flags are copied by cp.async into a
+// double-buffered ring in shared memory, the next tile's copies in flight
+// while this one computes.
+constexpr int kRingLanes = kThreads / 2;  // a tile: the block's pairs
+
+struct AaddTile {
+  uint4 row[5][4 * kRingLanes];
+  int flag[2][kRingLanes];
+};
+
+__device__ __forceinline__ void aadd_tile_copy(AaddTile& t, const uint4* lx, const uint4* ly,
+                                               const uint4* rx, const uint4* ry,
+                                               const uint4* inv, const int* lv,
+                                               const int* rv, long long tile, long long n) {
+  const long long base = tile * kRingLanes;
+  const int lanes = (int)(n - base < kRingLanes ? n - base : kRingLanes);
+#pragma unroll
+  for (int p = 0; p < 5; ++p) {
+    const uint4* src = p == 0 ? lx : p == 1 ? ly : p == 2 ? rx : p == 3 ? ry : inv;
+    for (int q = threadIdx.x; q < 4 * lanes; q += kThreads)
+      __pipeline_memcpy_async(&t.row[p][q], src + 4 * base + q, 16);
+  }
+  for (int q = threadIdx.x; q < 2 * kRingLanes; q += kThreads) {
+    const int f = q / kRingLanes, k = q % kRingLanes;
+    if (k < lanes) __pipeline_memcpy_async(&t.flag[f][k], (f ? rv : lv) + base + k, 4);
+  }
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(kThreads)
+    affine_add_ring_kernel(Curve C, const uint4* lx, const uint4* ly, const int* lv,
+                           const uint4* rx, const uint4* ry, const int* rv,
+                           const uint4* inv, uint4* ox, uint4* oy, int* ov, long long n) {
+  __shared__ AaddTile ring[2];
+  const long long tiles = (n + kRingLanes - 1) / kRingLanes;
+  const int li = threadIdx.x >> 1, h = threadIdx.x & 1, q = 4 * li + 2 * h;
+  long long t = blockIdx.x;
+  if (t < tiles) aadd_tile_copy(ring[0], lx, ly, rx, ry, inv, lv, rv, t, n);
+  for (int k = 0; t < tiles; t += gridDim.x, ++k) {
+    if (t + gridDim.x < tiles) {
+      aadd_tile_copy(ring[(k + 1) & 1], lx, ly, rx, ry, inv, lv, rv, t + gridDim.x, n);
+    } else {
+      __pipeline_commit();
+    }
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    const AaddTile& T = ring[k & 1];
+    Fe x, y;
+    bool valid;
+    affine_add_half(C.M, fe_load(&T.row[0][q]), fe_load(&T.row[1][q]), fe_load(&T.row[2][q]),
+                    fe_load(&T.row[3][q]), fe_load(&T.row[4][q]), T.flag[0][li] != 0,
+                    T.flag[1][li] != 0, h, kFullWarp, x, y, valid);
+    const long long i = t * kRingLanes + li;
+    if (i < n) {
+      fe_store(ox + 4 * i + 2 * h, x);
+      fe_store(oy + 4 * i + 2 * h, y);
+      if (h == 0) ov[i] = valid ? 1 : 0;
+    }
+    __syncthreads();
+  }
+}
+
+"""
+AADD_RING_LAUNCH = """    static int grid = 0;
+    if (!grid) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, affine_add_ring_kernel, kThreads, 0);
+      grid = sms * per_sm;
+    }
+    const long long tiles = (n + kRingLanes - 1) / kRingLanes;
+    affine_add_ring_kernel<<<(unsigned)(tiles < grid ? tiles : grid), kThreads, 0,
+                             (cudaStream_t)stream>>>("""
+
+
+def _aadd_ring(src: str) -> str:
+    head = "// Host side: n lanes, 2n threads"
+    src = _set_constant(src, head, AADD_RING + head)
+    src = _set_constant(src, "#include <cuda_runtime.h>\n",
+                        "#include <cuda_pipeline.h>\n#include <cuda_runtime.h>\n")
+    return _set_constant(src, """    affine_add_halves_kernel<<<grid_for(2 * n, kThreads), kThreads, 0,
+                               (cudaStream_t)stream>>>(""", AADD_RING_LAUNCH)
 
 
 def _field_sums(src: str) -> str:
@@ -280,6 +390,64 @@ DESIGNS.update(MADD_DESIGNS)
 MADD_WARP = ("madd_inline", "madd_fq2_call")  # designs of warp.cuh, not madd.cuh
 
 
+def _jdbl_lanes(group_max: str, one_thread_min: str):
+    """warp.cuh with `jdbl` on groups up to group_max lanes and on one
+    thread a lane from one_thread_min on (0: never), over Fq and Fq2."""
+    def design(src: str) -> str:
+        for name, value in (("kJdblGroupLanesMax", group_max),
+                            ("kJdblOneThreadLanesMin", one_thread_min)):
+            src = _set_constant(src, f"{name} = ", f"{name} = {value}; //")
+            if name + "<Fe2> = " in src:
+                src = _set_constant(src, f"{name}<Fe2> = ", f"{name}<Fe2> = {value}; //")
+        return src
+    return design
+
+
+# Fq's `jdbl` entry (ec.cu) on warp.cuh's launch_jdbl_lanes in place of
+# point.cuh's one thread a lane
+FQ_JDBL = ("  return crescent::launch_jdbl<Fe>(curve26, x, y, z, ox, oy, oz, n, stream);",
+           "  const Curve C = make_curve(curve26);\n"
+           "  return C.a_is_zero\n"
+           "      ? crescent::launch_jdbl_lanes<Fe, true>(C, x, y, z, ox, oy, oz, n, stream)\n"
+           "      : crescent::launch_jdbl_lanes<Fe, false>(C, x, y, z, ox, oy, oz, n, stream);")
+
+
+def _fq_jdbl(src: str) -> str:
+    return _set_constant(src, *FQ_JDBL)
+
+
+# designs that change several files: {file under csrc/: its change}; the
+# jdbl_* designs over Fq too
+MULTI = {name: {"warp.cuh": _jdbl_lanes(*lanes), "ec.cu": _fq_jdbl}
+         for name, lanes in (("jdbl_groups", ("1LL << 40", "0")),
+                             ("jdbl_threads", ("0", "0")),
+                             ("jdbl_one_thread", ("0", "1")))}
+MULTI["fq_jdbl_lanes"] = {"ec.cu": _fq_jdbl}
+def _aadd_field_sums(src: str) -> str:
+    """affine_add.cuh's sums as field.cuh's fe_add / fe_sub in place of
+    warp.cuh's PTX carry chains."""
+    a = src.index("// Half h of the Fq2 product u v")
+    b = src.index("// Threads 2i and 2i + 1 on lane i")
+    body = src[a:b].replace("fe_sub_cc(fe_zero(), uo, M)", "fe_neg(uo, M)")
+    assert "fe_neg(uo, M)" in body
+    body = body.replace("fe_add_cc(", "fe_add(").replace("fe_sub_cc(", "fe_sub(")
+    return src[:a] + body + src[b:]
+
+
+MULTI["aadd_ring"] = {"affine_add.cuh": _aadd_ring}
+MULTI["aadd_field_sums"] = {"affine_add.cuh": _aadd_field_sums}
+MULTI["aadd_min5"] = {"affine_add.cuh": lambda src: _set_constant(
+    src, "__global__ void __launch_bounds__(kThreads)\n    affine_add_halves_kernel(",
+    "__global__ void __launch_bounds__(kThreads, 5)\n    affine_add_halves_kernel(")}
+MULTI["aadd_one_thread"] = {
+    "point.cuh": lambda src: _set_constant(
+        src, "  const F xx = fe_sqr(Lx, M);\n",
+        "  F xx = Row::zero();\n  if (__any_sync(__activemask(), dbl_case)) xx = fe_sqr(Lx, M);\n"),
+    "ec2.cu": lambda src: _set_constant(src, "crescent::launch_affine_add_halves(",
+                                        "crescent::launch_affine_add<Fe2>(")}
+DESIGNS.update({name: None for name in MULTI})
+
+
 def make(name: str) -> str:
     """Copy the port into build/designs/<name>/ with the design's warp.cuh
     or batch_inv.cuh."""
@@ -292,13 +460,14 @@ def make(name: str) -> str:
                                                                          "warp.cuh")
     if name in MADD_DESIGNS and name not in MADD_WARP:
         header = "madd.cuh"
-    path = os.path.join(root, "crescent_tpu_torch", "csrc", header)
-    with open(path) as f:
-        src = f.read()
-    new = DESIGNS[name](src)
-    assert new != src, name
-    with open(path, "w") as f:
-        f.write(new)
+    for header, change in (MULTI.get(name) or {header: DESIGNS[name]}).items():
+        path = os.path.join(root, "crescent_tpu_torch", "csrc", header)
+        with open(path) as f:
+            src = f.read()
+        new = change(src)
+        assert new != src, name
+        with open(path, "w") as f:
+            f.write(new)
     return root
 
 
@@ -319,7 +488,8 @@ def main() -> None:
             if "Compiling entry" in line and any(
                     k in line for k in ("jdbl_n", "jadd_kernel", "batch_inv_kernel",
                                         "bucket_reduce_kernel", "madd_kernel",
-                                        "fixed_base_kernel")):
+                                        "fixed_base_kernel", "jdbl_kernel",
+                                        "affine_add")):
                 info = " ".join(lines[i + 1:i + 4])
                 regs = re.search(r"Used (\d+) registers", info)
                 spill = re.search(r"(\d+) bytes spill stores", info)

@@ -45,8 +45,9 @@ PORT_KERNELS = ("bucket_reduce", "affine_denom", "affine_add", "jadd", "jdbl_n",
 
 def _group(name: str) -> str:
     for k in PORT_KERNELS:
-        if f"{k}_kernel" in name:
-            return f"port kernel {k}" + (" (Fq2)" if "Fe2" in name or "fq2_" in name else "")
+        if f"{k}_kernel" in name or f"{k}_halves_kernel" in name:  # halves: Fq2's
+            fq2 = "Fe2" in name or "fq2_" in name or "_halves_" in name
+            return f"port kernel {k}" + (" (Fq2)" if fq2 else "")
     low = name.lower()
     if "sort" in low or "radix" in low:
         return "sort kernels"

@@ -2,7 +2,7 @@
 """Times the latency-bound chain kernels of the fold, `inv`, `jdbl_n`,
 `jadd`, `batch_inv` and the fused aggregate `bucket_reduce`, the fixed
 base's window kernel `fixed_base`, and the older point kernels `madd`,
-`jdbl`, `affine_denom` and `affine_add`, over
+`jdbl`, `affine_denom` and `affine_add` (the pair additions), over
 Fq (G1) and over Fq2 (G2), at the prove path's shapes, and compares trees
 in turns.
 
@@ -30,9 +30,12 @@ then that tree), `bucket_reduce` at a chunk's 25 windows of 1025 buckets
 times), the fixed base's 32 windows at 2^16 scalars (`fixed_base` where
 the port has it, and the chain of 32 row gathers and `madd` launches it
 replaces, both equal to the plain chain on their first 2^12 lanes), and
-`madd` at setup's 2^16 lanes, `jdbl` at 2^17, `affine_denom`
-and `affine_add` at a chunk's first pair level of 2^21 lanes, each equal
-to its plain version on its first 2^12 lanes; times each by CUDA events
+`madd` at setup's 2^16 lanes, `jdbl` at 1 (verify's public input),
+1,024 (the small MSM) and 2^17 lanes and at 32 to 16,384 between,
+`affine_denom` and `affine_add` at a chunk's first pair level of 2^21
+lanes (`affine_add` also at a chunk's 22 pair-level calls, one graph of
+the 22), each equal to its plain version on its first 2^12 lanes; times
+each by CUDA events
 around a CUDA graph of many launches (a mean, after a warm-up: the
 kernels' time on the card without the host's time a call; `jadd` on
 seeded lanes without those edges, as the aggregate's are), sums a
@@ -217,13 +220,25 @@ def _fixed_base(ec, prefix, root, elems, time_ms, out) -> None:
         time_ms(lambda: kernel(table, sc), 20) if kernel else chain_ms)
 
 
+# the older point kernels' shapes: madd at setup's chunk, jdbl at its
+# callers' (verify's one lane, the small MSM's 1,024), at 2^17 and between
+# (its executors' switch-overs), the pair kernels at a chunk's first pair
+# level
+OLDER_LANES = {"madd": (1 << 16,), "jdbl": (1, 32, 128, 256, 512, 1024, 4096, 16384, 1 << 17)}
+
+
 def _older(ec, prefix, name, root, elems, time_ms, out) -> None:
-    """One of the older point kernels at its path's shape on seeded lanes,
-    checked against its plain version on its first 2^12 lanes."""
+    """One of the older point kernels at its path's shapes on seeded lanes,
+    checked against its plain version on the first 2^12 lanes; affine_add
+    also at a chunk's 22 pair-level calls, timed as one graph."""
+    for lanes in OLDER_LANES.get(name, (1 << 21,)):
+        _older_at(ec, prefix, name, lanes, root, elems, time_ms, out)
+
+
+def _older_at(ec, prefix, name, lanes, root, elems, time_ms, out) -> None:
     import numpy as np
     import torch
 
-    lanes = {"madd": 1 << 16, "jdbl": 1 << 17}.get(name, 1 << 21)
     rng = np.random.default_rng(SEED + len(name))
 
     def flags(zero_in: int):
@@ -247,6 +262,10 @@ def _older(ec, prefix, name, root, elems, time_ms, out) -> None:
         sys.exit(f"time_chain_kernels: {prefix}{name} differs from its plain version in {root}")
     out[f"{prefix}{name} {lanes} lanes"] = time_ms(lambda: fn(*args),
                                                    max(10, min(REPS, (1 << 24) // lanes)))
+    if name == "affine_add":  # a chunk's 22 calls: 2 mn and mn lanes a round
+        calls = [tuple(a[:w] for a in args) for w in _chunk_batch_inv_shapes()]
+        out[f"{prefix}affine_add a chunk ({len(calls)} calls)"] = time_ms(
+            lambda: [fn(*c) for c in calls], 5)
 
 
 def _jadd(ec, prefix, root, elems, time_ms, out) -> None:

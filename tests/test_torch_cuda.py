@@ -774,3 +774,93 @@ def test_cuda_chunk_batch_inv_launches(cuda, group):
     assert ctx.points_to_host(JPoints(*(a[None] for a in res)))[0] == native(ks, pts)
     grew = {k: after[k] - before[k] for k in after}
     assert (grew["batch_inv"], grew["mul"], grew["inv"]) == (22, 0, 0)
+
+
+def _planted_warp_pairs(ec, n: int, seed: int, device):
+    """Affine pairs of n seeded lanes (about one side in 64 invalid) with the
+    cases planted warp by warp, a warp being 16 lanes of the Fq2 kernel's
+    two threads a lane: warp w < 16 holds L == R, L == -R, left only, right
+    only, neither and L == R on an invalid side from position w on (each
+    case at every position), warps 16..19 L == -R alone (no tangent lane),
+    warps 20..23 one L == R lane alone; then the same pattern again in the
+    last 24 warps of each 2^14 lanes."""
+    width = ec.WIDTH
+    lx, ly, rx, ry = (_rows(n, width, seed + k, device) for k in range(4))
+    rng = np.random.default_rng(seed + 9)
+    lv, rv = (torch.from_numpy((rng.integers(0, 64, size=n) != 0).astype(np.int32)).to(device)
+              for _ in range(2))
+    cases = ("tangent", "opposite", "left_only", "right_only", "neither", "tangent_invalid")
+    lanes = {c: [] for c in cases}
+    for base in sorted({0} | set(range((1 << 14) - 24 * 16, n - 24 * 16 + 1, 1 << 14))):
+        for w in range(24):
+            plant = cases if w < 16 else ("opposite",) if w < 20 else ("tangent",)
+            for k, case in enumerate(plant):
+                i = base + 16 * w + (w + k) % 16
+                if i < n:
+                    lanes[case].append(i)
+    flags = {"left_only": (1, 0), "right_only": (0, 1), "neither": (0, 0),
+             "tangent_invalid": (0, 1), "tangent": (1, 1), "opposite": (1, 1)}
+    for case, idx in lanes.items():
+        idx = torch.tensor(idx, dtype=torch.long, device=device)
+        if case in ("tangent", "tangent_invalid", "opposite"):
+            rx[idx] = lx[idx]
+            ry[idx] = ec.ctx.neg_mod(ly[idx]) if case == "opposite" else ly[idx]
+        lv[idx], rv[idx] = flags[case]
+    return lx, ly, lv, rx, ry, rv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["Fq", "Fq2"])
+def test_cuda_affine_add_chunk_widths_match_plain(cuda, field):
+    """`affine_add` over Fq (point.cuh, one thread a lane) and Fq2
+    (affine_add.cuh, two threads a lane, a half element each) at the
+    widths of a chunk's 22 pair-level calls and at 2^21 lanes, against
+    affine_add_plain, the cases planted at every position of a warp,
+    warps with one tangent lane and warps with none among them."""
+    ec = get_cuda_quad_ec(fields.BN254_FQ) if field == "Fq2" else get_cuda_ec(fields.BN254_FQ)
+    widths = _chunk_batch_inv_shapes()
+    assert len(widths) == 22 and max(widths) == 1 << 21
+    pair = _planted_warp_pairs(ec, 1 << 21, 97, cuda)
+    inv = ec.inv(ec.affine_denom(*pair))  # a lane each: no batch_inv shape rule
+    before = ec.affine_add_launches
+    for lanes in sorted(set(widths), reverse=True):
+        args = tuple(a[:lanes] for a in pair) + (inv[:lanes],)
+        got = ec.affine_add(*args)
+        assert _equal(got, ec.affine_add_plain(*args)), lanes
+    assert got[2][:6].tolist() == [1, 0, 1, 1, 0, 1]  # warp 0 from position 0
+    assert ec.affine_add_launches == before + len(set(widths))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 31, 32, 33, 1024, 1 << 17])
+@pytest.mark.parametrize("field, a", [("Fq", 0), ("Fq", 0x1234567), ("Fq2", 0)],
+                         ids=["a0", "a_nonzero", "fq2"])
+def test_cuda_jdbl_lane_counts_match_plain(cuda, field, a, lanes):
+    """`jdbl` over Fq (point.cuh, one thread a lane), a = 0 and a != 0,
+    and over Fq2 (warp.cuh `launch_jdbl_lanes`: two warps a lane on few
+    lanes, eight product threads on more) at 1 (verify's public input), 31,
+    32, 33, 1,024 (the small MSM) and 2^17 lanes, identities (Z = 0)
+    planted in lanes 3 and 5 and the last: against jdbl_plain, and against
+    jadd(P, P) off the identities, where the doubling must keep Z = 0; one
+    lane runs a seeded lane and an identity alone."""
+    n = max(lanes, 7)
+    if field == "Fq2":
+        ec = get_cuda_quad_ec(fields.BN254_FQ)
+        pt = _planted_points(ec, n, 29, cuda, lambda s: _elems2(n, s, cuda))[:3]
+    else:
+        ec = get_cuda_ec(fields.BN254_FQ, a)
+        pt = _planted_points(ec, n + 16, 29, cuda)[:3]
+    pt[2][-1] = 0
+    calls = [pt] if lanes > 1 else [tuple(t[o:o + 1].contiguous() for t in pt) for o in (0, 3)]
+    before = ec.jdbl_launches
+    for args in calls:
+        got = ec.jdbl(*args)
+        assert _equal(got, ec.jdbl_plain(*args)), lanes
+        inf = args[2].eq(0).all(dim=1)
+        assert not got[2][inf].any()
+        fin = ~inf
+        want = ec.jadd(*args, *args)
+        assert all(torch.equal(g[fin], w[fin]) for g, w in zip(got, want))
+    if lanes > 1:
+        assert inf[3] and inf[5] and inf[-1] and int(inf.sum()) == 3
+    assert ec.jdbl_launches == before + len(calls)
