@@ -38,10 +38,14 @@
    and Fq2 at every shape of a chunk's 27 launches, 25,625 lanes down to
    1, and at 2^17, P + P, P + (-P) and the identity on either side run at
    each; `affine_add` over Fq and Fq2 at 2^21 lanes and at the widths of a
-   chunk's 22 pair-level calls (timed as one CUDA graph of the 22); `jdbl`
-   over Fq and Fq2 at its callers' shapes, verify's one lane and the small
-   MSM's 1,024, and at 2^17, identities planted, also against jadd(P, P),
-   and over Fq with a != 0 at the same shapes; `batch_inv` over Fq and Fq2
+   chunk's 22 pair-level calls (timed as one CUDA graph of the 22), the
+   pair cases (L == R, L == -R, one side, neither, L == R on an invalid
+   side) planted at every position of the kernel's warp, and a warp with
+   L == -R alone and one with a tangent alone; `jdbl` over Fq and Fq2 at
+   its callers' shapes, verify's one lane and the small MSM's 1,024, and
+   at 2^17, and one below, at and one above each switch of its executors
+   (read out of csrc/warp.cuh), identities planted, also against
+   jadd(P, P), and over Fq with a != 0 at the same shapes; `batch_inv` over Fq and Fq2
    at the distinct shapes of a chunk's 22
    calls, 2^21 down to 32,768 leaves of affine_denom output with a zero
    planted in the second run, also against the card's own tree of `mul`
@@ -62,8 +66,8 @@
    of a chunk's 22 serial calls printed apart), and nvcc's register count;
    fails if a `jdbl_n`,
    `jadd`, `jdbl` (warp.cuh), `batch_inv`, `bucket_reduce` (bucket.cuh),
-   `madd`, `fixed_base` (madd.cuh) or `affine_add` (point.cuh,
-   affine_add.cuh) kernel spills.
+   `madd`, `fixed_base` (madd.cuh) or `affine_add` (affine_add.cuh)
+   kernel spills.
 4. MSM phase: one sorted-segment affine MSM of 2^17 seeded points on the
    card against the native host MSM, with PyTorch's synchronisation check
    set to raise, and one of 512 points (c = 5) on the card against the
@@ -180,12 +184,13 @@ def _registers(reports: dict) -> dict:
 # pattern of their mangled names, {f} the field type's
 INSTANCES = {"jadd": "_jadd_kernelINS_{f}E", "bucket_reduce": "bucket_reduce_kernelINS_{f}E",
              "madd": "11madd_kernelINS_{f}E", "fixed_base": "fixed_base_kernelINS_{f}E",
-             # jdbl: the one-thread kernel, product threads, and the jdbl_n
-             # lane body (Fq2's jdbl runs one doubling a lane on it on few
-             # lanes; over Fq it is jdbl_n's alone)
+             # jdbl: warp.cuh's thread_jdbl_kernel (product threads),
+             # point.cuh's jdbl_kernel (one thread) and the jdbl_n lane
+             # body warp_jdbl_n_kernel (one doubling a lane on few lanes)
              "jdbl": "jdbl(?:_n)?_kernelI(?:NS_|N8crescent){f}E",
-             # over Fq point.cuh's template, over Fq2 affine_add.cuh's halves
-             "affine_add": "affine_add(?:_kernelINS_{f}E|_halves_kernelE)"}
+             # affine_add.cuh's: over Fq one thread a lane, over Fq2 the
+             # halves (each library holds only its own)
+             "affine_add": "affine_add_(?:lane|halves)_kernelI"}
 
 
 def _jadd_registers(regs: dict, name: str) -> dict:
@@ -218,7 +223,8 @@ def _kernel_registers(regs: dict, name: str):
         key = {"inv": "divstep_inv_kernel",
                "jdbl_n": warp.format("2Fe")}.get(base, base + "_kernel")
     if base in INSTANCES:  # the most registers and spills of any but a != 0's
-        hits = [v for e, v in _jadd_registers(regs, name).items() if "ELb0E" not in e]
+        hits = [v for e, v in _jadd_registers(regs, name).items()
+                if not re.search(r"[IE]Lb0E", e)]
         return (max(h[0] for h in hits), max(h[1] for h in hits)) if hits else None
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
     return hits[0] if len(hits) == 1 else None
@@ -487,7 +493,41 @@ def _pair_inputs(torch, ec, n: int, seed: int):
     # and the two equal-x cases on an invalid side
     rx[5], ry[5], lv[5], rv[5] = lx[5], ly[5], 1, 0
     rx[6], ry[6], lv[6], rv[6] = lx[6], ec.ctx.neg_mod(ly[6:7])[0], 0, 1
+    _plant_warp_cases(torch, ec, (lx, ly, lv, rx, ry, rv))
     return lx, ly, lv, rx, ry, rv
+
+
+# the pair cases _plant_warp_cases plants: (L == R, L == -R), flags
+PAIR_CASES = {"tangent": (True, False, 1, 1), "opposite": (True, True, 1, 1),
+              "left_only": (False, False, 1, 0), "right_only": (False, False, 0, 1),
+              "neither": (False, False, 0, 0), "tangent_invalid": (True, False, 0, 1)}
+
+
+def _plant_warp_cases(torch, ec, pair) -> None:
+    """Plant the pair cases at every position of a warp of the affine_add
+    kernel (32 lanes over Fq, one thread a lane; 16 over Fq2, two threads
+    a lane) from lane 64 on (past _pair_inputs' first cases): warp w < the warp's lanes holds every case
+    of PAIR_CASES from position w on, the next warp L == -R alone and the
+    one after a tangent alone, both among valid chords; every width of a
+    chunk's calls (a prefix of the lanes) holds them."""
+    lx, ly, lv, rx, ry, rv = pair
+    warp = 16 if ec.WIDTH == 16 else 32
+    lanes = {c: [] for c in PAIR_CASES}
+    for w in range(warp + 2):
+        start = 64 + w * warp
+        plant = list(PAIR_CASES) if w < warp else ["opposite" if w == warp else "tangent"]
+        if w >= warp:
+            lv[start:start + warp] = 1
+            rv[start:start + warp] = 1
+        for k, case in enumerate(plant):
+            lanes[case].append(start + (w + k) % warp)
+    for case, idx in lanes.items():
+        same_x, neg, lf, rf = PAIR_CASES[case]
+        idx = torch.tensor(idx, dtype=torch.long, device=lx.device)
+        if same_x:
+            rx[idx] = lx[idx]
+            ry[idx] = ec.ctx.neg_mod(ly[idx]) if neg else ly[idx]
+        lv[idx], rv[idx] = lf, rf
 
 
 def _bucket_table(torch, ec, W: int, B: int, seed: int):
@@ -602,6 +642,22 @@ def _jadd_shapes(torch, ec, prefix: str, seed: int, record=None) -> int:
 # jdbl's shapes: verify's public input (one lane, G1), the small MSM's
 # 1,024 lanes (1000 points padded, G1 and G2), and 2^17
 JDBL_SHAPES = (1, 1024, 1 << CHUNK_LOG)
+
+
+def _jdbl_edges(fq2: bool) -> tuple:
+    """The lane counts where `jdbl` changes executor (csrc/warp.cuh
+    kJdblGroupLanesMax and kJdblOneThreadLanesMin, read out of the source,
+    over Fe or Fe2: 0 for never), one below, at and one above each."""
+    import re
+
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "crescent_tpu_torch",
+                            "csrc", "warp.cuh")).read()
+    edges = set()
+    for name in ("kJdblGroupLanesMax", "kJdblOneThreadLanesMin"):
+        vals = dict(re.findall(rf"constexpr long long {name}(<Fe2>)? = (\d+);", src))
+        k = int(vals.get("<Fe2>" if fq2 and "<Fe2>" in vals else "", 0))
+        edges.update((k - 1, k, k + 1) if k else ())
+    return tuple(sorted(e for e in edges if e > 0))
 
 
 def _jdbl_check(torch, ec, pt, lanes: int):
@@ -788,6 +844,13 @@ def _point_kernel_checks(torch, ec, label: str, prefix: str, seed: int, batch_in
         record("jdbl", f"{lanes} lane{'s' * (lanes > 1)}", err,
                _graph_ms(torch, lambda: ec.jdbl(*pl), REPS),
                _time_ms(torch, lambda: ec.jdbl_plain(*pl), 2), 6 * e * lanes, dbl * lanes)
+    # and one below, at and one above each switch of its executors
+    edges = _jdbl_edges(fq2)
+    err = max(_jdbl_check(torch, ec, pt, lanes)[0] for lanes in edges)
+    say(f"  {prefix}jdbl at its executors' switches, {', '.join(map(str, edges))} lanes: "
+        f"max_abs_err={err}")
+    if err:
+        fail(f"{prefix}jdbl differs from its plain version or from jadd(P, P) at a switch")
     # the window combine's five launches a chunk: 16 lanes x c doublings down
     # to 1 lane x 16c (lanes 3 and 5 are identities, Z = 0, as the
     # combine's padding rows are); then counts 0 and 1, and 100 lanes.  The
@@ -853,7 +916,8 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     inv = batch_inv(eca, eca.affine_denom(*pair))
     pt17 = _point_inputs(torch, eca, 1 << CHUNK_LOG, SEED + 65)[:3]
     err = max(
-        *(_jdbl_check(torch, eca, pt17, lanes)[0] for lanes in JDBL_SHAPES),
+        *(_jdbl_check(torch, eca, pt17, lanes)[0]
+          for lanes in sorted(set(JDBL_SHAPES) | set(_jdbl_edges(False)))),
         _errs(torch, eca.jdbl_n(*pt[:3], 3), eca.jdbl_n_plain(*pt[:3], 3)),
         _errs(torch, eca.jadd(*pt), eca.jadd_plain(*pt)),
         _errs(torch, eca.affine_add(*pair, inv), eca.affine_add_plain(*pair, inv)),
@@ -863,7 +927,8 @@ def ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv) -> dict:
     if torch.equal(eca.jdbl(*pt[:3])[0], ec.jdbl(*pt[:3])[0]):
         fail("a != 0 does not reach the doubling")
     say(f"kernels jdbl_n, jadd, affine_add [BN254 Fq, a = 0x1234567] 2^14 lanes, jdbl at "
-        f"{', '.join(map(str, JDBL_SHAPES))} lanes, jadd at the chunk's shapes and "
+        f"{', '.join(map(str, sorted(set(JDBL_SHAPES) | set(_jdbl_edges(False)))))} lanes, "
+        "jadd at the chunk's shapes and "
         f"2^{CHUNK_LOG}, bucket_reduce at the fused aggregate's 25 x 1025: max_abs_err={err}")
     if err:
         fail("a kernel differs from its plain version over a curve with a != 0")
@@ -1811,6 +1876,8 @@ def main() -> None:
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     source.update(batch_inv="batch_inv.cuh", fq2_batch_inv="batch_inv.cuh")
     source.update({k: "madd.cuh" for k in ("madd", "fq2_madd", "fixed_base", "fq2_fixed_base")})
+    source.update(affine_add="affine_add.cuh", fq2_affine_add="affine_add.cuh",
+                  jdbl="warp.cuh", fq2_jdbl="warp.cuh")
     kernels = []
     for name in names:
         rows = kres[name]

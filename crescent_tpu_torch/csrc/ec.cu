@@ -25,19 +25,21 @@
 // validity flags are (N,) int32.  Every result is canonical, so it is
 // bit-equal to the TPU kernel's on the same inputs.
 //
-// One thread per lane but for `jdbl_n` and `jadd` (several threads a lane,
-// warp.cuh): it loads its rows with 128-bit accesses (adjacent threads on
-// adjacent rows), keeps every intermediate of the formula in registers and
-// stores the result rows.  No lane padding (a bounds check), the curve
-// constants arrive by value in the constant bank, and `jdbl_n`'s count is
-// a kernel argument.
+// One thread per lane but for `jdbl_n`, `jadd` and `jdbl` (several threads
+// a lane, warp.cuh): it loads its rows with 128-bit accesses (adjacent
+// threads on adjacent rows), keeps every intermediate of the formula in
+// registers and stores the result rows.  No lane padding (a bounds check),
+// the curve constants arrive by value in the constant bank, and `jdbl_n`'s
+// count is a kernel argument.
 //
 // What bounds them on this card.  `affine_denom` (4 rows in, 1 out, a few
 // subtractions) is bound by bytes.  `affine_add` (5 rows in, 2 out, three
-// products) sits near the point where integer multiply-adds overtake
-// bytes.  `madd` (5 rows in, 3 out, eleven products) and `fixed_base`
-// (a scalar in, three rows out, eleven products a nonzero window, the
-// table rows from L2) are bound by operations: madd.cuh runs them one
+// dependent products on a chord) was bound by the issue of its integer
+// instructions: affine_add.cuh runs it one thread a lane with PTX carry
+// chains in its sums and x^2 only on a warp with a valid tangent lane.
+// `madd` (5 rows in, 3 out, eleven products) and `fixed_base` (a scalar
+// in, three rows out, eleven products a nonzero window, the table rows
+// from L2) are bound by operations: madd.cuh runs them one
 // thread a lane on warp.cuh's `madd_rounds`, their rare doubling a call
 // of its own taken only by lanes with P == Q.  `bucket_reduce` (a window of the dense bucket table, 12,298
 // additions in 21 dependent levels at c = 11) is bound by the latency of
@@ -70,6 +72,14 @@
 //     shuffles and warp votes for the carries, and the sums between the
 //     rounds as PTX carry chains; an instance for a == 0 (the BN254 curves)
 //     and one for a != 0.  63 and 58 registers, no spills.
+//   * `jdbl` (pallas_ec.py:545, `_dbl_kernel`; op :735) runs verify's
+//     public-input MSM and the small MSM's scalar_mul, 256 launches of 1 to
+//     1,024 lanes each.  One thread a lane ran dbl-2007-bl's eight products
+//     in a row there.  It is warp.cuh's `launch_jdbl_lanes`, as over Fq2:
+//     the `jdbl_n` lane body with one doubling (a warp a lane) on few
+//     lanes, four product threads a lane on more, and point.cuh's one
+//     thread a lane where the card is full (the switch-overs measured,
+//     PERF.md); a == 0 and a != 0 instances.
 //   * `jadd` (pallas_ec.py:505, `_jadd_kernel`, body :300; op :670) runs
 //     the bucket aggregate and the window combine, 27 launches a chunk of
 //     25,625 lanes (11), 12,800 down to 25 (10) and 16 down to 1 (6).
@@ -94,6 +104,7 @@
 
 #include <cstdint>
 
+#include "affine_add.cuh"
 #include "batch_inv.cuh"
 #include "bucket.cuh"
 #include "field.cuh"
@@ -158,8 +169,9 @@ extern "C" int crescent_affine_add(const uint32_t* curve26, const void* lx,
                                    const void* rv, const void* inv, void* ox,
                                    void* oy, void* ov, long long n,
                                    void* stream) {
-  return crescent::launch_affine_add<Fe>(curve26, lx, ly, lv, rx, ry, rv, inv,
-                                         ox, oy, ov, n, stream);
+  // one thread a lane (affine_add.cuh)
+  return crescent::launch_affine_add<Fe>(curve26, lx, ly, lv, rx, ry, rv, inv, ox, oy, ov, n,
+                                         stream);
 }
 
 extern "C" int crescent_jadd(const uint32_t* curve26, const void* x1,
@@ -190,7 +202,12 @@ extern "C" int crescent_jdbl_n(const uint32_t* curve26, const void* x,
 extern "C" int crescent_jdbl(const uint32_t* curve26, const void* x,
                              const void* y, const void* z, void* ox, void* oy,
                              void* oz, long long n, void* stream) {
-  return crescent::launch_jdbl<Fe>(curve26, x, y, z, ox, oy, oz, n, stream);
+  // several threads a lane on few lanes, the design by the lane count
+  // (warp.cuh), a == 0 and a != 0
+  const Curve C = make_curve(curve26);
+  return C.a_is_zero
+             ? crescent::launch_jdbl_lanes<Fe, true>(C, x, y, z, ox, oy, oz, n, stream)
+             : crescent::launch_jdbl_lanes<Fe, false>(C, x, y, z, ox, oy, oz, n, stream);
 }
 
 extern "C" int crescent_madd(const uint32_t* curve26, const void* x1,

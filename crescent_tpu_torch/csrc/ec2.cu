@@ -212,8 +212,8 @@ extern "C" int crescent_fq2_affine_add(const uint32_t* curve26, const void* lx,
                                        void* ox, void* oy, void* ov,
                                        long long n, void* stream) {
   // two threads a lane, a half element each (affine_add.cuh)
-  return crescent::launch_affine_add_halves(curve26, lx, ly, lv, rx, ry, rv, inv, ox, oy,
-                                            ov, n, stream);
+  return crescent::launch_affine_add<Fe2>(curve26, lx, ly, lv, rx, ry, rv, inv, ox, oy, ov, n,
+                                          stream);
 }
 
 extern "C" int crescent_fq2_jadd(const uint32_t* curve26, const void* x1,

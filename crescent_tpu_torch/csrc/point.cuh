@@ -3,7 +3,7 @@
 //
 // The reference writes each formula once and runs it over `_F` or `_F2`
 // (crescent_tpu/ops/pallas_ec.py: `_double` :243, `_jadd_body` :300,
-// `_affine_denom_body` :408, `_affine_add_body` :421);
+// `_affine_denom_body` :408);
 // here each is a template over F, built on field.cuh's overloads and
 // `FieldRow<F>` (row width, loads, stores, base constants), so one body
 // compiles into the Fq kernels of ec.cu and the Fq2 kernels of ec2.cu.
@@ -13,7 +13,10 @@
 // runs in rounds on several threads a lane (warp.cuh `jadd_sum` and
 // `jadd_rounds`), for `jadd` and for `bucket_reduce` (bucket.cuh), and the
 // mixed addition `_madd_body` :261 in rounds too (warp.cuh `madd_sum` and
-// `madd_rounds`), for `madd` and `fixed_base` (madd.cuh).
+// `madd_rounds`), for `madd` and `fixed_base` (madd.cuh).  The pair
+// additions `_affine_add_body` :421 are affine_add.cuh's, and the one
+// doubling `jdbl` runs on warp.cuh's `launch_jdbl_lanes` (`jdbl_kernel`
+// below is its one-thread executor).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -100,43 +103,8 @@ __global__ void affine_denom_kernel(Curve C, const uint4* lx, const uint4* ly,
   Row::store(out + V * i, d);
 }
 
-// Affine L + R given inv = 1/denominator (pallas_ec._affine_add_body):
-// chord, tangent (3x^2 + a; a a base-field constant), infinity for L == -R,
-// passthrough of the one valid side.
-template <class F>
-__global__ void affine_add_kernel(Curve C, const uint4* lx, const uint4* ly,
-                                  const int* lv, const uint4* rx,
-                                  const uint4* ry, const int* rv,
-                                  const uint4* inv, uint4* ox, uint4* oy,
-                                  int* ov, long long n) {
-  const long long i = lane();
-  if (i >= n) return;
-  typedef FieldRow<F> Row;
-  constexpr int V = Row::kVec;
-  const Mod& M = C.M;
-  const F Lx = Row::load(lx + V * i), Ly = Row::load(ly + V * i);
-  const F Rx = Row::load(rx + V * i), Ry = Row::load(ry + V * i);
-  const bool l = lv[i] != 0, r = rv[i] != 0;
-  const bool both = l && r;
-  const bool same_x = fe_is_zero(fe_sub(Rx, Lx, M));
-  const bool same_y = fe_is_zero(fe_sub(Ry, Ly, M));
-  const bool dbl_case = same_x && same_y;
-  const bool inf_case = same_x && !same_y;
-
-  const F xx = fe_sqr(Lx, M);
-  F num_dbl = fe_add(fe_add(xx, xx, M), xx, M);
-  if (!C.a_is_zero) num_dbl = fe_add(num_dbl, Row::from_base(C.a), M);
-  const F num = fe_select(dbl_case, num_dbl, fe_sub(Ry, Ly, M));
-  const F lam = fe_mont_mul(num, Row::load(inv + V * i), M);
-  const F x3 = fe_sub(fe_sub(fe_sqr(lam, M), Lx, M), Rx, M);
-  const F y3 = fe_sub(fe_mont_mul(lam, fe_sub(Lx, x3, M), M), Ly, M);
-
-  Row::store(ox + V * i, fe_select(both, x3, fe_select(l, Lx, Rx)));
-  Row::store(oy + V * i, fe_select(both, y3, fe_select(l, Ly, Ry)));
-  ov[i] = ((l || r) && !(both && inf_case)) ? 1 : 0;
-}
-
-// One doubling.
+// One doubling a lane on one thread (launch_jdbl_lanes's executor of the
+// widest launches, where it takes one: warp.cuh).
 template <class F>
 __global__ void jdbl_kernel(Curve C, const uint4* x, const uint4* y,
                             const uint4* z, uint4* ox, uint4* oy, uint4* oz,
@@ -178,8 +146,7 @@ inline Words8 words8(const uint32_t* w) {
 
 // Host-side launches of the point kernels over F, behind the C entry points
 // of ec.cu (Fe) and ec2.cu (Fe2): pointers to device memory, the caller's
-// stream; each returns cudaGetLastError().  They run kThreads a block
-// (`jdbl_n`, a warp a lane, is warp.cuh's).
+// stream; each returns cudaGetLastError().  They run kThreads a block.
 typedef const uint4* In;
 typedef uint4* Out;
 
@@ -193,32 +160,6 @@ int launch_affine_denom(const uint32_t* curve26, const void* lx,
                              (cudaStream_t)stream>>>(
         make_curve(curve26), (In)lx, (In)ly, (const int*)lv, (In)rx, (In)ry,
         (const int*)rv, (Out)out, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class F>
-int launch_affine_add(const uint32_t* curve26, const void* lx, const void* ly,
-                      const void* lv, const void* rx, const void* ry,
-                      const void* rv, const void* inv, void* ox, void* oy,
-                      void* ov, long long n, void* stream) {
-  if (n > 0) {
-    affine_add_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        make_curve(curve26), (In)lx, (In)ly, (const int*)lv, (In)rx, (In)ry,
-        (const int*)rv, (In)inv, (Out)ox, (Out)oy, (int*)ov, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class F>
-int launch_jdbl(const uint32_t* curve26, const void* x, const void* y,
-                const void* z, void* ox, void* oy, void* oz, long long n,
-                void* stream) {
-  if (n > 0) {
-    jdbl_kernel<F><<<grid_for(n, kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>(
-        make_curve(curve26), (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
   }
   return (int)cudaGetLastError();
 }

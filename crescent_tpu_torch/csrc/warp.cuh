@@ -1074,17 +1074,23 @@ int launch_jadd_lanes(const Curve& C, const void* x1, const void* y1, const void
 // thread a lane runs the doubling's products in a row (8 over Fq, 17 base
 // products over Fq2) on at most 8 of the card's 132 SMs at these lane
 // counts: bound by that chain's latency, which the rounds cut to three
-// products.  Fq2's `jdbl` launches here (ec2.cu); Fq's keeps point.cuh's
-// one thread a lane (ec.cu; scripts/chain_designs.py `fq_jdbl_lanes` times
-// it here).
+// products.  Both fields' `jdbl` launch here (ec.cu, a == 0 and a != 0;
+// ec2.cu).  The switch-overs lie where the executors were measured to cross
+// on the card (PERF.md, scripts/chain_designs.py `jdbl_groups`,
+// `jdbl_threads`, `jdbl_one_thread`): over Fq groups up to 512 lanes
+// (product threads from 768), one thread from 32,768 (product threads at
+// 16,384); over Fq2 groups up to 256, product threads above (one thread
+// 1.07x at 2^17).
 template <class F>
-constexpr long long kJdblGroupLanesMax = 256;
+constexpr long long kJdblGroupLanesMax = 512;
+template <>
+constexpr long long kJdblGroupLanesMax<Fe2> = 256;
 template <class F>
 constexpr int kJdblProductThreads = 4;
 template <>
 constexpr int kJdblProductThreads<Fe2> = 8;
 template <class F>
-constexpr long long kJdblOneThreadLanesMin = 16384;
+constexpr long long kJdblOneThreadLanesMin = 32768;
 template <>
 constexpr long long kJdblOneThreadLanesMin<Fe2> = 0;
 

@@ -47,8 +47,10 @@ Point ops (``csrc/ec.cu``), on y^2 = x^3 + a*x + b over the field:
 base and the G2 MSM of ``prove``.  The point ops of both classes share their wrappers
 (``_Kernels``), their plain versions (the formula bodies below) and their
 CUDA bodies (``csrc/point.cuh``; ``jdbl_n`` a warp a lane over Fq, two
-over Fq2, and ``jadd`` several threads a lane, in ``csrc/warp.cuh``, and
-``inv`` the divsteps of ``csrc/field.cuh``, over Fq2 on the norm).
+over Fq2, and ``jadd`` and ``jdbl`` several threads a lane, in
+``csrc/warp.cuh``; ``affine_add`` one thread a lane over Fq and two over
+Fq2 in ``csrc/affine_add.cuh``; and ``inv`` the divsteps of
+``csrc/field.cuh``, over Fq2 on the norm).
 
 Tensors are packed (N, 8) int32 word rows (``ops/limb.py``), (N, 16) over
 Fq2, canonical, Montgomery form where the op needs it; validity flags are

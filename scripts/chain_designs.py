@@ -6,7 +6,7 @@ Fq2 `affine_add` (csrc/affine_add.cuh) over Fq and Fq2 against this
 checkout's, in turns, on one card.
 
     python3 scripts/chain_designs.py [--rounds N] [--designs NAME ...]
-        [--kernels NAME ...]
+        [--kernels NAME ...] [--also ROOT ...]
 
 Each design is a copy of this checkout's `crescent_tpu_torch/` under
 `build/designs/<name>/` (gitignored) with one change to `csrc/warp.cuh`,
@@ -65,26 +65,33 @@ Each design is a copy of this checkout's `crescent_tpu_torch/` under
   (`fe_add_cc`, `fe_sub_cc`);
 * `aadd_min5`: the Fq2 `affine_add` held to five blocks of 128 threads an
   SM (`__launch_bounds__(128, 5)`: at most 102 registers);
-* `aadd_one_thread`: the Fq2 `affine_add` on point.cuh's one thread a
-  lane (the kernel before affine_add.cuh's two threads a lane), with the
-  tangent's x^2 computed only where a lane of the warp is a tangent (Fq's
-  `affine_add`, the same template, takes that change too);
-* `fq_jdbl_lanes`: Fq `jdbl` on warp.cuh's `launch_jdbl_lanes` (the
-  `jdbl_n` lane body, a warp's groups, up to kJdblGroupLanesMax lanes,
-  four product threads to kJdblOneThreadLanesMin, one thread a lane
-  above), as Fq2's runs, in place of point.cuh's one thread a lane;
+* `aadd_fq_ptx_product`: the Fq `affine_add`'s products by a CIOS with PTX
+  carry chains (`fe_mont_mul_cc`: mad.lo.cc / madc.hi.cc, two
+  multiply-adds a word and no 64-bit additions) in place of field.cuh's
+  `fe_mont_mul` (64-bit accumulators);
+* `aadd_fq_64`: the Fq `affine_add` on blocks of 64 threads in place of
+  128 (twice the blocks, spread more evenly over the SMs at the chunk's
+  narrow widths);
+* `aadd_fq_field_sums`: the Fq `affine_add`'s sums and differences by
+  field.cuh's `fe_add` / `fe_sub` in place of `fe_add_cc` / `fe_sub_cc`;
+* `aadd_fq_x2_always`: the Fq `affine_add` computing x^2 on every lane (the
+  kernel before it computed it so) in place of only on a warp with a
+  tangent lane;
+* `aadd_fq_min6`: the Fq `affine_add` held to six blocks of 128 threads an
+  SM (`__launch_bounds__(kThreads, 6)`: at most 80 registers);
 * `jdbl_groups`, `jdbl_threads`, `jdbl_one_thread`: `jdbl` over Fq and
   Fq2 on launch_jdbl_lanes's groups (a warp a lane over Fq, two over Fq2),
   its product threads (four over Fq, eight over Fq2) or point.cuh's one
-  thread a lane (Fq2's kernel before launch_jdbl_lanes) at every lane
-  count, which time the switch-overs.
+  thread a lane (both fields' kernel before launch_jdbl_lanes) at every
+  lane count, which time the switch-overs.
 
 The designs are built at once with this checkout (one nvcc a source), then
 `scripts/time_chain_kernels.py --turns` checks every build bit-equal to the
 plain versions (`batch_inv` to the card's tree of `mul` and `inv`) and
 times `inv`, `jdbl_n`, `jadd` and `batch_inv` (or the `--kernels` given)
-over Fq and Fq2 at a chunk's shapes, this checkout and the designs in
-turns.
+over Fq and Fq2 at a chunk's shapes, this checkout, the designs and the
+checkouts `--also` names (the parent, say: a `git archive` unpacked under
+the gitignored `build/`) in turns.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -269,12 +276,12 @@ AADD_RING_LAUNCH = """    static int grid = 0;
 
 
 def _aadd_ring(src: str) -> str:
-    head = "// Host side: n lanes, 2n threads"
+    head = "// Host side: n pair additions over F"
     src = _set_constant(src, head, AADD_RING + head)
     src = _set_constant(src, "#include <cuda_runtime.h>\n",
                         "#include <cuda_pipeline.h>\n#include <cuda_runtime.h>\n")
-    return _set_constant(src, """    affine_add_halves_kernel<<<grid_for(2 * n, kThreads), kThreads, 0,
-                               (cudaStream_t)stream>>>(""", AADD_RING_LAUNCH)
+    return _set_constant(src, """      affine_add_halves_kernel<true><<<grid_for(2 * n, kThreads), kThreads, 0, s>>>(""",
+                         AADD_RING_LAUNCH)
 
 
 def _field_sums(src: str) -> str:
@@ -403,26 +410,13 @@ def _jdbl_lanes(group_max: str, one_thread_min: str):
     return design
 
 
-# Fq's `jdbl` entry (ec.cu) on warp.cuh's launch_jdbl_lanes in place of
-# point.cuh's one thread a lane
-FQ_JDBL = ("  return crescent::launch_jdbl<Fe>(curve26, x, y, z, ox, oy, oz, n, stream);",
-           "  const Curve C = make_curve(curve26);\n"
-           "  return C.a_is_zero\n"
-           "      ? crescent::launch_jdbl_lanes<Fe, true>(C, x, y, z, ox, oy, oz, n, stream)\n"
-           "      : crescent::launch_jdbl_lanes<Fe, false>(C, x, y, z, ox, oy, oz, n, stream);")
+DESIGNS.update({name: _jdbl_lanes(*lanes)
+                for name, lanes in (("jdbl_groups", ("1LL << 40", "0")),
+                                    ("jdbl_threads", ("0", "0")),
+                                    ("jdbl_one_thread", ("0", "1")))})
+MULTI = {}
 
 
-def _fq_jdbl(src: str) -> str:
-    return _set_constant(src, *FQ_JDBL)
-
-
-# designs that change several files: {file under csrc/: its change}; the
-# jdbl_* designs over Fq too
-MULTI = {name: {"warp.cuh": _jdbl_lanes(*lanes), "ec.cu": _fq_jdbl}
-         for name, lanes in (("jdbl_groups", ("1LL << 40", "0")),
-                             ("jdbl_threads", ("0", "0")),
-                             ("jdbl_one_thread", ("0", "1")))}
-MULTI["fq_jdbl_lanes"] = {"ec.cu": _fq_jdbl}
 def _aadd_field_sums(src: str) -> str:
     """affine_add.cuh's sums as field.cuh's fe_add / fe_sub in place of
     warp.cuh's PTX carry chains."""
@@ -439,25 +433,105 @@ MULTI["aadd_field_sums"] = {"affine_add.cuh": _aadd_field_sums}
 MULTI["aadd_min5"] = {"affine_add.cuh": lambda src: _set_constant(
     src, "__global__ void __launch_bounds__(kThreads)\n    affine_add_halves_kernel(",
     "__global__ void __launch_bounds__(kThreads, 5)\n    affine_add_halves_kernel(")}
-MULTI["aadd_one_thread"] = {
-    "point.cuh": lambda src: _set_constant(
-        src, "  const F xx = fe_sqr(Lx, M);\n",
-        "  F xx = Row::zero();\n  if (__any_sync(__activemask(), dbl_case)) xx = fe_sqr(Lx, M);\n"),
-    "ec2.cu": lambda src: _set_constant(src, "crescent::launch_affine_add_halves(",
-                                        "crescent::launch_affine_add<Fe2>(")}
+
+
+PTX_PRODUCT = r"""// One CIOS step of fe_mont_mul_cc: t = (t + a b_i + m p) / 2^32 with
+// m = t_0 (-p^-1) mod 2^32, as one asm statement (the carry flag lives
+// only within one).  t is nine words; t + a b_i + m p <= 2^33 p - 2^32 <
+// 2^288 for p < 2^255, so neither chain carries out of t_8 (the last
+// madc.hi drops no carry).  The low halves of a_j b_i go into t_j, the high
+// halves into t_(j+1), then the same for m p_j; t_0 ends at 0 and the
+// caller's renaming shifts t down a word.
+#define CRESCENT_T9 "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), \
+                    "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+__device__ __forceinline__ void cios_step_cc(uint32_t (&t)[9], const Fe& a, uint32_t bi,
+                                             const Mod& M) {
+  asm("{\n\t.reg .u32 m;\n\t"
+      "mad.lo.cc.u32 %0, %9, %17, %0;\n\tmadc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\tmadc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\tmadc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\tmadc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %17, %1;\n\tmadc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\tmadc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\tmadc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\tmadc.hi.u32 %8, %16, %17, %8;\n\t"
+      "mul.lo.u32 m, %0, %26;\n\t"
+      "mad.lo.cc.u32 %0, m, %18, %0;\n\tmadc.lo.cc.u32 %1, m, %19, %1;\n\t"
+      "madc.lo.cc.u32 %2, m, %20, %2;\n\tmadc.lo.cc.u32 %3, m, %21, %3;\n\t"
+      "madc.lo.cc.u32 %4, m, %22, %4;\n\tmadc.lo.cc.u32 %5, m, %23, %5;\n\t"
+      "madc.lo.cc.u32 %6, m, %24, %6;\n\tmadc.lo.cc.u32 %7, m, %25, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, m, %18, %1;\n\tmadc.hi.cc.u32 %2, m, %19, %2;\n\t"
+      "madc.hi.cc.u32 %3, m, %20, %3;\n\tmadc.hi.cc.u32 %4, m, %21, %4;\n\t"
+      "madc.hi.cc.u32 %5, m, %22, %5;\n\tmadc.hi.cc.u32 %6, m, %23, %6;\n\t"
+      "madc.hi.cc.u32 %7, m, %24, %7;\n\tmadc.hi.u32 %8, m, %25, %8;\n\t}"
+      : CRESCENT_T9
+      : CRESCENT_IN8(a), "r"(bi), "r"(M.p[0]), "r"(M.p[1]), "r"(M.p[2]), "r"(M.p[3]),
+        "r"(M.p[4]), "r"(M.p[5]), "r"(M.p[6]), "r"(M.p[7]), "r"(M.inv));
+}
+#undef CRESCENT_T9
+
+// Montgomery product a b 2^-256 mod p, canonical, the value fe_mont_mul
+// computes: eight cios_step_cc, each followed by the shift down a word
+// (t < 2p after each, as in CIOS), then one conditional subtraction of p
+// (2p < 2^256: the ninth word is 0 at the end).
+__device__ __forceinline__ Fe fe_mont_mul_cc(const Fe& a, const Fe& b, const Mod& M) {
+  uint32_t t[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    cios_step_cc(t, a, b.w[i], M);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];
+    t[8] = 0;
+  }
+  Fe r, d;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = t[j];
+  const uint32_t borrow = sub_chain(d, r, fe_from(M.p));
+  return fe_select(borrow != 0, r, d);
+}
+
+"""
+
+
+def _lane_body(src: str, change) -> str:
+    """affine_add.cuh with `change` made to the Fq kernel and the launcher
+    alone."""
+    body = src[src.index("// Lane i over Fq"):]
+    return src[:len(src) - len(body)] + change(body)
+
+
+MULTI["aadd_fq_ptx_product"] = {"affine_add.cuh": lambda src: _lane_body(
+    _set_constant(src, "__device__ __forceinline__ bool fe_equal(",
+                  PTX_PRODUCT + "__device__ __forceinline__ bool fe_equal("),
+    lambda b: b.replace("fe_mont_mul(", "fe_mont_mul_cc("))}
+MULTI["aadd_fq_64"] = {"affine_add.cuh": lambda src: _lane_body(src, lambda b: _set_constant(
+    _set_constant(b, "__launch_bounds__(kThreads)", "__launch_bounds__(64)"),
+    "kernel<<<grid_for(n, kThreads), kThreads, 0, s>>>(",
+    "kernel<<<grid_for(n, 64), 64, 0, s>>>("))}
+MULTI["aadd_fq_field_sums"] = {"affine_add.cuh": lambda src: _lane_body(
+    src, lambda b: b.replace("fe_add_cc(", "fe_add(").replace("fe_sub_cc(", "fe_sub("))}
+MULTI["aadd_fq_x2_always"] = {"affine_add.cuh": lambda src: _set_constant(
+    src, "if (__any_sync(live, both && dbl_case)) {", "{")}
+MULTI["aadd_fq_min6"] = {"affine_add.cuh": lambda src: _set_constant(
+    src, "__global__ void __launch_bounds__(kThreads)\n    affine_add_lane_kernel(",
+    "__global__ void __launch_bounds__(kThreads, 6)\n    affine_add_lane_kernel(")}
 DESIGNS.update({name: None for name in MULTI})
 
 
 def make(name: str) -> str:
-    """Copy the port into build/designs/<name>/ with the design's warp.cuh
-    or batch_inv.cuh."""
+    """Copy the port into build/designs/<name>/ with the design's change to
+    its sources."""
     root = os.path.join(OUT, name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(HERE, "crescent_tpu_torch"),
                     os.path.join(root, "crescent_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    header = {"batch_inv": "batch_inv.cuh", "bucket": "bucket.cuh"}.get(name.split("_")[0],
-                                                                         "warp.cuh")
+    header = next((h for k, h in (("batch_inv", "batch_inv.cuh"), ("bucket", "bucket.cuh"))
+                   if name.startswith(k)), "warp.cuh")
     if name in MADD_DESIGNS and name not in MADD_WARP:
         header = "madd.cuh"
     for header, change in (MULTI.get(name) or {header: DESIGNS[name]}).items():
@@ -479,9 +553,11 @@ def main() -> None:
     from time_chain_kernels import KERNELS, build
 
     ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    ap.add_argument("--also", metavar="ROOT", nargs="+", default=[],
+                    help="other checkouts timed in the same turns (the parent, say)")
     args = ap.parse_args()
 
-    roots = [make(name) for name in args.designs]
+    roots = [make(name) for name in args.designs] + [os.path.abspath(r) for r in args.also]
     for root, out in build([HERE] + roots).items():
         lines = out.splitlines()
         for i, line in enumerate(lines):  # the chain kernels' registers and spills

@@ -146,7 +146,7 @@ def main() -> None:
         torch.cuda.synchronize()
     groups = defaultdict(lambda: [0.0, 0])
     ours = ("batch_inv_kernel", "mul_kernel", "inv_kernel", "affine_denom_kernel",
-            "affine_add_kernel", "affine_add_halves_kernel", "jadd_kernel", "jdbl_n_kernel",
+            "affine_add_lane_kernel", "affine_add_halves_kernel", "jadd_kernel", "jdbl_n_kernel",
             "jdbl_kernel", "butterfly_kernel")
     rows = []
     for ev in prof.key_averages():

@@ -31,10 +31,11 @@ times), the fixed base's 32 windows at 2^16 scalars (`fixed_base` where
 the port has it, and the chain of 32 row gathers and `madd` launches it
 replaces, both equal to the plain chain on their first 2^12 lanes), and
 `madd` at setup's 2^16 lanes, `jdbl` at 1 (verify's public input),
-1,024 (the small MSM) and 2^17 lanes and at 32 to 16,384 between,
-`affine_denom` and `affine_add` at a chunk's first pair level of 2^21
-lanes (`affine_add` also at a chunk's 22 pair-level calls, one graph of
-the 22), each equal to its plain version on its first 2^12 lanes; times
+1,024 (the small MSM) and 2^17 lanes and at 32 to 65,536 between (its
+executors' switch-overs), `affine_denom` and `affine_add` at a chunk's
+first pair level of 2^21 lanes (`affine_add` also at a chunk's 22
+pair-level calls, one graph of the 22, and at each of their narrower
+widths alone), each equal to its plain version on its first 2^12 lanes; times
 each by CUDA events
 around a CUDA graph of many launches (a mean, after a warm-up: the
 kernels' time on the card without the host's time a call; `jadd` on
@@ -224,7 +225,9 @@ def _fixed_base(ec, prefix, root, elems, time_ms, out) -> None:
 # callers' (verify's one lane, the small MSM's 1,024), at 2^17 and between
 # (its executors' switch-overs), the pair kernels at a chunk's first pair
 # level
-OLDER_LANES = {"madd": (1 << 16,), "jdbl": (1, 32, 128, 256, 512, 1024, 4096, 16384, 1 << 17)}
+OLDER_LANES = {"madd": (1 << 16,),
+               "jdbl": (1, 32, 128, 255, 256, 257, 384, 512, 768, 1024, 4096, 8192, 16384,
+                        32768, 65536, 1 << 17)}
 
 
 def _older(ec, prefix, name, root, elems, time_ms, out) -> None:
@@ -263,9 +266,14 @@ def _older_at(ec, prefix, name, lanes, root, elems, time_ms, out) -> None:
     out[f"{prefix}{name} {lanes} lanes"] = time_ms(lambda: fn(*args),
                                                    max(10, min(REPS, (1 << 24) // lanes)))
     if name == "affine_add":  # a chunk's 22 calls: 2 mn and mn lanes a round
-        calls = [tuple(a[:w] for a in args) for w in _chunk_batch_inv_shapes()]
+        widths = _chunk_batch_inv_shapes()
+        calls = [tuple(a[:w] for a in args) for w in widths]
         out[f"{prefix}affine_add a chunk ({len(calls)} calls)"] = time_ms(
             lambda: [fn(*c) for c in calls], 5)
+        for w in sorted(set(widths), reverse=True)[1:]:  # each narrower width alone
+            part = tuple(a[:w] for a in args)
+            out[f"{prefix}affine_add {w} lanes"] = time_ms(
+                lambda: fn(*part), max(10, min(REPS, (1 << 24) // w)))
 
 
 def _jadd(ec, prefix, root, elems, time_ms, out) -> None:

@@ -776,14 +776,15 @@ def test_cuda_chunk_batch_inv_launches(cuda, group):
     assert (grew["batch_inv"], grew["mul"], grew["inv"]) == (22, 0, 0)
 
 
-def _planted_warp_pairs(ec, n: int, seed: int, device):
+def _planted_warp_pairs(ec, n: int, seed: int, device, warp: int = 16):
     """Affine pairs of n seeded lanes (about one side in 64 invalid) with the
-    cases planted warp by warp, a warp being 16 lanes of the Fq2 kernel's
-    two threads a lane: warp w < 16 holds L == R, L == -R, left only, right
-    only, neither and L == R on an invalid side from position w on (each
-    case at every position), warps 16..19 L == -R alone (no tangent lane),
-    warps 20..23 one L == R lane alone; then the same pattern again in the
-    last 24 warps of each 2^14 lanes."""
+    cases planted warp by warp, a warp being `warp` lanes of the kernel (16
+    over Fq2: two threads a lane; 32 over Fq: one): warp w < `warp` holds
+    L == R, L == -R, left only, right only, neither and L == R on an invalid
+    side from position w on (each case at every position), the next four
+    warps L == -R alone (no tangent lane), the four after them one L == R
+    lane alone; then the same pattern again in the last warps of each 2^14
+    lanes."""
     width = ec.WIDTH
     lx, ly, rx, ry = (_rows(n, width, seed + k, device) for k in range(4))
     rng = np.random.default_rng(seed + 9)
@@ -791,11 +792,12 @@ def _planted_warp_pairs(ec, n: int, seed: int, device):
               for _ in range(2))
     cases = ("tangent", "opposite", "left_only", "right_only", "neither", "tangent_invalid")
     lanes = {c: [] for c in cases}
-    for base in sorted({0} | set(range((1 << 14) - 24 * 16, n - 24 * 16 + 1, 1 << 14))):
-        for w in range(24):
-            plant = cases if w < 16 else ("opposite",) if w < 20 else ("tangent",)
+    warps = warp + 8
+    for base in sorted({0} | set(range((1 << 14) - warps * warp, n - warps * warp + 1, 1 << 14))):
+        for w in range(warps):
+            plant = cases if w < warp else ("opposite",) if w < warp + 4 else ("tangent",)
             for k, case in enumerate(plant):
-                i = base + 16 * w + (w + k) % 16
+                i = base + warp * w + (w + k) % warp
                 if i < n:
                     lanes[case].append(i)
     flags = {"left_only": (1, 0), "right_only": (0, 1), "neither": (0, 0),
@@ -812,15 +814,18 @@ def _planted_warp_pairs(ec, n: int, seed: int, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("field", ["Fq", "Fq2"])
 def test_cuda_affine_add_chunk_widths_match_plain(cuda, field):
-    """`affine_add` over Fq (point.cuh, one thread a lane) and Fq2
-    (affine_add.cuh, two threads a lane, a half element each) at the
-    widths of a chunk's 22 pair-level calls and at 2^21 lanes, against
-    affine_add_plain, the cases planted at every position of a warp,
-    warps with one tangent lane and warps with none among them."""
+    """`affine_add` over Fq (affine_add.cuh, one thread a lane, x^2 only
+    on a warp with a valid tangent lane) and Fq2 (affine_add.cuh, two
+    threads a lane, a half element each) at the widths of a chunk's 22
+    pair-level calls and at 2^21 lanes, against affine_add_plain, the cases
+    planted at every position of the kernel's warp (32 lanes over Fq, 16
+    over Fq2), warps with one tangent lane and warps with none among them.
+    The Fq kernel takes one design at every width, so it has no switch
+    width to hold apart."""
     ec = get_cuda_quad_ec(fields.BN254_FQ) if field == "Fq2" else get_cuda_ec(fields.BN254_FQ)
     widths = _chunk_batch_inv_shapes()
     assert len(widths) == 22 and max(widths) == 1 << 21
-    pair = _planted_warp_pairs(ec, 1 << 21, 97, cuda)
+    pair = _planted_warp_pairs(ec, 1 << 21, 97, cuda, 16 if field == "Fq2" else 32)
     inv = ec.inv(ec.affine_denom(*pair))  # a lane each: no batch_inv shape rule
     before = ec.affine_add_launches
     for lanes in sorted(set(widths), reverse=True):
@@ -832,17 +837,22 @@ def test_cuda_affine_add_chunk_widths_match_plain(cuda, field):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 31, 32, 33, 1024, 1 << 17])
+@pytest.mark.parametrize("lanes", [1, 31, 32, 33, 255, 256, 257, 511, 512, 513, 1024, 32767,
+                                   32768, 32769, 1 << 17])
 @pytest.mark.parametrize("field, a", [("Fq", 0), ("Fq", 0x1234567), ("Fq2", 0)],
                          ids=["a0", "a_nonzero", "fq2"])
 def test_cuda_jdbl_lane_counts_match_plain(cuda, field, a, lanes):
-    """`jdbl` over Fq (point.cuh, one thread a lane), a = 0 and a != 0,
-    and over Fq2 (warp.cuh `launch_jdbl_lanes`: two warps a lane on few
-    lanes, eight product threads on more) at 1 (verify's public input), 31,
-    32, 33, 1,024 (the small MSM) and 2^17 lanes, identities (Z = 0)
-    planted in lanes 3 and 5 and the last: against jdbl_plain, and against
-    jadd(P, P) off the identities, where the doubling must keep Z = 0; one
-    lane runs a seeded lane and an identity alone."""
+    """`jdbl` over Fq, a = 0 and a != 0, and over Fq2, both on warp.cuh's
+    `launch_jdbl_lanes` (the jdbl_n lane body, a warp a lane over Fq and
+    two over Fq2, up to kJdblGroupLanesMax lanes; product threads above;
+    over Fq one thread a lane from kJdblOneThreadLanesMin on), at 1
+    (verify's public input), 31, 32, 33, 255, 256, 257 and 511, 512, 513
+    (the group switches over Fq2 and Fq), 1,024 (the small MSM), 32,767,
+    32,768, 32,769 (the one-thread switch over Fq) and 2^17 lanes,
+    identities (Z = 0) planted in lanes 3 and 5 and the last: against
+    jdbl_plain, and against jadd(P, P) off the identities, where the
+    doubling must keep Z = 0; one lane runs a seeded lane and an identity
+    alone."""
     n = max(lanes, 7)
     if field == "Fq2":
         ec = get_cuda_quad_ec(fields.BN254_FQ)
