@@ -108,7 +108,25 @@
    `jadd` launches, which must give the same proof; `verify` under
    CRESCENT_NATIVE=0 then takes the public-input MSM on the card (the
    direct path: `jdbl`'s caller).
-8. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+8. CRESCENT_NATIVE=0 at dummy_circuit(15): `setup` takes its host branch
+   (Python QAP evaluations and h scalars; both fixed-base batches by
+   fixed_base_mul's double-and-add on the card, 256 `jadd` and 256 `jdbl`
+   launches over Fq (2^18 lanes) and over Fq2 (2^16), no `fixed_base`),
+   and its key must equal the default route's (the device branch) from
+   the same seed; `prove` takes the Python matvec (`_compute_h`) and its
+   proof must equal the default route's for the same r and s, and verify.
+   `jadd` and `jdbl` are also held against their plain versions and timed
+   at fixed_base_mul's widths (256, 2^18 over Fq; 2^16 over Fq2).
+9. The show path at rs256's public-IO shape (show_circuit: 17 revealed
+   RSA-2048 modulus limbs of 121 bits, a committed expiry, two hidden
+   claim values, 2^16 constraints): setup and prove on the card, the
+   32-bit range setup natively and under CRESCENT_NATIVE=0 (its two KZG
+   batches of 256 lanes on the card; the keys must be equal), then
+   show_groth16 and show_range of the expiry shifted by the current time,
+   as credentials/api.py create_show_proof builds them; both must verify,
+   and a tampered revealed input must not.  Prints the show and verify
+   seconds with the card's name and power limit.
+10. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
 """
@@ -125,6 +143,9 @@ import time
 LOG_SIZE = 21      # dummy_circuit(21): domain 2^21
 SMALL_LOG = 8      # cross-check circuit, card vs CPU
 SETUP_LOG = 14     # setup cross-check circuit, device branch vs native
+NATIVE_OFF_LOG = 15  # setup and prove under CRESCENT_NATIVE=0 (the host branch)
+SHOW_LOG = 16      # the show circuit: rs256's public IOs, padded to 2^16 constraints
+RANGE_BITS = 32    # the show's range proof (not expired)
 FB_CHUNK_LOG = 16  # the reference's fixed-base chunk: lanes of the madd checks
 SEED = 20261016
 REPS = 50
@@ -1278,6 +1299,19 @@ def fixed_base_phase(torch, curves, nb) -> None:
             "sampled rows equal the native fixed base")
 
 
+def _keys_differ(a, b) -> str | None:
+    """The first table or key element in which two proving keys differ
+    (lists and ArrayPointVecs compare by value), or None."""
+    for f in ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query", "beta_g1",
+              "delta_g1"):
+        if getattr(a, f) != getattr(b, f):
+            return f
+    for f in ("alpha_g1", "beta_g2", "gamma_g2", "delta_g1", "delta_g2", "gamma_abc_g1"):
+        if getattr(a.vk, f) != getattr(b.vk, f):
+            return "vk." + f
+    return None
+
+
 def setup_crosscheck(torch, groth16) -> None:
     """dummy_circuit(SETUP_LOG): the device branch's key equals the native
     branch's, table for table, from one seed."""
@@ -1293,14 +1327,9 @@ def setup_crosscheck(torch, groth16) -> None:
 
     if not isinstance(pk_dev.a_query, ArrayPointVec):
         fail("setup of dummy_circuit(14) on the card did not take the device branch")
-    for f in ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query"):
-        if getattr(pk_dev, f) != getattr(pk_nat, f):
-            fail(f"setup cross-check: {f} of the device branch differs from the native one")
-    for f in ("alpha_g1", "beta_g2", "gamma_g2", "delta_g1", "delta_g2", "gamma_abc_g1"):
-        if getattr(pk_dev.vk, f) != getattr(pk_nat.vk, f):
-            fail(f"setup cross-check: vk.{f} of the device branch differs from the native one")
-    if (pk_dev.beta_g1, pk_dev.delta_g1) != (pk_nat.beta_g1, pk_nat.delta_g1):
-        fail("setup cross-check: beta_g1 / delta_g1 differ")
+    diff = _keys_differ(pk_dev, pk_nat)
+    if diff:
+        fail(f"setup cross-check: {diff} of the device branch differs from the native one")
     say(f"setup cross-check dummy_circuit({SETUP_LOG}) ({r1cs.num_vars} vars): device branch "
         f"{dev_s:.3f} s, native branch {nat_s:.3f} s, keys equal table for table")
 
@@ -1613,6 +1642,242 @@ def small_crosscheck(torch, groth16) -> None:
         "on the card, the native configuration on the card and the CPU; verify ok")
 
 
+# fixed_base_mul's double-and-add (CurveCtx.scalar_mul: one jadd and one jdbl
+# a scalar bit) at its callers' widths: the range setup's two KZG batches
+# (129 and 130 scalars, 256 lanes), and the host branch's batches at
+# dummy_circuit(NATIVE_OFF_LOG): G1 3 nv + 2^15 + 2 scalars in 2^18 lanes,
+# G2 nv + 3 in 2^16
+SCALAR_MUL_SHAPES = {"": (256, 1 << (NATIVE_OFF_LOG + 3)), "fq2_": (1 << (NATIVE_OFF_LOG + 1),)}
+
+
+def scalar_mul_kernel_phase(torch, ec, label: str, prefix: str, seed: int, out: dict) -> None:
+    """`jadd` and `jdbl` against their plain versions at fixed_base_mul's
+    widths (SCALAR_MUL_SHAPES), the cases planted in the first lanes (P + P,
+    P + (-P), the identity on either side and both; identities doubled),
+    each timed as a CUDA graph of its launches."""
+    fq2 = ec.WIDTH == 16
+    e, sqr, mul = (64, 2, 3) if fq2 else (32, 1, 1)
+    for lanes in SCALAR_MUL_SHAPES[prefix]:
+        pq = _point_inputs(torch, ec, lanes, seed + lanes)
+        got = ec.jadd(*pq)
+        torch.cuda.synchronize()
+        want, plain_ms = _timed_once(torch, lambda: ec.jadd_plain(*pq))
+        _record(out, prefix + "jadd", label, f"{lanes} lanes (scalar_mul)", _errs(torch, got, want),
+                _graph_ms(torch, lambda: ec.jadd(*pq), REPS), plain_ms,
+                9 * e * lanes, (5 * sqr + 11 * mul) * MONT_MUL_MADS * lanes)
+        err, pl = _jdbl_check(torch, ec, pq[:3], lanes)
+        _, plain_ms = _timed_once(torch, lambda: ec.jdbl_plain(*pl))
+        _record(out, prefix + "jdbl", label, f"{lanes} lanes (scalar_mul)", err,
+                _graph_ms(torch, lambda: ec.jdbl(*pl), REPS), plain_ms,
+                6 * e * lanes, (7 * sqr + mul) * MONT_MUL_MADS * lanes)
+
+
+def native_off_phase(torch, groth16, reset, counts, card: str) -> dict:
+    """(a) dummy_circuit(NATIVE_OFF_LOG) set up and proved with the native
+    backend off (CRESCENT_NATIVE=0), the reference's route there: setup's
+    host branch (Python QAP evaluations and h scalars, both fixed-base
+    batches by fixed_base_mul's double-and-add on the card: 256 `jadd` and
+    256 `jdbl` launches a batch, over Fq and over Fq2), and prove's h(x)
+    from the Python matvec.  The key must equal the default route's (the
+    device branch) from the same seed, the proof with fixed r and s the
+    default route's, and it must verify.  Returns each run's launches."""
+    from crescent_tpu_torch.utils.pointvec import ArrayPointVec
+
+    r1cs, z = groth16.dummy_circuit(NATIVE_OFF_LOG, random.Random(SEED + 210))
+    nv, dom_n = r1cs.num_vars, groth16._domain_for(r1cs).n
+    t0 = time.perf_counter()
+    pk = groth16.setup(r1cs, random.Random(SEED + 211), device="cuda")
+    default_s = time.perf_counter() - t0
+    if not isinstance(pk.a_query, ArrayPointVec):
+        fail(f"setup of dummy_circuit({NATIVE_OFF_LOG}) did not take the device branch")
+    reset()
+    timings: dict = {}
+    t0 = time.perf_counter()
+    pk_off = _with_env("CRESCENT_NATIVE", "0", lambda: groth16.setup(
+        r1cs, random.Random(SEED + 211), device="cuda", timings=timings))
+    off_s = time.perf_counter() - t0
+    setup_launches = counts()
+    if isinstance(pk_off.a_query, ArrayPointVec) or "g1_fixed_base" not in timings:
+        fail("setup under CRESCENT_NATIVE=0 did not take the host branch")
+    for k in ("jadd", "jdbl", "fq2_jadd", "fq2_jdbl"):
+        if setup_launches[k] != 256:
+            fail(f"setup under CRESCENT_NATIVE=0 launched {k} {setup_launches[k]} times, "
+                 "not once a scalar bit of its one batch")
+    if any(setup_launches[k] for k in ("fixed_base", "fq2_fixed_base", "madd", "fq2_madd")):
+        fail("setup under CRESCENT_NATIVE=0 launched the device branch's fixed base")
+    diff = _keys_differ(pk_off, pk)
+    if diff:
+        fail(f"setup under CRESCENT_NATIVE=0: {diff} differs from the default route's key")
+    g1_n, g2_n = 3 * nv + dom_n + 2, nv + 3
+    say(f"setup dummy_circuit({NATIVE_OFF_LOG}) under CRESCENT_NATIVE=0 (host branch, "
+        f"fixed_base_mul on the card: G1 {g1_n} scalars in {1 << (g1_n - 1).bit_length()} "
+        f"lanes, G2 {g2_n} in {1 << (g2_n - 1).bit_length()}): total {off_s:.3f} s; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+        + f"; the default route (device branch) {default_s:.3f} s; keys equal; [{card}]")
+    say(f"launches during that setup: { {k: v for k, v in setup_launches.items() if v} }")
+
+    rs = random.Random(SEED + 212)
+    r, s = rs.randrange(groth16.R), rs.randrange(groth16.R)
+    proof = groth16.prove(pk, r1cs, z, random.Random(0), r=r, s=s, device="cuda")
+    reset()
+    timings = {}
+    t0 = time.perf_counter()
+    proof_off = _with_env("CRESCENT_NATIVE", "0", lambda: groth16.prove(
+        pk_off, r1cs, z, random.Random(0), r=r, s=s, device="cuda", timings=timings))
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    prove_launches = counts()
+    for k in ("mul", "butterfly", "affine_add", "jadd", "fq2_affine_add", "fq2_jadd"):
+        if not prove_launches[k]:
+            fail(f"the {k} kernel was not launched during the CRESCENT_NATIVE=0 prove of "
+                 f"dummy_circuit({NATIVE_OFF_LOG})")
+    if _proof_ints(proof_off) != _proof_ints(proof):
+        fail(f"the CRESCENT_NATIVE=0 proof of dummy_circuit({NATIVE_OFF_LOG}) differs from the "
+             "default route's")
+    if not groth16.verify(pk.vk.prepare(), proof_off, z[1 : r1cs.num_instance]):
+        fail(f"the CRESCENT_NATIVE=0 proof of dummy_circuit({NATIVE_OFF_LOG}) does not verify")
+    say(f"prove dummy_circuit({NATIVE_OFF_LOG}) under CRESCENT_NATIVE=0 (Python matvec, h(x) "
+        f"and every MSM on the card): total {prove_s:.3f} s; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+        + f"; equals the default route's proof; verify ok; [{card}]")
+    return {"setup": setup_launches, "prove": prove_launches}
+
+
+def show_circuit(groth16, seed: int):
+    """rs256's public-IO shape (credentials/circuits.py StubJWTFrontend):
+    17 RSA-2048 modulus limbs of 121 bits, then exp_value, then two claim
+    values, 20 public inputs each bound to a private copy by one constraint
+    (copy * 1 = input), padded with dummy_circuit's chain (w_k * b =
+    w_{k+1}) to a domain of 2^SHOW_LOG.  Returns (r1cs, z, the IO
+    locations: name -> position, expiry)."""
+    rng = random.Random(seed)
+    now = int(time.time())
+    expiry = now + 30 * 86400
+    names = [f"modulus[{i}]" for i in range(17)] + ["exp_value", "given_name_value",
+                                                   "family_name_value"]
+    pubs = [rng.getrandbits(121) for _ in range(17)] + [expiry] + [
+        rng.randrange(groth16.R) for _ in range(2)]
+    npub = len(pubs)
+    ninst = 1 + npub
+    # witness: the copies, then the chain a, b, a b, a b^2, ...
+    n_chain = (1 << SHOW_LOG) - ninst - npub
+    a, b = rng.randrange(groth16.R), rng.randrange(groth16.R)
+    chain, cur = [a, b], a
+    for _ in range(n_chain):
+        cur = cur * b % groth16.R
+        chain.append(cur)
+    z = [1] + pubs + pubs + chain
+    cons = [([(ninst + i, 1)], [(0, 1)], [(1 + i, 1)]) for i in range(npub)]
+    va, vb = ninst + npub, ninst + npub + 1
+    prev = va
+    for k in range(n_chain):
+        cons.append(([(prev, 1)], [(vb, 1)], [(vb + 1 + k, 1)]))
+        prev = vb + 1 + k
+    r1cs = groth16.R1CS(ninst, len(z) - ninst, cons)
+    return r1cs, z, {name: 1 + i for i, name in enumerate(names)}, expiry
+
+
+def show_phase(torch, groth16, reset, counts, card: str) -> dict:
+    """(b) A show at rs256's public-IO shape (show_circuit): setup (device
+    branch) and prove on the card, the range setup of RANGE_BITS bits
+    natively and under CRESCENT_NATIVE=0 (its two KZG batches by
+    fixed_base_mul on the card; the keys must be equal), then
+    show_groth16 with the modulus revealed, exp_value committed and the
+    claims hidden, and show_range of the expiry shifted by the current time,
+    as credentials/api.py create_show_proof builds them; both must verify
+    as api.verify_show checks them, and a tampered revealed input must
+    not.  Returns each run's launches."""
+    from crescent_tpu_torch.credentials import groth16rand, rangeproof
+    from crescent_tpu_torch.credentials.dlog import PedersenOpening
+    from crescent_tpu_torch.credentials.structs import IOLocations, PublicIOType
+
+    G1 = groth16.G1
+    r1cs, z, locs, expiry = show_circuit(groth16, SEED + 220)
+    if not r1cs.is_satisfied(z):
+        fail("the show circuit is not satisfied by its witness")
+    dom_n = groth16._domain_for(r1cs).n
+    out = {}
+    reset()
+    t0 = time.perf_counter()
+    pk = groth16.setup(r1cs, random.Random(SEED + 221), device="cuda")
+    proof = groth16.prove(pk, r1cs, z, random.Random(SEED + 222), device="cuda")
+    torch.cuda.synchronize()
+    out["credential"] = counts()
+    cred_s = time.perf_counter() - t0
+    pvk = pk.vk.prepare()
+    inputs = z[1 : r1cs.num_instance]
+    if not groth16.verify(pvk, proof, inputs):
+        fail("the show circuit's proof does not verify")
+
+    t0 = time.perf_counter()
+    range_pk, range_vk = rangeproof.setup(RANGE_BITS, random.Random(SEED + 223), device="cuda")
+    range_native_s = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    off_pk, off_vk = _with_env("CRESCENT_NATIVE", "0", lambda: rangeproof.setup(
+        RANGE_BITS, random.Random(SEED + 223), device="cuda"))
+    torch.cuda.synchronize()
+    range_off_s = time.perf_counter() - t0
+    out["range_setup_native0"] = launches = counts()
+    if launches["jadd"] != 512 or launches["jdbl"] != 512:
+        fail(f"the range setup under CRESCENT_NATIVE=0 launched jadd {launches['jadd']} and "
+             f"jdbl {launches['jdbl']} times, not 256 each for each of its two batches")
+    keys = (range_pk.powers.powers_of_g, range_pk.powers.powers_of_gamma_g, range_vk.com_f_basis,
+            range_vk.kzg_vk.g, range_vk.kzg_vk.gamma_g, range_vk.kzg_vk.h, range_vk.kzg_vk.beta_h)
+    if keys != (off_pk.powers.powers_of_g, off_pk.powers.powers_of_gamma_g, off_vk.com_f_basis,
+                off_vk.kzg_vk.g, off_vk.kzg_vk.gamma_g, off_vk.kzg_vk.h, off_vk.kzg_vk.beta_h):
+        fail("the range setup under CRESCENT_NATIVE=0 differs from the native one")
+    say(f"range setup ({RANGE_BITS} bits, KZG degree {4 * RANGE_BITS}): native "
+        f"{range_native_s:.3f} s; under CRESCENT_NATIVE=0 (fixed_base_mul on the card, 129 and "
+        f"130 scalars in 256 lanes each) {range_off_s:.3f} s; keys equal; [{card}]")
+
+    io_locations = IOLocations(dict(locs))
+    exp_pos = io_locations.get_io_location("exp_value")
+    io_types = [PublicIOType.HIDDEN] * len(inputs)
+    io_types[exp_pos - 1] = PublicIOType.COMMITTED
+    for i in io_locations.get_public_key_indices():
+        io_types[i] = PublicIOType.REVEALED
+    revealed = [inputs[i] for i in io_locations.get_public_key_indices()]
+    cs = groth16rand.ClientState(inputs=inputs, aux=None, proof=proof, vk=pk.vk, pvk=pvk,
+                                 config_str="{}")
+    context = b'{"proof_spec": "chip_smoke"}'
+    rng = random.Random(SEED + 224)
+    reset()
+    t0 = time.perf_counter()
+    show = cs.show_groth16(context, io_types, rng=rng)
+    cur_time = int(time.time())
+    com_exp = cs.committed_input_openings[0]
+    shifted = PedersenOpening(
+        bases=list(com_exp.bases), m=(com_exp.m - cur_time) % groth16.R, r=com_exp.r,
+        c=G1.add(com_exp.c, G1.neg(G1.mul(cur_time, com_exp.bases[0]))))
+    show_range = cs.show_range(shifted, RANGE_BITS, range_pk, rng=rng)
+    show_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = show.verify(pk.vk, pvk, context, io_types, revealed)
+    ped_com_exp = G1.add(show.committed_inputs[0],
+                         G1.neg(G1.mul(cur_time, pk.vk.gamma_abc_g1[exp_pos])))
+    ok_range = show_range.verify(ped_com_exp, RANGE_BITS, range_vk, io_locations, pk.vk,
+                                 "exp_value")
+    verify_s = time.perf_counter() - t0
+    out["show"] = counts()
+    if not ok or not ok_range:
+        fail(f"the show does not verify (groth16 {ok}, range {ok_range})")
+    tampered = list(revealed)
+    tampered[3] += 1
+    if show.verify(pk.vk, pvk, context, io_types, tampered):
+        fail("the show verifies against a tampered revealed input")
+    if show_range.verify(G1.double(ped_com_exp), RANGE_BITS, range_vk, io_locations, pk.vk,
+                         "exp_value"):
+        fail("the range proof verifies against another commitment")
+    say(f"show circuit: {len(inputs)} public inputs ({len(revealed)} revealed, 1 committed, "
+        f"{len(inputs) - len(revealed) - 1} hidden), {len(r1cs.constraints)} constraints, "
+        f"domain 2^{dom_n.bit_length() - 1}; setup and prove on the card {cred_s:.3f} s")
+    say(f"show: show_groth16 + show_range ({RANGE_BITS} bits, expiry in "
+        f"{expiry - cur_time} s) {show_s:.3f} s; verify (groth16 and range) {verify_s:.3f} s; "
+        f"both verify, a tampered revealed input does not; [{card}]")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1665,6 +1930,11 @@ def main() -> None:
     # the G2 MSM's five Fq2 point kernels
     _point_kernel_checks(torch, get_cuda_quad_ec(fields.BN254_FQ), "BN254 Fq2", "fq2_",
                          SEED + 150, batch_inv, kres)
+    # fixed_base_mul's jadd and jdbl at its callers' widths
+    scalar_mul_kernel_phase(torch, get_cuda_ec(fields.BN254_FQ), "BN254 Fq", "", SEED + 160,
+                            kres)
+    scalar_mul_kernel_phase(torch, get_cuda_quad_ec(fields.BN254_FQ), "BN254 Fq2", "fq2_",
+                            SEED + 170, kres)
     mres = msm_phase(torch, curves, nb)
     mres.update(g2_msm_phase(torch, curves, nb))
     mres.update(small_msm_phase(torch, curves, nb))
@@ -1837,6 +2107,9 @@ def main() -> None:
         fail("verify under CRESCENT_NATIVE=0 did not run its MSM on the card")
     say(f"verify (CRESCENT_NATIVE=0, public-input MSM on the card): ok "
         f"({time.perf_counter() - t0:.3f} s); launches {verify_launches}")
+    # (a) setup and prove under CRESCENT_NATIVE=0; (b) the show path
+    off_runs = native_off_phase(torch, groth16, reset, counts, card)
+    show_runs = show_phase(torch, groth16, reset, counts, card)
     say(f"chunk MSM 2^{CHUNK_LOG}: {mres['chunk_ms']:.3f} ms on the card, "
         f"{mres['enqueue_ms']:.3f} ms to enqueue; G2: {mres['g2_chunk_ms']:.3f} ms on the "
         f"card, {mres['g2_enqueue_ms']:.3f} ms to enqueue")
@@ -1871,7 +2144,7 @@ def main() -> None:
             if spill:
                 fail(f"{name}'s kernel {entry} spills {spill} bytes (nvcc -Xptxas -v)")
     runs = (setup_launches, prove_launches, native0_launches, fused_launches,
-            verify_launches)
+            verify_launches, *off_runs.values(), *show_runs.values())
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     source.update(batch_inv="batch_inv.cuh", fq2_batch_inv="batch_inv.cuh")
@@ -1899,6 +2172,11 @@ def main() -> None:
             "launches_prove_native0": native0_launches[name],
             "launches_prove_fused_native0": fused_launches[name],
             "launches_verify_native0": verify_launches[name],
+            f"launches_setup_native0_2^{NATIVE_OFF_LOG}": off_runs["setup"][name],
+            f"launches_prove_native0_2^{NATIVE_OFF_LOG}": off_runs["prove"][name],
+            "launches_show_credential": show_runs["credential"][name],
+            "launches_range_setup_native0": show_runs["range_setup_native0"][name],
+            "launches_show": show_runs["show"][name],
             # the 1000-point small MSM of its group (the direct path)
             "launches_small_msm": mres["small_launches"][name],
             "registers": (_kernel_registers(regs, name) or (None, None))[0],

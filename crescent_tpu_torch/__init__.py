@@ -11,7 +11,11 @@ Ported so far: Groth16 ``setup`` -> ``prove`` -> ``verify``
 (``models.groth16``) with the QAP witness map h(x) on the device (``mul``,
 ``butterfly``) and the four G1 MSMs as a chunk fold of sorted-segment affine
 MSMs there (``inv``, ``affine_denom``, ``affine_add``, ``jadd``, ``jdbl_n``;
-``jdbl`` beside them); the G2 MSM runs on the native host backend.
+``jdbl`` beside them); the G2 MSM runs on the native host backend, or
+under ``CRESCENT_NATIVE=0`` on the device too.  The show path
+(``credentials``: the rerandomized Groth16 show with Pedersen commitments
+and DLog proofs, the KZG range proof of ``models.kzg``) runs on the host;
+its KZG powers come from ``models.groth16.fixed_base_mul``.
 """
 
 __version__ = "0.1.0"

@@ -15,30 +15,36 @@ switches ``CRESCENT_PROVE_MSM`` and ``CRESCENT_NATIVE``:
   ``native`` on the CPU.
 
 ``CRESCENT_NATIVE=0`` (default 1) turns the native host backend off where
-the reference does in ``prove`` and ``verify``: the MSMs take the device
-route on any device (the CPU runs the kernels' plain versions), whatever
-``CRESCENT_PROVE_MSM`` says, and so does verify's public-input MSM.  One
-difference from the reference: the port has no pure-Python route for the
-witness matvec Az/Bz/Cz or setup's native branch, so those stay on the
-native backend even then.  ``CRESCENT_MSM_FUSED_AGG=1`` (the reference's
-switch) aggregates each chunk of the device MSMs by one ``bucket_reduce``
-launch; the proof is the same.
+the reference does: in ``prove`` the witness matvec Az/Bz/Cz runs in pure
+Python (``_matvec_evals``) and h(x) on the device from its lists
+(``_compute_h``), and the MSMs take the device route on any device (the
+CPU runs the kernels' plain versions), whatever ``CRESCENT_PROVE_MSM``
+says; so does verify's public-input MSM.  ``R1CS.is_satisfied`` runs its
+Python loop then, as it does for small lists.  ``CRESCENT_MSM_FUSED_AGG=1``
+(the reference's switch) aggregates each chunk of the device MSMs by one
+``bucket_reduce`` launch; the proof is the same.
 
 ``setup`` draws the same randomness in the same order as the reference
-(gamma == 1) and then, by the reference's switch ``CRESCENT_SETUP_TPU``,
-builds the SRS in one of its two branches (groth16.py:576-642):
+(gamma == 1) and then, by the reference's switches ``CRESCENT_SETUP_TPU``
+and ``CRESCENT_NATIVE``, builds the SRS in one of its two branches
+(groth16.py:576-642):
 
-* the device branch: both fixed-base batches (G1 and G2) on the device
-  (``ops/fixed_base.py``: byte-window ``madd`` accumulation and an affine
-  conversion through ``batch_inv``), scalar prep with the Fr ``mul``
-  kernel; the tables come back as ``ArrayPointVec``s, which ``prove``
-  uploads without Python ints;
-* the native branch: QAP evaluations, scalar prep and fixed-base muls on
-  the native host backend; tables are lists of host affine points.
+* the device branch (only with the native backend on): both fixed-base
+  batches (G1 and G2) on the device (``ops/fixed_base.py``: byte-window
+  ``madd`` accumulation and an affine conversion through ``batch_inv``),
+  scalar prep with the Fr ``mul`` kernel; the tables come back as
+  ``ArrayPointVec``s, which ``prove`` uploads without Python ints;
+* the host branch: QAP evaluations and scalar prep on the native backend,
+  or in pure Python with it off, then both batches through
+  ``fixed_base_mul``: the native fixed base, or with the backend off
+  batched double-and-add on the device (``jadd`` and ``jdbl``); tables are
+  lists of host affine points.
 
 Both give the reference's key, table for table.
 
-The native backend is required: every entry point raises without it.
+The native backend's library is required: every entry point raises without
+it, whatever ``CRESCENT_NATIVE`` says (the reference would take its pure
+routes then).
 """
 
 from __future__ import annotations
@@ -145,17 +151,31 @@ class R1CS:
         return self.num_instance + self.num_witness
 
     def is_satisfied(self, z) -> bool:
-        """z: list of ints or an (nv, 4) u64 standard-form array; three
-        native COO matvecs and one elementwise a*b - c check."""
-        _require_native()
+        """z: list of ints or an (nv, 4) u64 standard-form array.  Three
+        native COO matvecs and one elementwise a*b - c check with the native
+        backend on, for more than 512 constraints or an array; else the
+        Python loop (reference groth16.py:136-162)."""
         F = self.field
-        zu = z if isinstance(z, np.ndarray) else nb.ints_to_u64([x % F for x in z])
-        evs = [
-            nb.coo_matvec(F, rows, cols, coeffs, zu, len(self.constraints))
-            for rows, cols, coeffs in _r1cs_coo(self)
-        ]
-        ab = nb.vec_op(F, "mul", evs[0], evs[1])
-        return not nb.vec_op(F, "sub", ab, evs[2]).any()
+        nc = len(self.constraints)
+        if isinstance(z, np.ndarray) and not _native_ok():
+            z = [int.from_bytes(row.tobytes(), "little") for row in
+                 np.ascontiguousarray(z, dtype="<u8")]
+        if _native_ok() and (nc > 512 or isinstance(z, np.ndarray)):
+            _require_native()
+            zu = z if isinstance(z, np.ndarray) else nb.ints_to_u64([x % F for x in z])
+            evs = [
+                nb.coo_matvec(F, rows, cols, coeffs, zu, nc)
+                for rows, cols, coeffs in _r1cs_coo(self)
+            ]
+            ab = nb.vec_op(F, "mul", evs[0], evs[1])
+            return not nb.vec_op(F, "sub", ab, evs[2]).any()
+        for a_row, b_row, c_row in self.constraints:
+            a = sum(c * z[i] for i, c in a_row) % F
+            b = sum(c * z[i] for i, c in b_row) % F
+            c = sum(co * z[i] for i, co in c_row) % F
+            if a * b % F != c:
+                return False
+        return True
 
 
 def dummy_circuit(log_size: int, rng: random.Random, num_public: int = 1):
@@ -301,22 +321,132 @@ def _r1cs_coo(r1cs: R1CS):
     return coo
 
 
+def _lagrange_coeffs_at(dom: ntt.NTTDomain, t: int) -> list[int]:
+    """L_j(t) for all j: (Z(t)/N) * w^j / (t - w^j)."""
+    n, w = dom.n, dom.w
+    zt = (pow(t, n, R) - 1) % R
+    factor = zt * pow(n, -1, R) % R
+    wj = 1
+    nums, dens = [], []
+    for j in range(n):
+        nums.append(factor * wj % R)
+        dens.append((t - wj) % R)
+        wj = wj * w % R
+    inv = _batch_inv_host(dens)
+    return [nums[j] * inv[j] % R for j in range(n)]
+
+
+def _batch_inv_host(xs: list[int]) -> list[int]:
+    """Montgomery's batch inversion over Fr in Python ints."""
+    prefix = [1]
+    for x in xs:
+        prefix.append(prefix[-1] * x % R)
+    total = pow(prefix[-1], -1, R)
+    out = [0] * len(xs)
+    for i in range(len(xs) - 1, -1, -1):
+        out[i] = total * prefix[i] % R
+        total = total * xs[i] % R
+    return out
+
+
 def _qap_evals_at_t(r1cs: R1CS, dom: ntt.NTTDomain, t: int):
     """A_i(t), B_i(t), C_i(t) per variable, with identity rows for the
-    instance variables (native branch of the reference, groth16.py:358-374)."""
+    instance variables (reference groth16.py:358-389): on the native
+    backend, or in pure Python with it off."""
     nv = r1cs.num_vars
     nc = len(r1cs.constraints)
-    zt = (pow(t, dom.n, R) - 1) % R
-    factor = zt * pow(dom.n, -1, R) % R
-    L = nb.lagrange_at(R, dom.w, t, factor, dom.n)
-    A, B, C = (
-        nb.u64_to_ints(nb.coo_matvec(R, cols, rows, coeffs, L, nv))
-        for rows, cols, coeffs in _r1cs_coo(r1cs)
-    )
-    L_tail = nb.u64_to_ints(L[nc : nc + r1cs.num_instance])
+    if _native_ok():
+        zt = (pow(t, dom.n, R) - 1) % R
+        factor = zt * pow(dom.n, -1, R) % R
+        L = nb.lagrange_at(R, dom.w, t, factor, dom.n)
+        A, B, C = (
+            nb.u64_to_ints(nb.coo_matvec(R, cols, rows, coeffs, L, nv))
+            for rows, cols, coeffs in _r1cs_coo(r1cs)
+        )
+        L_tail = nb.u64_to_ints(L[nc : nc + r1cs.num_instance])
+        for i in range(r1cs.num_instance):
+            A[i] = (A[i] + L_tail[i]) % R
+        return A, B, C
+    L = _lagrange_coeffs_at(dom, t)
+    A = [0] * nv
+    B = [0] * nv
+    C = [0] * nv
+    for j, (ar, br, cr) in enumerate(r1cs.constraints):
+        lj = L[j]
+        for i, co in ar:
+            A[i] = (A[i] + co * lj) % R
+        for i, co in br:
+            B[i] = (B[i] + co * lj) % R
+        for i, co in cr:
+            C[i] = (C[i] + co * lj) % R
     for i in range(r1cs.num_instance):
-        A[i] = (A[i] + L_tail[i]) % R
+        A[i] = (A[i] + L[nc + i]) % R
     return A, B, C
+
+
+def _matvec_evals(r1cs: R1CS, z: list[int], dom: ntt.NTTDomain):
+    """Domain evaluations a = Az, b = Bz, c = Cz (+ identity rows) as lists
+    of ints (reference groth16.py:392-414): on the native backend, or in
+    pure Python with it off."""
+    n = dom.n
+    nc = len(r1cs.constraints)
+    if _native_ok():
+        zu = nb.ints_to_u64([x % R for x in z])
+        a, b, c = (nb.u64_to_ints(nb.coo_matvec(R, rows, cols, coeffs, zu, n))
+                   for rows, cols, coeffs in _r1cs_coo(r1cs))
+        for i in range(r1cs.num_instance):
+            a[nc + i] = z[i] % R
+        return a, b, c
+    a = [0] * n
+    b = [0] * n
+    c = [0] * n
+    for j, (ar, br, cr) in enumerate(r1cs.constraints):
+        a[j] = sum(co * z[i] for i, co in ar) % R
+        b[j] = sum(co * z[i] for i, co in br) % R
+        c[j] = sum(co * z[i] for i, co in cr) % R
+    for i in range(r1cs.num_instance):
+        a[nc + i] = z[i]
+    return a, b, c
+
+
+# ---------------------------------------------------------------------------
+# Fixed-base batched scalar muls
+# ---------------------------------------------------------------------------
+
+def _device(device) -> torch.device:
+    """`device` as a ``torch.device``; raises if it names a CUDA device and
+    there is none (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} asked for, and no CUDA device is "
+                           "available; pass device='cpu' for the plain versions")
+    return device
+
+
+def fixed_base_mul(base, scalars: list[int], g2: bool = False, *, device="cuda") -> list:
+    """[k*base for k in scalars] (reference groth16.py:421-444).  The native
+    windowed fixed base with the native backend on; with it off
+    (CRESCENT_NATIVE=0), the base broadcast to a power-of-two batch and
+    ``CurveCtx.scalar_mul`` on `device` (256 ``jadd`` and ``jdbl`` launches,
+    over Fq2 for G2), then the points read back.  `device` must exist
+    whichever route runs; "cpu" runs the kernels' plain versions."""
+    device = _device(device)
+    if not scalars:
+        return []
+    if _native_ok():
+        _require_native()
+        ks = [s % G2.n for s in scalars] if g2 else [s % G1.n for s in scalars]
+        if g2:
+            return nb.fixed_base_g2(base, ks)
+        return nb.fixed_base("bn254_g1", base, ks)
+    ctx = get_g2_ctx() if g2 else get_curve_ctx(G1)
+    P1 = ctx.points_to_device([base], device)
+    n = len(scalars)
+    npad = 1 << (n - 1).bit_length() if n > 1 else 1
+    P = JPoints(*(c.expand(npad, -1) for c in P1))
+    padded = [s % ctx.n for s in scalars] + [0] * (npad - n)
+    kw = limb.limbs_to_words(limb.ints_to_limbs(padded), device)
+    return ctx.points_to_host(ctx.scalar_mul(kw, P))[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -401,15 +531,18 @@ def setup(r1cs: R1CS, rng: random.Random, *, device="cuda",
     """Per-circuit SRS (forks/groth16/src/generator.rs).
 
     The device branch runs where CRESCENT_SETUP_TPU selects it for `device`
-    (see ``_setup_device_enabled``; the default is the card) and the
-    circuit holds at least CRESCENT_SETUP_TPU_MIN (default 2^14) G1 points,
-    3 * num_vars + domain size.  Smaller circuits take the native branch on
-    any device: that threshold is the reference's own routing (groth16.py:
-    576-580), not a fallback; no failure of the device branch is caught.
-    timings: if given, filled with wall seconds per phase of the device
-    branch ("qap_evals", "scalar_prep", "g1_dispatch", "g2_dispatch",
-    "g1_fetch", "g2_fetch", "assemble"); dispatches only enqueue, so the
-    device work shows in the fetches."""
+    (see ``_setup_device_enabled``; the default is the card), the native
+    backend is on (CRESCENT_NATIVE) and the circuit holds at least
+    CRESCENT_SETUP_TPU_MIN (default 2^14) G1 points, 3 * num_vars + domain
+    size.  Otherwise the host branch runs, its fixed-base batches on
+    `device` with the backend off (``fixed_base_mul``): that gate is the
+    reference's own routing (groth16.py:576-581), not a fallback; no
+    failure of either branch is caught.
+    timings: if given, filled with wall seconds per phase: of the device
+    branch "qap_evals", "scalar_prep", "g1_dispatch", "g2_dispatch",
+    "g1_fetch", "g2_fetch", "assemble" (dispatches only enqueue, so the
+    device work shows in the fetches); of the host branch "qap_evals",
+    "scalar_prep", "g1_fixed_base", "g2_fixed_base"."""
     _require_native()
     device = torch.device(device)
     # gamma = 1 exactly as the reference generator (generator.rs:28): the
@@ -421,6 +554,7 @@ def setup(r1cs: R1CS, rng: random.Random, *, device="cuda",
     ninst = r1cs.num_instance
     nv = r1cs.num_vars
     if (_setup_device_enabled(device)
+            and _native_ok()
             and 3 * nv + dom.n >= int(os.environ.get("CRESCENT_SETUP_TPU_MIN", str(1 << 14)))):
         g1_all, g2_all = _setup_fixed_base_device(r1cs, dom, alpha, beta, delta, t,
                                                   device, timings)
@@ -439,34 +573,35 @@ def setup(r1cs: R1CS, rng: random.Random, *, device="cuda",
         return ProvingKey(vk, beta_g1, delta_g1, a_query, b_g1_query, b_g2_query,
                           h_query, l_query)
 
-    with trace.timed("Groth16::setup qap_evals_at_t"):
+    with _phase("Groth16::setup qap_evals_at_t", timings, "qap_evals"):
         A, B, C = _qap_evals_at_t(r1cs, dom, t)
     zt = (pow(t, dom.n, R) - 1) % R
     g_inv = pow(gamma, -1, R)
     d_inv = pow(delta, -1, R)
-    with trace.timed("Groth16::setup scalar prep"):
+    with _phase("Groth16::setup scalar prep", timings, "scalar_prep"):
         gamma_abc = [(beta * A[i] + alpha * B[i] + C[i]) * g_inv % R
                      for i in range(ninst)]
         l_scalars = [(beta * A[i] + alpha * B[i] + C[i]) * d_inv % R
                      for i in range(ninst, nv)]
-        h_scalars = nb.u64_to_ints(nb.powers(R, t, zt * d_inv % R, dom.n - 1))
+        if _native_ok():
+            h_scalars = nb.u64_to_ints(nb.powers(R, t, zt * d_inv % R, dom.n - 1))
+        else:
+            h_scalars = [pow(t, i, R) * zt * d_inv % R for i in range(dom.n - 1)]
 
-    with trace.timed(f"Groth16::setup fixed-base G1 ({3 * nv + dom.n} pts)"):
-        g1_all = nb.fixed_base(
-            "bn254_g1", G1.generator,
-            [s % G1.n for s in
-             A + B + h_scalars + l_scalars + gamma_abc + [alpha, beta, delta]],
-        )
+    with _phase(f"Groth16::setup fixed-base G1 ({3 * nv + dom.n} pts)", timings,
+                "g1_fixed_base"):
+        g1_all = fixed_base_mul(
+            G1.generator, A + B + h_scalars + l_scalars + gamma_abc + [alpha, beta, delta],
+            device=device)
     a_query, rest = g1_all[:nv], g1_all[nv:]
     b_g1_query, rest = rest[:nv], rest[nv:]
     h_query, rest = rest[: len(h_scalars)], rest[len(h_scalars):]
     l_query, rest = rest[: len(l_scalars)], rest[len(l_scalars):]
     gamma_abc_g1, rest = rest[:ninst], rest[ninst:]
     alpha_g1, beta_g1, delta_g1 = rest
-    with trace.timed(f"Groth16::setup fixed-base G2 ({nv} pts)"):
-        g2_all = nb.fixed_base_g2(
-            G2.generator(), [s % G2.n for s in B + [beta, gamma, delta]]
-        )
+    with _phase(f"Groth16::setup fixed-base G2 ({nv} pts)", timings, "g2_fixed_base"):
+        g2_all = fixed_base_mul(G2.generator(), B + [beta, gamma, delta], g2=True,
+                                device=device)
     b_g2_query = g2_all[:nv]
     beta_g2, gamma_g2, delta_g2 = g2_all[nv:]
 
@@ -543,6 +678,24 @@ def _h_device_words(r1cs: R1CS, zu: np.ndarray, dom: ntt.NTTDomain, device,
     return h
 
 
+def _compute_h(r1cs: R1CS, z: list[int], dom: ntt.NTTDomain, device,
+               timings: Optional[dict] = None) -> torch.Tensor:
+    """h(x) = (A(x)B(x) - C(x)) / Z(x) with the native backend off
+    (reference groth16.py:741-774): the Python matvec, then the h(x)
+    pipeline on `device` from the three lists' planes.  Returns, as
+    ``_h_device_words`` does, the full-length (dom.n, 8) standard-form word
+    plane of h on the device (the reference returns h's first dom.n - 1
+    coefficients as ints); the degree bound is checked here."""
+    with _phase("prove::matvec Az/Bz/Cz", timings, "matvec"):
+        a, b, c = _matvec_evals(r1cs, z, dom)
+    with _phase(f"prove::NTT h(x) (domain 2^{dom.logn}, {device})", timings, "h"):
+        run = _h_pipeline(dom, device)
+        h = run(*(limb.limbs_to_words(limb.ints_to_limbs([x % R for x in v]), device)
+                  for v in (a, b, c)))
+        assert not h[-1].cpu().any(), "h degree bound violated (unsatisfied R1CS?)"
+    return h
+
+
 def _compute_h_device(r1cs: R1CS, zu: np.ndarray, dom: ntt.NTTDomain,
                       device="cuda", timings: Optional[dict] = None) -> np.ndarray:
     """`_h_device_words`, downloaded: the full-length (dom.n, 16) uint16
@@ -563,7 +716,8 @@ def prove(
     device="cuda",
     timings: Optional[dict] = None,
 ) -> Proof:
-    """Groth16 prove (forks/groth16/src/prover.rs): h(x) on `device`, the
+    """Groth16 prove (forks/groth16/src/prover.rs): h(x) on `device` (from
+    the native matvec, or under CRESCENT_NATIVE=0 from the Python one), the
     four G1 MSMs there or on the native backend (CRESCENT_PROVE_MSM), the
     G2 MSM on the native backend or, under CRESCENT_NATIVE=0, on `device`
     (see the module's docstring), the proof assembled on the host.
@@ -584,7 +738,11 @@ def prove(
     else:
         zu = nb.ints_to_u64([x % R for x in z])
     dom = _domain_for(r1cs)
-    hw = _h_device_words(r1cs, zu, dom, device, timings)
+    if _native_ok():
+        hw = _h_device_words(r1cs, zu, dom, device, timings)
+    else:
+        zl = nb.u64_to_ints(zu) if isinstance(z, np.ndarray) else z
+        hw = _compute_h(r1cs, zl, dom, device, timings)
     ni = r1cs.num_instance
 
     if _device_msm_prove(device):
@@ -716,3 +874,16 @@ def verify(pvk: PreparedVerifyingKey, proof: Proof, public_inputs: list[int],
     when the native backend is off."""
     return verify_with_prepared_inputs(
         pvk, proof, prepare_inputs(pvk.vk, public_inputs, device))
+
+
+def rerandomize_proof(vk: VerifyingKey, proof: Proof, rng: random.Random,
+                      r1: Optional[int] = None, r2: Optional[int] = None) -> Proof:
+    """Unlinkable rerandomization (BKSV20 fig.1; forks/groth16/src/prover.rs:227):
+    A' = r1*A,  B' = (1/r1)*B + r2*delta_g2,  C' = C + r1*r2*A.  Host group
+    operations; r1 is drawn before r2, as in the reference."""
+    r1 = rng.randrange(1, R) if r1 is None else r1
+    r2 = rng.randrange(R) if r2 is None else r2
+    A2 = G1.mul(r1, proof.a)
+    B2 = G2.add(G2.mul(pow(r1, -1, R), proof.b), G2.mul(r2, vk.delta_g2))
+    C2 = G1.add(proof.c, G1.mul(r1 * r2 % R, proof.a))
+    return Proof(A2, B2, C2)
