@@ -126,7 +126,20 @@
    as credentials/api.py create_show_proof builds them; both must verify,
    and a tampered revealed input must not.  Prints the show and verify
    seconds with the card's name and power limit.
-10. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+10. rs256 end to end through the port's CLI (cli.main in this process, in a
+   temporary directory) at max_cred_len 2048, the real JWT statement
+   (about 1.5 M constraints, domain 2^21): gen-fixtures, zksetup, prove,
+   prove again (the compiled witness program replayed natively), show and
+   verify, each returning 0 and verify printing PASS; prints each
+   command's seconds and trace spans, the circuit's sizes and the peak
+   host RSS.  zksetup must take setup's device branch (one `fixed_base`
+   launch a group, no `madd`), each prove the fold with 22 `batch_inv`
+   launches a chunk and no `inv` (the chunks counted from the circuit's
+   sizes), the replayed prove's proof must verify, and a show whose
+   revealed email limb is changed must fail verify_show.
+11. Prints {"kernels": [...]} (each kernel's launches in every run, those
+   of rs256's zksetup and two proves among them) and, last,
+   {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
 """
@@ -1878,6 +1891,120 @@ def show_phase(torch, groth16, reset, counts, card: str) -> dict:
     return out
 
 
+def _peak_rss_gib() -> float:
+    """This process's peak resident set so far (ru_maxrss is in KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def rs256_phase(torch, groth16, reset, counts, card: str) -> dict:
+    """(c) rs256 end to end through the port's CLI, in this process, at
+    max_cred_len 2048 (the real JWT statement: SHA-256, RSA-65537, base64
+    and the claim blocks): gen-fixtures, zksetup, prove, prove again (the
+    native witness replay), show and verify, each of which must return 0,
+    verify printing PASS.  Prints each command's seconds and its trace spans
+    (utils/trace.py `recording`), the circuit's sizes and the peak host RSS.
+    Setup must take the device branch (one `fixed_base` launch a group, no
+    `madd`), each prove the fold with 22 `batch_inv` launches a chunk and no
+    `inv`, the second prove's proof must verify and a show whose revealed
+    email limb is changed must fail verify_show.  Returns each run's
+    launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from crescent_tpu_torch import cli
+    from crescent_tpu_torch.credentials import api
+    from crescent_tpu_torch.credentials.prep_inputs import ProofSpec
+    from crescent_tpu_torch.utils import trace
+
+    out = {}
+    api._WITNESS_CACHE.clear()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rs256_") as base:
+        def run(cmd: str, key: str | None = None) -> tuple[str, list]:
+            """`crescent cmd` for rs256, its launches into out[key] if a key
+            is given; returns what it printed and its trace spans' labels."""
+            buf = io.StringIO()
+            if key:
+                reset()
+            t0 = time.perf_counter()
+            with trace.recording() as spans, contextlib.redirect_stdout(buf):
+                rc = cli.main(["--base", base, cmd, "--name", "rs256", "--device", "cuda"])
+            if key:
+                out[key] = counts()
+            secs = time.perf_counter() - t0
+            text = buf.getvalue()
+            for ln in text.splitlines():
+                say(f"  | {ln}")
+            if rc != 0:
+                fail(f"rs256: `crescent {cmd}` returned {rc}")
+            say(f"rs256 {cmd}{' (' + key + ')' if key else ''}: {secs:.3f} s; peak host RSS "
+                f"{_peak_rss_gib():.2f} GiB; [{card}]")
+            for depth, label, dt in spans:
+                say(f"    {'  ' * depth}{label}: {dt:.3f} s")
+            return text, [s[1] for s in spans]
+
+        run("gen-fixtures")
+        run("zksetup", "rs256_setup")
+        launches = out["rs256_setup"]
+        want = {"fixed_base": 1, "fq2_fixed_base": 1, "madd": 0, "fq2_madd": 0}
+        if any(launches[k] != v for k, v in want.items()) or not launches["batch_inv"]:
+            fail(f"rs256 zksetup did not take setup's device branch: launches {launches}")
+        say(f"launches during rs256 zksetup: { {k: v for k, v in launches.items() if v} }")
+
+        _, first = run("prove", "rs256_prove")
+        (r1cs, _, prog), = api._WITNESS_CACHE.values()
+        if prog is None:
+            fail("rs256: the witness program did not compile, so no replay")
+        nv, ni = r1cs.num_vars, r1cs.num_instance
+        dom_n = groth16._domain_for(r1cs).n
+        pck = 1 << CHUNK_LOG
+        g1_chunks = sum(-(-m // pck) for m in (nv, nv, dom_n - 1, nv - ni))
+        say(f"rs256 circuit: {len(r1cs.constraints)} constraints, {nv} variables, "
+            f"num_instance {ni}, domain 2^{dom_n.bit_length() - 1}; {g1_chunks} G1 chunks "
+            "a prove")
+        _, second = run("prove", "rs256_prove_replay")
+        if ("prove::frontend.synthesize (witness)" not in first
+                or "prove::witness replay (native)" not in second
+                or "prove::frontend.synthesize (witness)" in second):
+            fail("rs256: the first prove did not synthesize or the second did not replay")
+        for key in ("rs256_prove", "rs256_prove_replay"):
+            _tree_replaced(out[key], f"the {key} run", {"": g1_chunks})
+            say(f"launches during {key}: { {k: v for k, v in out[key].items() if v} }")
+        paths = api.CachePaths(os.path.join(base, "rs256"))
+        cs = api.read_from_file(paths.client_state)
+        if not groth16.verify(cs.pvk, cs.proof, cs.inputs):
+            fail("rs256: the replayed prove's proof does not verify")
+
+        run("show")
+        text, _ = run("verify")
+        if "verify: PASS" not in text:
+            fail("rs256: verify did not print PASS")
+        with open(paths.io_locations) as f:
+            io_str = f.read()
+        with open(paths.issuer_pem) as f:
+            issuer_pem = f.read()
+        with open(paths.config) as f:
+            config_str = f.read()
+        vp = api.VerifierParams(
+            vk=api.read_from_file(paths.groth16_vk), pvk=api.read_from_file(paths.groth16_pvk),
+            range_vk=api.read_from_file(paths.range_vk), io_locations_str=io_str,
+            issuer_pem=issuer_pem, config_str=config_str)
+        with open(paths.proof_spec + ".resolved") as f:
+            spec = ProofSpec.from_json(f.read())
+        show = api.read_from_file(paths.show_proof)
+        if spec.revealed != ["email"] or not api.verify_show(vp, show, spec)[0]:
+            fail("rs256: the show does not verify as the email's")
+        show.revealed_inputs[0] += 1
+        if api.verify_show(vp, show, spec)[0]:
+            fail("rs256: a show whose revealed email limb is changed verifies")
+        say(f"rs256: the replayed prove's proof verifies; a changed email limb is refused; "
+            f"[{card}]")
+    api._WITNESS_CACHE.clear()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2110,6 +2237,8 @@ def main() -> None:
     # (a) setup and prove under CRESCENT_NATIVE=0; (b) the show path
     off_runs = native_off_phase(torch, groth16, reset, counts, card)
     show_runs = show_phase(torch, groth16, reset, counts, card)
+    # (c) rs256 through the CLI
+    rs256_runs = rs256_phase(torch, groth16, reset, counts, card)
     say(f"chunk MSM 2^{CHUNK_LOG}: {mres['chunk_ms']:.3f} ms on the card, "
         f"{mres['enqueue_ms']:.3f} ms to enqueue; G2: {mres['g2_chunk_ms']:.3f} ms on the "
         f"card, {mres['g2_enqueue_ms']:.3f} ms to enqueue")
@@ -2144,7 +2273,7 @@ def main() -> None:
             if spill:
                 fail(f"{name}'s kernel {entry} spills {spill} bytes (nvcc -Xptxas -v)")
     runs = (setup_launches, prove_launches, native0_launches, fused_launches,
-            verify_launches, *off_runs.values(), *show_runs.values())
+            verify_launches, *off_runs.values(), *show_runs.values(), *rs256_runs.values())
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     source.update(batch_inv="batch_inv.cuh", fq2_batch_inv="batch_inv.cuh")
@@ -2177,6 +2306,9 @@ def main() -> None:
             "launches_show_credential": show_runs["credential"][name],
             "launches_range_setup_native0": show_runs["range_setup_native0"][name],
             "launches_show": show_runs["show"][name],
+            "launches_rs256_setup": rs256_runs["rs256_setup"][name],
+            "launches_rs256_prove": rs256_runs["rs256_prove"][name],
+            "launches_rs256_prove_replay": rs256_runs["rs256_prove_replay"][name],
             # the 1000-point small MSM of its group (the direct path)
             "launches_small_msm": mres["small_launches"][name],
             "registers": (_kernel_registers(regs, name) or (None, None))[0],

@@ -15,7 +15,11 @@ MSMs there (``inv``, ``affine_denom``, ``affine_add``, ``jadd``, ``jdbl_n``;
 under ``CRESCENT_NATIVE=0`` on the device too.  The show path
 (``credentials``: the rerandomized Groth16 show with Pedersen commitments
 and DLog proofs, the KZG range proof of ``models.kzg``) runs on the host;
-its KZG powers come from ``models.groth16.fixed_base_mul``.
+its KZG powers come from ``models.groth16.fixed_base_mul``.  The credential
+pipeline (``credentials.api``, the JWT statement of ``r1cs`` and its native
+witness replay, the ark artifacts of ``utils.ark``) runs end to end for the
+rs256 parameter sets through the port's CLI, ``python -m
+crescent_tpu_torch.cli``.
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,8 @@ Here the switch is the CRESCENT_TRACE env var (any non-empty value), or
     with timed("Groth16::prove"):
         ...
 
-Also exposes `timed_fn` as a decorator.
+Also exposes `timed_fn` as a decorator, and `recording()`, which collects
+the spans for a caller that reports them itself.
 """
 
 from __future__ import annotations
@@ -38,25 +39,48 @@ def _fmt(dt: float) -> str:
     return f"{dt * 1e6:.1f}µs"
 
 
+_records: list | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Collects every span that `timed` opens inside it, printed or not, as
+    [depth, label, seconds] lists in the order they open (seconds is None
+    until the span closes)."""
+    global _records
+    prev, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = prev
+
+
 @contextlib.contextmanager
 def timed(label: str):
     global _depth
-    if not enabled():
+    show = enabled()
+    if not show and _records is None:
         yield
         return
     pad = "· " * _depth
-    print(f"{pad}Start: {label}", file=sys.stderr, flush=True)
+    if show:
+        print(f"{pad}Start: {label}", file=sys.stderr, flush=True)
+    rec = [_depth, label, None]
+    if _records is not None:
+        _records.append(rec)
     _depth += 1
     t0 = time.time()
     try:
         yield
     finally:
         _depth -= 1
-        print(
-            f"{pad}End:   {label} {'.' * max(1, 40 - len(label))} {_fmt(time.time() - t0)}",
-            file=sys.stderr,
-            flush=True,
-        )
+        rec[2] = time.time() - t0
+        if show:
+            print(
+                f"{pad}End:   {label} {'.' * max(1, 40 - len(label))} {_fmt(rec[2])}",
+                file=sys.stderr,
+                flush=True,
+            )
 
 
 def timed_fn(label: str | None = None):

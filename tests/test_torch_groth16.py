@@ -336,6 +336,8 @@ pk = g.setup(r1cs, random.Random(4), device="cpu")
 proof = g.prove(pk, r1cs, z, random.Random(5), device="cpu")
 assert g.verify(pk.vk.prepare(), proof, z[1:r1cs.num_instance])
 import crescent_tpu_torch.convert, crescent_tpu_torch.ops.msm
+import crescent_tpu_torch.cli, crescent_tpu_torch.utils.ark
+import crescent_tpu_torch.r1cs.jwt_circuit, crescent_tpu_torch.r1cs.witness_program
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "crescent_tpu"))
 assert leaked == ["crescent_tpu", "jax"], leaked
