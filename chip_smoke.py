@@ -11,8 +11,9 @@
    PyTorch version on the card at its path's shapes, with the edge cases planted
    (field: 0, 1, p-1, Montgomery 1, and u over Fq2; points: L == R,
    L == -R, one side only, neither; P + P, P + (-P), the identity on either
-   side and on both; for madd (2^16 lanes, Fq with a = 0 and a != 0, Fq2)
-   also valid == 0 and sign == 1; the window kernel `fixed_base` over Fq
+   side and on both; for madd (2^16 lanes, Fq with a = 0 and a != 0, Fq2;
+   and at the scan Pippenger's step, 4,224 lanes over Fq and 2,112 over
+   Fq2, timed as a CUDA graph) also valid == 0 and sign == 1; the window kernel `fixed_base` over Fq
    and Fq2 at 2^16 scalars x 32 windows against fixed_base_plain (the
    chain of row gathers and madd_plain), on G1's and G2's tables of
    multiples and on two planted ones, every row G (the second valid window
@@ -137,8 +138,34 @@
    launches a chunk and no `inv` (the chunks counted from the circuit's
    sizes), the replayed prove's proof must verify, and a show whose
    revealed email limb is changed must fail verify_show.
-11. Prints {"kernels": [...]} (each kernel's launches in every run, those
-   of rs256's zksetup and two proves among them) and, last,
+11. The scan Pippenger (CRESCENT_MSM_AFFINE=0, c = 8): 2^16 seeded G1
+   points through MSM(c=8, lanes=128, small_cutoff=0) (512 `madd`
+   launches over 4,224 lanes, 417 `jadd`, 33 `jdbl_n`), again under
+   CRESCENT_MSM_PALLAS=0 (its XLA form of phases 1-2, the same (x, y, z)),
+   and 2^14 G2 points made on the card through MSM(c=8, lanes=64) (Fq2
+   `madd` over 2,112 lanes), the identity, 0, -1, P == Q and P == -Q
+   planted, each against the native MSM, each run's launches held to
+   `scan_launches`; run_device_many over three G1 problems of 2^16, 40,000
+   and 3,000 points (one scan, `madd` over 12,672 lanes a step), each equal
+   to its own run_device.
+12. prove under CRESCENT_PROVE_FUSED=0 (h(x) from the lists, the four G1
+   MSMs as one run_device_many): dummy_circuit(18) on the affine route
+   (each problem on its own, 22 `batch_inv` a chunk, no `madd`) and
+   dummy_circuit(15) also under CRESCENT_MSM_AFFINE=0 (one scan over the
+   four problems, no `batch_inv`); each proof, with fixed r and s, equals
+   the default route's and verifies.
+13. rs256-db (device bound) end to end through the port's CLI in this
+   process at its max_cred_len, 576 (563,377 constraints, domain 2^20):
+   gen-fixtures (issuer and device keys), zksetup and two proves as
+   rs256's, show (with the DeviceProof: a Spartan proof of the device's
+   ECDSA signature on the digest of the presentation message) and verify,
+   which must print PASS; a presentation message other than the signed one
+   and a flipped byte of the device proof must each be refused; prints
+   each command's seconds and spans, Spartan's prove and verify seconds and
+   the device proof's size.
+14. Prints {"kernels": [...]} (each kernel's launches in every run, those
+   of rs256's and rs256-db's zksetup and two proves, the scan MSMs' and
+   the CRESCENT_PROVE_FUSED=0 proves' among them) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
@@ -186,6 +213,19 @@ JADD_CHUNK = ([_W * _B] * AFFINE_C + [_W * ((_B - 1) >> k) for k in range(1, AFF
               + [16, 8, 4, 2, 1, 1])
 JADD_SHAPES = sorted(set(JADD_CHUNK), reverse=True) + [1 << CHUNK_LOG]
 INV_FLOOR = 512  # batch_inv's floor in a chunk's rounds
+# the scan Pippenger (CRESCENT_MSM_AFFINE=0): window width, its MSMs' sizes
+# and lanes (get_msm's 128 for G1, get_g2_msm's 64 for G2), its signed
+# windows and buckets: a step's madd runs over lanes x 33 windows
+SCAN_C = 8
+SCAN_LOGS = {"": 16, "fq2_": 14}
+SCAN_LANES = {"": 128, "fq2_": 64}
+SCAN_W = (256 + SCAN_C - 1) // SCAN_C + 1
+SCAN_B = (1 << (SCAN_C - 1)) + 1
+SCAN_MANY = (1 << 16, 40000, 3000)  # run_device_many's three G1 problems
+FUSED_OFF = ((18, {"CRESCENT_PROVE_FUSED": "0"}, "affine"),
+             (15, {"CRESCENT_PROVE_FUSED": "0", "CRESCENT_MSM_AFFINE": "0"}, "scan"))
+DB_CRED_LEN = 576  # rs256-db's max_cred_len (cli.DEFAULT_CONFIGS)
+
 
 
 def _registers(reports: dict) -> dict:
@@ -1600,15 +1640,21 @@ def _proof_ints(proof) -> tuple:
 
 def _with_env(name: str, value: str, fn):
     """fn() with the environment variable set, then restored."""
-    old = os.environ.get(name)
-    os.environ[name] = value
+    return _with_envs({name: value}, fn)
+
+
+def _with_envs(env: dict, fn):
+    """fn() with the environment variables set, then restored."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         return fn()
     finally:
-        if old is None:
-            del os.environ[name]
-        else:
-            os.environ[name] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
 
 def small_crosscheck(torch, groth16) -> None:
@@ -1891,11 +1937,313 @@ def show_phase(torch, groth16, reset, counts, card: str) -> dict:
     return out
 
 
+def scan_launches(n: int, lanes: int) -> dict:
+    """The launches of one scan Pippenger run over problems padded to n
+    points on at most `lanes` lanes (ops/msm.py): a madd a step, a jadd a
+    lane of the fold, two a bucket of the suffix sums and one a window of
+    Horner's, a jdbl_n a window; the same whatever the number of
+    problems."""
+    L = max(1, min(lanes, n >> SCAN_C))
+    return {"madd": -(-n // L), "jadd": L + 2 * (SCAN_B - 1) + SCAN_W, "jdbl_n": SCAN_W}
+
+
+def scan_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec) -> dict:
+    """madd over Fq and Fq2 at the scan Pippenger's widths (a step's lanes x
+    33 windows: 4,224 and 2,112), the cases of _madd_inputs planted (P ==
+    Q, P == -Q, the identity, valid == 0 and sign set, mixed sign flags and
+    invalid lanes elsewhere), against madd_plain, timed as a CUDA graph of
+    launches (the step's kernel is shorter than the host's time a call)."""
+    p = fields.BN254_FQ
+    out = {}
+    for pre, ec, width, sqr, mul, elems in (
+            ("", get_cuda_ec(p), 8, 1, 1, lambda n, sd: _rand_elems(torch, n, p, sd)),
+            ("fq2_", get_cuda_quad_ec(p), 16, 2, 3,
+             lambda n, sd: _rand_elems2(torch, n, p, sd))):
+        n = SCAN_LANES[pre] * SCAN_W
+        args = _madd_inputs(torch, ec.ctx, lambda sd: elems(n, sd), n, SEED + 220)
+        got = ec.madd(*args)
+        torch.cuda.synchronize()
+        err = _errs(torch, got, ec.madd_plain(*args))
+        z = got[2]
+        if z[1].any().item() or z[5].any().item() or not z[4].any().item():
+            fail(f"{pre}madd at {n} lanes: P + (-P) is not the identity or P + P is")
+        if not torch.equal(got[0][3], args[0][3]):
+            fail(f"{pre}madd at {n} lanes: a lane with valid == 0 does not pass P through")
+        mads = _madd_products(torch, ec.ctx, args, sqr, mul, 0) * MONT_MUL_MADS
+        _record(out, pre + "madd", "BN254 Fq2" if pre else "BN254 Fq",
+                f"{n} lanes (scan step: {SCAN_LANES[pre]} lanes x {SCAN_W} windows)", err,
+                _graph_ms(torch, lambda: ec.madd(*args), REPS),
+                _time_ms(torch, lambda: ec.madd_plain(*args), 2),
+                (8 * 4 * width + 8) * n, mads)
+    return out
+
+
+def scan_msm_phase(torch, curves, nb, reset, counts, card: str) -> dict:
+    """The scan Pippenger (CRESCENT_MSM_AFFINE=0) on the card: 2^16 seeded
+    G1 points through MSM(curve, c=8, lanes=128, small_cutoff=0) and 2^14
+    G2 points (made on the card by the G2 fixed base) through MSM(G2, c=8,
+    lanes=64, small_cutoff=0), the cases planted, each against the native
+    MSM, each run's launches counted and held to scan_launches; the G1 one
+    also under CRESCENT_MSM_PALLAS=0 (the reference's XLA form of phases
+    1-2), whose (x, y, z) must be the kernel form's; then run_device_many
+    over three G1 problems of unequal N (SCAN_MANY) in one batch, each
+    result its own run_device's.  Returns each run's launches."""
+    import numpy as np
+
+    from crescent_tpu_torch.ops import limb
+    from crescent_tpu_torch.ops.ec import JPoints, get_curve_ctx, get_g2_ctx, points_valid
+    from crescent_tpu_torch.ops.msm import MSM
+    from crescent_tpu_torch.utils.pointvec import ArrayPointVec
+
+    G1 = curves.BN254_G1
+    off = {"CRESCENT_MSM_AFFINE": "0"}
+    out = {}
+
+    def host(ctx, res):
+        return ctx.points_to_host(JPoints(*(a[None] for a in res)))[0]
+
+    def run(m, key, args, env=off):
+        """One run_device on the scan route, timed enqueue to result, its
+        launches into out[key]."""
+        reset()
+        t0 = time.perf_counter()
+        res = _with_envs(env, lambda: m.run_device(*args))
+        pt = host(m.ctx, res)
+        secs = time.perf_counter() - t0
+        out[key] = counts()
+        return res, pt, secs
+
+    # -- G1: 2^16 points ------------------------------------------------------
+    ctx = get_curve_ctx(G1)
+    rng = random.Random(SEED + 230)
+    n = 1 << SCAN_LOGS[""]
+    pts = nb.fixed_base("bn254_g1", G1.generator, [rng.randrange(1, G1.n) for _ in range(n)])
+    ks = [rng.randrange(G1.n) for _ in range(n)]
+    pts[5] = None                      # an identity in the table
+    ks[6] = 0                          # a zero scalar
+    ks[7] = G1.n - 1                   # -1: negative digits in every window
+    pts[9], ks[9] = pts[8], ks[8]      # the same point twice: P == Q in its buckets
+    pts[11], ks[11] = G1.neg(pts[10]), ks[10]  # and its negative: P == -Q
+    P = ctx.points_to_device(pts, "cuda")
+    valid = torch.from_numpy(points_valid(pts)).cuda()
+    sc = ctx.fctx.words(ks, "cuda")
+    m = MSM(ctx, c=SCAN_C, lanes=SCAN_LANES[""], small_cutoff=0)
+    res, got, g1_s = run(m, "scan_g1", (P.x, P.y, valid, sc))
+    want = nb.msm("bn254_g1", ks, pts)
+    if got != want:
+        fail(f"the scan MSM of 2^{SCAN_LOGS['']} G1 points differs from the native MSM")
+    plain, _, plain_s = run(m, "scan_g1_xla_form", (P.x, P.y, valid, sc),
+                            {**off, "CRESCENT_MSM_PALLAS": "0"})
+    if not all(torch.equal(a, b) for a, b in zip(res, plain)):
+        fail("the scan MSM's XLA form of phases 1-2 (CRESCENT_MSM_PALLAS=0) gives other "
+             "(x, y, z) than its kernel form")
+
+    # -- G2: 2^14 points over Fq2 ----------------------------------------------
+    ctx2 = get_g2_ctx()
+    n2 = 1 << SCAN_LOGS["fq2_"]
+    pts2 = _g2_points_on_card(torch, nb, ctx2, n2, SEED + 231)
+    words = _rand_scalars(n2, ctx2.n, SEED + 232)
+    pts2.inf[5] = True
+    pts2.xs[5] = pts2.ys[5] = 0
+    words[6] = 0
+    words[7] = np.frombuffer((ctx2.n - 1).to_bytes(32, "little"), dtype="<u8")
+    pts2.xs[9], pts2.ys[9], words[9] = pts2.xs[8], pts2.ys[8], words[8]
+    neg = ArrayPointVec.from_points([curves.BN254G2.neg(pts2[10])], g2=True)
+    pts2.xs[11], pts2.ys[11], words[11] = pts2.xs[10], neg.ys[0], words[10]
+    P2 = ctx2.points_to_device(pts2, "cuda")
+    m2 = MSM(ctx2, c=SCAN_C, lanes=SCAN_LANES["fq2_"], small_cutoff=0)
+    _, got2, g2_s = run(m2, "scan_g2", (P2.x, P2.y, torch.from_numpy(points_valid(pts2)).cuda(),
+                                        limb.u64_to_words(words, "cuda")))
+    if got2 != nb.msm_g2_raw(words, pts2.to_u64()):
+        fail(f"the scan MSM of 2^{SCAN_LOGS['fq2_']} G2 points differs from the native G2 MSM")
+
+    for key, pre, npts in (("scan_g1", "", n), ("scan_g1_xla_form", "", n),
+                           ("scan_g2", "fq2_", n2)):
+        want_l = scan_launches(npts, SCAN_LANES[pre])
+        got_l = {k: out[key][pre + k] for k in want_l}
+        if got_l != want_l:
+            fail(f"{key}: launches {got_l}, expected {want_l}")
+    say(f"scan msm G1 2^{SCAN_LOGS['']} points (c={SCAN_C}, {SCAN_LANES['']} lanes: madd over "
+        f"{SCAN_LANES[''] * SCAN_W} lanes a step) on the card: equals the native MSM; "
+        f"{g1_s:.3f} s enqueue to result (XLA form {plain_s:.3f} s, the same (x, y, z)); "
+        f"launches { {k: v for k, v in out['scan_g1'].items() if v} }; [{card}]")
+    say(f"scan msm G2 2^{SCAN_LOGS['fq2_']} points ({SCAN_LANES['fq2_']} lanes: Fq2 madd over "
+        f"{SCAN_LANES['fq2_'] * SCAN_W} lanes a step): equals the native G2 MSM; {g2_s:.3f} s; "
+        f"launches { {k: v for k, v in out['scan_g2'].items() if v} }; [{card}]")
+
+    # -- run_device_many: three G1 problems of unequal N in one batch -----------
+    problems = [(P.x[:k], P.y[:k], valid[:k], sc[:k]) for k in SCAN_MANY]
+    reset()
+    t0 = time.perf_counter()
+    many = _with_envs(off, lambda: m.run_device_many(problems))
+    got_many = ctx.points_to_host(many)
+    many_s = time.perf_counter() - t0
+    out["scan_many"] = counts()
+    singles = [_with_envs(off, lambda: host(ctx, m.run_device(*p))) for p in problems]
+    if got_many != singles or singles[0] != want:
+        fail("run_device_many on the scan route differs from each problem's run_device")
+    want_l = scan_launches(max(SCAN_MANY), SCAN_LANES[""])
+    if {k: out["scan_many"][k] for k in want_l} != want_l:
+        fail(f"run_device_many launched other than one scan over the batch: {out['scan_many']}")
+    say(f"run_device_many over {len(SCAN_MANY)} G1 problems ({', '.join(map(str, SCAN_MANY))} "
+        f"points, padded to {1 << (max(SCAN_MANY) - 1).bit_length()}): one scan, madd over "
+        f"{len(SCAN_MANY) * SCAN_LANES[''] * SCAN_W} lanes a step; each equals its own "
+        f"run_device; {many_s:.3f} s; [{card}]")
+    return out
+
+
+def fused_off_phase(torch, groth16, reset, counts, card: str) -> dict:
+    """prove under CRESCENT_PROVE_FUSED=0 (h(x) from the Python lists, the
+    four G1 MSMs as one run_device_many batch): dummy_circuit(18) on the
+    affine route (each problem on its own: its 2^18 + 1 variables pad to
+    four chunks of 2^17, 22 batch_inv launches each, no madd) and dummy_circuit(15) under CRESCENT_MSM_AFFINE=0
+    too (the scan Pippenger over all four problems at once: madd launched,
+    batch_inv not).  Each proof, with fixed r and s, must equal the default
+    route's and verify.  Returns each run's launches."""
+    out = {}
+    for log, env, route in FUSED_OFF:
+        r1cs, z = groth16.dummy_circuit(log, random.Random(SEED + 240 + log))
+        pk = groth16.setup(r1cs, random.Random(SEED + 241 + log), device="cuda")
+        rs = random.Random(SEED + 242 + log)
+        r, s = rs.randrange(groth16.R), rs.randrange(groth16.R)
+        t0 = time.perf_counter()
+        want = groth16.prove(pk, r1cs, z, random.Random(0), r=r, s=s, device="cuda")
+        default_s = time.perf_counter() - t0
+        reset()
+        timings: dict = {}
+        t0 = time.perf_counter()
+        got = _with_envs(env, lambda: groth16.prove(pk, r1cs, z, random.Random(0), r=r, s=s,
+                                                     device="cuda", timings=timings))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = counts()
+        key = f"prove_fused_off_{route}"
+        out[key] = launches
+        if route == "scan":
+            nv, dom_n = r1cs.num_vars, groth16._domain_for(r1cs).n
+            npad = 1 << (max(nv, dom_n - 1) - 1).bit_length()
+            want_l = scan_launches(npad, SCAN_LANES[""])
+            if {k: launches[k] for k in want_l} != want_l or launches["batch_inv"]:
+                fail(f"{key}: launches {launches}, expected one scan over the four problems "
+                     f"({want_l}) and no batch_inv")
+        else:
+            # each problem on its own, padded to whole chunks of 2^CHUNK_LOG
+            nmax = max(r1cs.num_vars, groth16._domain_for(r1cs).n - 1)
+            chunks = 4 * -(-(1 << (nmax - 1).bit_length()) // (1 << CHUNK_LOG))
+            _tree_replaced(launches, key, {"": chunks})
+            if launches["madd"]:
+                fail(f"{key}: launches {launches}, expected the affine route (no madd)")
+        if _proof_ints(got) != _proof_ints(want):
+            fail(f"{key}: the proof of dummy_circuit({log}) differs from the default route's")
+        if not groth16.verify(pk.vk.prepare(), got, z[1 : r1cs.num_instance]):
+            fail(f"{key}: the proof of dummy_circuit({log}) does not verify")
+        say(f"prove dummy_circuit({log}) under {' '.join(f'{k}={v}' for k, v in env.items())} "
+            f"({route} route, run_device_many): total {secs:.3f} s; "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+            + f"; the default route {default_s:.3f} s; equal proofs; verify ok; [{card}]")
+        say(f"launches during that prove: { {k: v for k, v in launches.items() if v} }")
+    return out
+
+
 def _peak_rss_gib() -> float:
     """This process's peak resident set so far (ru_maxrss is in KiB)."""
     import resource
 
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _cli_runner(base: str, name: str, out: dict, reset, counts, card: str):
+    """A function run(cmd, key=None) that runs `crescent cmd --name name` in
+    this process on the card, its launches into out[key] if a key is
+    given, prints what it printed, its seconds and its trace spans
+    (utils/trace.py `recording`), fails unless it returns 0, and returns
+    what it printed and its spans as (depth, label, seconds)."""
+    import contextlib
+    import io
+
+    from crescent_tpu_torch import cli
+    from crescent_tpu_torch.utils import trace
+
+    def run(cmd: str, key: str | None = None) -> tuple[str, list]:
+        buf = io.StringIO()
+        if key:
+            reset()
+        t0 = time.perf_counter()
+        with trace.recording() as spans, contextlib.redirect_stdout(buf):
+            rc = cli.main(["--base", base, cmd, "--name", name, "--device", "cuda"])
+        if key:
+            out[key] = counts()
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        for ln in text.splitlines():
+            say(f"  | {ln}")
+        if rc != 0:
+            fail(f"{name}: `crescent {cmd}` returned {rc}")
+        say(f"{name} {cmd}{' (' + key + ')' if key else ''}: {secs:.3f} s; peak host RSS "
+            f"{_peak_rss_gib():.2f} GiB; [{card}]")
+        for depth, label, dt in spans:
+            say(f"    {'  ' * depth}{label}: {dt:.3f} s")
+        return text, [tuple(sp) for sp in spans]
+
+    return run
+
+
+def _cli_setup_and_proves(api, groth16, run, base: str, name: str, out: dict, key: str):
+    """zksetup, then prove twice (the second replays the compiled witness
+    program natively) through `run`; setup must take the device branch,
+    each prove h(x) and the fold on the card (every kernel of the default
+    prove launched, 22 batch_inv launches a chunk), and the replayed
+    prove's proof must verify.  Returns the CachePaths."""
+    import os
+
+    run("zksetup", f"{key}_setup")
+    launches = out[f"{key}_setup"]
+    want = {"fixed_base": 1, "fq2_fixed_base": 1, "madd": 0, "fq2_madd": 0}
+    if any(launches[k] != v for k, v in want.items()) or not launches["batch_inv"]:
+        fail(f"{name} zksetup did not take setup's device branch: launches {launches}")
+    say(f"launches during {name} zksetup: { {k: v for k, v in launches.items() if v} }")
+
+    _, first = run("prove", f"{key}_prove")
+    (r1cs, _, prog), = api._WITNESS_CACHE.values()
+    if prog is None:
+        fail(f"{name}: the witness program did not compile, so no replay")
+    nv, ni = r1cs.num_vars, r1cs.num_instance
+    dom_n = groth16._domain_for(r1cs).n
+    pck = 1 << CHUNK_LOG
+    g1_chunks = sum(-(-m // pck) for m in (nv, nv, dom_n - 1, nv - ni))
+    say(f"{name} circuit: {len(r1cs.constraints)} constraints, {nv} variables, "
+        f"num_instance {ni}, domain 2^{dom_n.bit_length() - 1}; {g1_chunks} G1 chunks "
+        "a prove")
+    _, second = run("prove", f"{key}_prove_replay")
+    first, second = [sp[1] for sp in first], [sp[1] for sp in second]
+    if ("prove::frontend.synthesize (witness)" not in first
+            or "prove::witness replay (native)" not in second
+            or "prove::frontend.synthesize (witness)" in second):
+        fail(f"{name}: the first prove did not synthesize or the second did not replay")
+    for k in (f"{key}_prove", f"{key}_prove_replay"):
+        _tree_replaced(out[k], f"the {k} run", {"": g1_chunks})
+        for kernel in ("mul", "butterfly", "affine_denom", "affine_add", "jadd", "jdbl_n"):
+            if not out[k][kernel]:
+                fail(f"the {kernel} kernel was not launched during the {k} run")
+        say(f"launches during {k}: { {k2: v for k2, v in out[k].items() if v} }")
+    paths = api.CachePaths(os.path.join(base, name))
+    cs = api.read_from_file(paths.client_state)
+    if not groth16.verify(cs.pvk, cs.proof, cs.inputs):
+        fail(f"{name}: the replayed prove's proof does not verify")
+    return paths
+
+
+def _verifier_params(api, paths):
+    with open(paths.io_locations) as f:
+        io_str = f.read()
+    with open(paths.issuer_pem) as f:
+        issuer_pem = f.read()
+    with open(paths.config) as f:
+        config_str = f.read()
+    return api.VerifierParams(
+        vk=api.read_from_file(paths.groth16_vk), pvk=api.read_from_file(paths.groth16_pvk),
+        range_vk=api.read_from_file(paths.range_vk), io_locations_str=io_str,
+        issuer_pem=issuer_pem, config_str=config_str)
 
 
 def rs256_phase(torch, groth16, reset, counts, card: str) -> dict:
@@ -1910,87 +2258,22 @@ def rs256_phase(torch, groth16, reset, counts, card: str) -> dict:
     `inv`, the second prove's proof must verify and a show whose revealed
     email limb is changed must fail verify_show.  Returns each run's
     launches."""
-    import contextlib
-    import io
     import tempfile
 
-    from crescent_tpu_torch import cli
     from crescent_tpu_torch.credentials import api
     from crescent_tpu_torch.credentials.prep_inputs import ProofSpec
-    from crescent_tpu_torch.utils import trace
 
     out = {}
     api._WITNESS_CACHE.clear()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rs256_") as base:
-        def run(cmd: str, key: str | None = None) -> tuple[str, list]:
-            """`crescent cmd` for rs256, its launches into out[key] if a key
-            is given; returns what it printed and its trace spans' labels."""
-            buf = io.StringIO()
-            if key:
-                reset()
-            t0 = time.perf_counter()
-            with trace.recording() as spans, contextlib.redirect_stdout(buf):
-                rc = cli.main(["--base", base, cmd, "--name", "rs256", "--device", "cuda"])
-            if key:
-                out[key] = counts()
-            secs = time.perf_counter() - t0
-            text = buf.getvalue()
-            for ln in text.splitlines():
-                say(f"  | {ln}")
-            if rc != 0:
-                fail(f"rs256: `crescent {cmd}` returned {rc}")
-            say(f"rs256 {cmd}{' (' + key + ')' if key else ''}: {secs:.3f} s; peak host RSS "
-                f"{_peak_rss_gib():.2f} GiB; [{card}]")
-            for depth, label, dt in spans:
-                say(f"    {'  ' * depth}{label}: {dt:.3f} s")
-            return text, [s[1] for s in spans]
-
+        run = _cli_runner(base, "rs256", out, reset, counts, card)
         run("gen-fixtures")
-        run("zksetup", "rs256_setup")
-        launches = out["rs256_setup"]
-        want = {"fixed_base": 1, "fq2_fixed_base": 1, "madd": 0, "fq2_madd": 0}
-        if any(launches[k] != v for k, v in want.items()) or not launches["batch_inv"]:
-            fail(f"rs256 zksetup did not take setup's device branch: launches {launches}")
-        say(f"launches during rs256 zksetup: { {k: v for k, v in launches.items() if v} }")
-
-        _, first = run("prove", "rs256_prove")
-        (r1cs, _, prog), = api._WITNESS_CACHE.values()
-        if prog is None:
-            fail("rs256: the witness program did not compile, so no replay")
-        nv, ni = r1cs.num_vars, r1cs.num_instance
-        dom_n = groth16._domain_for(r1cs).n
-        pck = 1 << CHUNK_LOG
-        g1_chunks = sum(-(-m // pck) for m in (nv, nv, dom_n - 1, nv - ni))
-        say(f"rs256 circuit: {len(r1cs.constraints)} constraints, {nv} variables, "
-            f"num_instance {ni}, domain 2^{dom_n.bit_length() - 1}; {g1_chunks} G1 chunks "
-            "a prove")
-        _, second = run("prove", "rs256_prove_replay")
-        if ("prove::frontend.synthesize (witness)" not in first
-                or "prove::witness replay (native)" not in second
-                or "prove::frontend.synthesize (witness)" in second):
-            fail("rs256: the first prove did not synthesize or the second did not replay")
-        for key in ("rs256_prove", "rs256_prove_replay"):
-            _tree_replaced(out[key], f"the {key} run", {"": g1_chunks})
-            say(f"launches during {key}: { {k: v for k, v in out[key].items() if v} }")
-        paths = api.CachePaths(os.path.join(base, "rs256"))
-        cs = api.read_from_file(paths.client_state)
-        if not groth16.verify(cs.pvk, cs.proof, cs.inputs):
-            fail("rs256: the replayed prove's proof does not verify")
-
+        paths = _cli_setup_and_proves(api, groth16, run, base, "rs256", out, "rs256")
         run("show")
         text, _ = run("verify")
         if "verify: PASS" not in text:
             fail("rs256: verify did not print PASS")
-        with open(paths.io_locations) as f:
-            io_str = f.read()
-        with open(paths.issuer_pem) as f:
-            issuer_pem = f.read()
-        with open(paths.config) as f:
-            config_str = f.read()
-        vp = api.VerifierParams(
-            vk=api.read_from_file(paths.groth16_vk), pvk=api.read_from_file(paths.groth16_pvk),
-            range_vk=api.read_from_file(paths.range_vk), io_locations_str=io_str,
-            issuer_pem=issuer_pem, config_str=config_str)
+        vp = _verifier_params(api, paths)
         with open(paths.proof_spec + ".resolved") as f:
             spec = ProofSpec.from_json(f.read())
         show = api.read_from_file(paths.show_proof)
@@ -2001,6 +2284,73 @@ def rs256_phase(torch, groth16, reset, counts, card: str) -> dict:
             fail("rs256: a show whose revealed email limb is changed verifies")
         say(f"rs256: the replayed prove's proof verifies; a changed email limb is refused; "
             f"[{card}]")
+    api._WITNESS_CACHE.clear()
+    return out
+
+
+def _span_seconds(spans: list, prefix: str) -> float:
+    secs = [dt for _, label, dt in spans if label.startswith(prefix)]
+    if len(secs) != 1:
+        fail(f"expected one trace span {prefix!r}, found {len(secs)}")
+    return secs[0]
+
+
+def rs256db_phase(torch, groth16, reset, counts, card: str) -> dict:
+    """(d) rs256-db (device bound) end to end through the port's CLI in this
+    process at its own max_cred_len, DB_CRED_LEN: gen-fixtures (an issuer
+    key, a P-256 device key whose public x rides in the JWT as
+    device_key_0/1), zksetup and two proves as rs256's (device branch, the
+    fold, the replay), show (the Groth16 show, the expiry's range proof and
+    the DeviceProof: sigma proofs tying the committed key to a Spartan proof
+    of the device's ECDSA signature on the digest of the presentation
+    message) and verify, which must print PASS.  A presentation message
+    other than the signed one and a flipped byte of the device proof must
+    each be refused.  Prints each command's seconds and spans, Spartan's
+    prove and verify seconds and the device proof's size.  Returns each
+    run's launches."""
+    import hashlib
+    import tempfile
+
+    from crescent_tpu_torch import cli
+    from crescent_tpu_torch.credentials import api
+    from crescent_tpu_torch.credentials.prep_inputs import ProofSpec
+    from crescent_tpu_torch.utils import ark
+
+    name = "rs256-db"
+    if cli.DEFAULT_CONFIGS[name]["max_cred_len"] != DB_CRED_LEN:
+        fail(f"{name}'s max_cred_len is not {DB_CRED_LEN}")
+    out = {}
+    api._WITNESS_CACHE.clear()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rs256db_") as base:
+        run = _cli_runner(base, name, out, reset, counts, card)
+        run("gen-fixtures")
+        paths = _cli_setup_and_proves(api, groth16, run, base, name, out, "rs256db")
+        text, show_spans = run("show")
+        spartan_prove = _span_seconds(show_spans, "show::device proof")
+        text, verify_spans = run("verify")
+        if "verify: PASS" not in text:
+            fail(f"{name}: verify did not print PASS")
+        spartan_verify = _span_seconds(verify_spans, "verify::device proof")
+        vp = _verifier_params(api, paths)
+        with open(paths.proof_spec + ".resolved") as f:
+            spec = ProofSpec.from_json(f.read())
+        show = api.read_from_file(paths.show_proof)
+        if (not spec.device_bound or show.device_proof is None
+                or not api.verify_show(vp, show, spec)[0]):
+            fail(f"{name}: the show carries no device proof or does not verify")
+        dp_bytes = len(ark.serialize(show.device_proof))
+        other = ProofSpec.from_json(spec.to_json())
+        other.presentation_message = hashlib.sha256(b"another presentation message").digest()
+        if api.verify_show(vp, show, other)[0]:
+            fail(f"{name}: a show verifies against a presentation message it did not sign")
+        pi2 = bytearray(show.device_proof.pi2)
+        pi2[len(pi2) // 2] ^= 1
+        show.device_proof.pi2 = bytes(pi2)
+        if api.verify_show(vp, show, spec)[0]:
+            fail(f"{name}: a show with a flipped byte of its device proof verifies")
+        say(f"{name}: Spartan (ECDSA proof of possession) prove {spartan_prove:.3f} s, verify "
+            f"{spartan_verify:.3f} s; device proof {dp_bytes} bytes; another presentation "
+            f"message and a flipped device-proof byte are refused; [{card}]")
     api._WITNESS_CACHE.clear()
     return out
 
@@ -2054,6 +2404,9 @@ def main() -> None:
     kres.update(ec_kernel_phase(torch, fields, get_cuda_ec, batch_inv))
     kres.update(setup_kernel_phase(torch, fields, curves, nb, get_cuda_ec, get_cuda_quad_ec,
                                    batch_inv))
+    # madd's path is the scan Pippenger's: its step widths lead its rows
+    for name, rows in scan_kernel_phase(torch, fields, get_cuda_ec, get_cuda_quad_ec).items():
+        kres[name][:0] = rows
     # the G2 MSM's five Fq2 point kernels
     _point_kernel_checks(torch, get_cuda_quad_ec(fields.BN254_FQ), "BN254 Fq2", "fq2_",
                          SEED + 150, batch_inv, kres)
@@ -2236,9 +2589,15 @@ def main() -> None:
         f"({time.perf_counter() - t0:.3f} s); launches {verify_launches}")
     # (a) setup and prove under CRESCENT_NATIVE=0; (b) the show path
     off_runs = native_off_phase(torch, groth16, reset, counts, card)
+    # the scan Pippenger (CRESCENT_MSM_AFFINE=0) and prove under
+    # CRESCENT_PROVE_FUSED=0 (run_device_many)
+    scan_runs = scan_msm_phase(torch, curves, nb, reset, counts, card)
+    fused_off_runs = fused_off_phase(torch, groth16, reset, counts, card)
     show_runs = show_phase(torch, groth16, reset, counts, card)
     # (c) rs256 through the CLI
     rs256_runs = rs256_phase(torch, groth16, reset, counts, card)
+    # (d) rs256-db through the CLI: device binding
+    db_runs = rs256db_phase(torch, groth16, reset, counts, card)
     say(f"chunk MSM 2^{CHUNK_LOG}: {mres['chunk_ms']:.3f} ms on the card, "
         f"{mres['enqueue_ms']:.3f} ms to enqueue; G2: {mres['g2_chunk_ms']:.3f} ms on the "
         f"card, {mres['g2_enqueue_ms']:.3f} ms to enqueue")
@@ -2273,7 +2632,8 @@ def main() -> None:
             if spill:
                 fail(f"{name}'s kernel {entry} spills {spill} bytes (nvcc -Xptxas -v)")
     runs = (setup_launches, prove_launches, native0_launches, fused_launches,
-            verify_launches, *off_runs.values(), *show_runs.values(), *rs256_runs.values())
+            verify_launches, *off_runs.values(), *show_runs.values(), *rs256_runs.values(),
+            *scan_runs.values(), *fused_off_runs.values(), *db_runs.values())
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     source.update(batch_inv="batch_inv.cuh", fq2_batch_inv="batch_inv.cuh")
@@ -2309,6 +2669,13 @@ def main() -> None:
             "launches_rs256_setup": rs256_runs["rs256_setup"][name],
             "launches_rs256_prove": rs256_runs["rs256_prove"][name],
             "launches_rs256_prove_replay": rs256_runs["rs256_prove_replay"][name],
+            "launches_rs256db_setup": db_runs["rs256db_setup"][name],
+            "launches_rs256db_prove": db_runs["rs256db_prove"][name],
+            "launches_rs256db_prove_replay": db_runs["rs256db_prove_replay"][name],
+            # the scan Pippenger: 2^16 G1 points (kernel form), the same
+            # under CRESCENT_MSM_PALLAS=0, 2^14 G2 points, run_device_many
+            **{f"launches_{k}": v[name] for k, v in scan_runs.items()},
+            **{f"launches_{k}": v[name] for k, v in fused_off_runs.items()},
             # the 1000-point small MSM of its group (the direct path)
             "launches_small_msm": mres["small_launches"][name],
             "registers": (_kernel_registers(regs, name) or (None, None))[0],

@@ -3,11 +3,14 @@
 Mirrors creds/src/main.rs:52-93: subcommands share state through the
 `test-vectors/<name>/` directory layout (CachePaths).  `gen-fixtures`
 replaces the reference's run_setup.sh:96-126 sample-credential generation
-(random issuer key + deterministic-structure JWT).
+(random issuer key + deterministic-structure JWT; for device-bound sets a
+P-256 device key pair, gen_mdl_device_key.sh equivalent).
 
-Parameter sets (README.md:38-44): rs256 and rs256-sd.  rs256-db and mdl1
-need device binding and the mDL frontend, which are not ported yet (ROADMAP
-Queue 1 item 3): asked for, every command exits with code 2 and says so.
+Parameter sets (README.md:38-44): rs256, rs256-sd and rs256-db (device
+bound: the show carries a Spartan proof of an ECDSA signature on the
+presentation message).  mdl1 needs the mDL frontend, which is not ported
+yet (ROADMAP Queue 1 item 3): asked for, every command exits with code 2
+and says so.
 
 Usage:
   python -m crescent_tpu_torch.cli gen-fixtures --name rs256
@@ -25,6 +28,7 @@ NOT sound) for protocol testing; the default is the real JWT circuit.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -58,14 +62,22 @@ DEFAULT_CONFIGS = {
             "type": "string", "max_claim_byte_len": 31, "reveal_digest": True,
         },
     },
+    "rs256-db": {
+        "alg": "RS256",
+        "max_cred_len": 576,
+        "device_bound": True,
+        "exp": {"type": "number", "max_claim_byte_len": 31, "reveal": True},
+        "email": dict(_EMAIL_CLAIM),
+    },
 }
 DEFAULT_PROOF_SPECS = {
     "rs256": '{"revealed": ["email"]}',
     "rs256-sd": '{"revealed": ["family_name"]}',
+    "rs256-db": '{"revealed": ["email"], "device_bound": true}',
 }
-NOT_PORTED = {"rs256-db", "mdl1"}
-NOT_PORTED_MESSAGE = ("needs device binding and the mDL frontend, which are not "
-                      "ported yet (ROADMAP Queue 1 item 3)")
+NOT_PORTED = {"mdl1"}
+NOT_PORTED_MESSAGE = ("needs the mDL frontend (CBOR, the mDL statement and its "
+                      "show), which is not ported yet (ROADMAP Queue 1 item 3)")
 
 
 def _paths(args) -> api.CachePaths:
@@ -80,6 +92,14 @@ def _frontend(args):
     return JWTFrontend()
 
 
+def _load_device(paths):
+    from .credentials.device import TestDevice
+
+    with open(paths.base + "device.prv") as f:
+        secret = int(f.read().strip())
+    return TestDevice(secret=secret)
+
+
 def cmd_gen_fixtures(args):
     from .utils import jwt as jwtutil
 
@@ -88,6 +108,8 @@ def cmd_gen_fixtures(args):
     if not os.path.exists(paths.config):
         with open(paths.config, "w") as f:
             json.dump(default_cfg, f, indent=2)
+    with open(paths.config) as f:
+        config = json.load(f)
     priv, pub = jwtutil.generate_rsa_keypair(2048)
     with open(paths.issuer_pem, "w") as f:
         f.write(pub)
@@ -100,6 +122,18 @@ def cmd_gen_fixtures(args):
         "iat": int(time.time()),
         "sub": "alice",
     }
+    if config.get("device_bound", False):
+        from .credentials.device import TestDevice
+        from .credentials.ecdsa_pop import split_public_key_x
+
+        dev = TestDevice()
+        with open(paths.base + "device.prv", "w") as f:
+            f.write(str(dev.secret))
+        with open(paths.device_pub_pem, "w") as f:
+            f.write(dev.public_pem())
+        q0, q1 = split_public_key_x(dev.public[0])
+        claims["device_key_0"] = q0
+        claims["device_key_1"] = q1
     token = jwtutil.sign_jwt_rs256(claims, priv)
     with open(paths.jwt, "w") as f:
         f.write(token)
@@ -126,8 +160,14 @@ def cmd_prove(args):
         token = f.read().strip()
     with open(paths.issuer_pem) as f:
         issuer_pem = f.read()
+    device_pub_pem = None
+    if config.get("device_bound", False):
+        with open(paths.device_pub_pem) as f:
+            device_pub_pem = f.read()
     t0 = time.time()
-    prover_inputs, prover_aux, _ = prepare_prover_inputs(config, token, issuer_pem)
+    prover_inputs, prover_aux, _ = prepare_prover_inputs(
+        config, token, issuer_pem, device_pub_pem=device_pub_pem
+    )
     cs = api.create_client_state(
         paths, prover_inputs, _frontend(args), prover_aux=json.dumps(prover_aux),
         device=args.device,
@@ -139,11 +179,17 @@ def cmd_prove(args):
 
 def _load_proof_spec(paths, args):
     """main.rs:168-196: load the spec, with the presentation message given
-    on the command line, if any."""
+    on the command line, if any; when device-bound, replace the raw
+    presentation message with its SHA-256 digest."""
     with open(paths.proof_spec) as f:
         spec = ProofSpec.from_json(f.read())
     if args and getattr(args, "presentation_message", None):
         spec.presentation_message = args.presentation_message.encode()
+    if spec.device_bound and spec.presentation_message is not None:
+        spec.presentation_message = hashlib.sha256(spec.presentation_message).digest()
+    elif spec.device_bound:
+        # a fresh show still needs a message to sign; default like the CLI
+        spec.presentation_message = hashlib.sha256(b"default presentation message").digest()
     return spec
 
 
@@ -153,8 +199,12 @@ def cmd_show(args):
     range_pk = api.read_from_file(paths.range_pk)
     io_locations = IOLocations.from_file(paths.io_locations)
     spec = _load_proof_spec(paths, args)
+    device_signature = None
+    if spec.device_bound:
+        device_signature = _load_device(paths).sign(spec.presentation_message)
     t0 = time.time()
-    sp = api.create_show_proof(client_state, range_pk, io_locations, spec)
+    sp = api.create_show_proof(client_state, range_pk, io_locations, spec,
+                               device_signature=device_signature)
     api.write_to_file(sp, paths.show_proof)
     with open(paths.proof_spec + ".resolved", "w") as f:
         f.write(spec.to_json())
@@ -167,7 +217,8 @@ def cmd_show(args):
 
 def _print_show_proof_size(sp) -> int:
     """Per-component proof-size breakdown (main.rs:138-166
-    show_proof_size): Groth16 + expiry range + per-attribute ranges."""
+    show_proof_size): Groth16 + expiry range + per-attribute ranges +
+    device proof."""
     from .utils import ark
 
     parts = [("Groth16 proof", len(ark.serialize(sp.show_groth16))),
@@ -176,6 +227,8 @@ def _print_show_proof_size(sp) -> int:
         (f"range proof{i}", len(ark.serialize(r)))
         for i, r in enumerate(sp.show_range_attr)
     ]
+    if sp.device_proof is not None:
+        parts.append(("device signature proof", len(ark.serialize(sp.device_proof))))
     total = sum(n for _, n in parts)
     breakdown = " + ".join(f"{n} ({label})" for label, n in parts)
     print(f"Show proof size: {breakdown} = {total} bytes total")

@@ -8,22 +8,27 @@ same show/verify semantics:
 
   create_show_proof  (lib.rs:305): exp committed + fresh 32-bit range proof
     that exp - cur_time >= 0, issuer-key IOs revealed, proof-spec'd claims
-    revealed (or their digest preimages sent), everything bound to the
-    serialized internal proof spec as context.
+    revealed (or their digest preimages sent), device-bound keys committed,
+    everything bound to the serialized internal proof spec as context.
   verify_show (lib.rs:531): rebuild io_types, hash preimages (circom
     Bits2Num over the first 248 digest bits), reassemble the revealed-input
-    vector sorted by IO location, check show + freshness (300 s) + range.
+    vector sorted by IO location, check show + freshness (300 s) + range
+    (+ device proof).
 
 Statement circuits plug in through `CircuitFrontend`; the native builder
 frontend lives in credentials/circuits.py.
 
-This is the JWT half.  The entry points that reach the device, `run_zksetup`
-and `create_client_state`, take a keyword-only `device`, the card by default,
-and pass it to `groth16.setup`, `prove`, `verify` and `rangeproof.setup`;
-they raise without a card unless given "cpu".  Show and verify run on the
-host, as the show path does (credentials/groth16rand.py).  Device
-binding (a `device_bound` proof spec) and the mDL show and verify are not
-ported yet (ROADMAP Queue 1 item 3): asked for, they raise.
+This is the JWT half, device binding included (a `device_bound` proof
+spec: the DeviceProof of credentials/device.py, a Spartan proof of an
+ECDSA signature on the presentation message).  The entry points that reach
+the device, `run_zksetup` and `create_client_state`, take a keyword-only
+`device`, the card by default, and pass it to `groth16.setup`, `prove`,
+`verify` and `rangeproof.setup`; they raise without a card unless given
+"cpu".  Show and verify run on the host, as the show path does
+(credentials/groth16rand.py), the DeviceProof's Spartan NIZK on the native
+backend (models/spartan.py).  The mDL show and verify (the reference's
+`create_show_proof_mdl`, `verify_show_mdl`) are not ported yet (ROADMAP
+Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -52,8 +57,6 @@ from .structs import IOLocations, PublicIOType
 from ..utils.trace import timed
 
 RANGE_PROOF_INTERVAL_BITS = 32      # lib.rs:50
-DEVICE_BINDING_LATER = ("device binding (DeviceProof, credentials/device.py) is "
-                        "not ported yet: ROADMAP Queue 1 item 3")
 SHOW_PROOF_VALIDITY_SECONDS = 300   # lib.rs:51
 DEFAULT_PROOF_SPEC = '{"revealed" : ["email"]}'  # lib.rs:52
 
@@ -368,6 +371,7 @@ def create_show_proof(
     range_pk: rp.RangeProofPK,
     io_locations: IOLocations,
     proof_spec: ProofSpec,
+    device_signature: Optional[bytes] = None,
     rng: random.Random | None = None,
     cur_time: Optional[int] = None,
 ) -> ShowProof:
@@ -379,8 +383,6 @@ def create_show_proof(
         io_types[i] = PublicIOType.REVEALED
 
     psi = create_proof_spec_internal(proof_spec, client_state.config_str)
-    if psi.device_bound:
-        raise NotImplementedError(DEVICE_BINDING_LATER)
 
     revealed_inputs = []
     for attr in psi.revealed:
@@ -402,6 +404,10 @@ def create_show_proof(
         # the reference ships (lib.rs:351 `aux[attr].to_string()`)
         revealed_preimages[attr] = json.dumps(aux[attr], separators=(",", ":"))
 
+    if psi.device_bound:
+        io_types[io_locations.get_io_location("device_key_0_value") - 1] = PublicIOType.COMMITTED
+        io_types[io_locations.get_io_location("device_key_1_value") - 1] = PublicIOType.COMMITTED
+
     context = _context_json(psi)
     show = client_state.show_groth16(context, io_types, rng=rng)
 
@@ -418,6 +424,20 @@ def create_show_proof(
     )
     show_range_exp = client_state.show_range(shifted, RANGE_PROOF_INTERVAL_BITS, range_pk, rng=rng)
 
+    device_proof = None
+    if psi.device_bound:
+        from .device import DeviceProof, ECDSASig
+
+        assert len(client_state.committed_input_openings) >= 3
+        com0 = client_state.committed_input_openings[1]
+        com1 = client_state.committed_input_openings[2]
+        aux = json.loads(client_state.aux)
+        sig = ECDSASig.from_bytes(psi.presentation_message, device_signature)
+        with timed("show::device proof (Spartan, ECDSA proof of possession)"):
+            device_proof = DeviceProof.prove(
+                com0, com1, sig, int(aux["device_pub_x"]), int(aux["device_pub_y"])
+            )
+
     return ShowProof(
         show_groth16=show,
         show_range_exp=show_range_exp,
@@ -426,7 +446,7 @@ def create_show_proof(
         revealed_preimages=json.dumps(revealed_preimages) if psi.hashed else None,
         inputs_len=len(client_state.inputs),
         cur_time=time_sec,
-        device_proof=None,
+        device_proof=device_proof,
     )
 
 
@@ -465,8 +485,6 @@ def verify_show(
         psi = create_proof_spec_internal(proof_spec, vp.config_str)
     except Exception:
         return False, ""
-    if psi.device_bound:
-        raise NotImplementedError(DEVICE_BINDING_LATER)
 
     for attr in psi.revealed:
         try:
@@ -493,6 +511,10 @@ def verify_show(
             digest = hashlib.sha256(preimages[attr].encode()).digest()
             revealed_hashed.append(bits_to_num(digest[:31]))
 
+    if psi.device_bound:
+        io_types[io_locations.get_io_location("device_key_0_value") - 1] = PublicIOType.COMMITTED
+        io_types[io_locations.get_io_location("device_key_1_value") - 1] = PublicIOType.COMMITTED
+
     try:
         public_key_inputs = pem_to_inputs(vp.issuer_pem)
     except Exception:
@@ -516,6 +538,21 @@ def verify_show(
         ped_com_exp, RANGE_PROOF_INTERVAL_BITS, vp.range_vk, io_locations, vp.vk, "exp_value"
     ):
         return False, ""
+
+    if psi.device_bound:
+        from .device import DeviceProof
+
+        k0 = io_locations.get_io_location("device_key_0_value")
+        k1 = io_locations.get_io_location("device_key_1_value")
+        com0 = show_proof.show_groth16.committed_inputs[1]
+        com1 = show_proof.show_groth16.committed_inputs[2]
+        bases0 = [vp.vk.gamma_abc_g1[k0], vp.vk.delta_g1]
+        bases1 = [vp.vk.gamma_abc_g1[k1], vp.vk.delta_g1]
+        if show_proof.device_proof is None:
+            return False, "Device proof missing in show_proof"
+        with timed("verify::device proof (Spartan, ECDSA proof of possession)"):
+            if not DeviceProof.verify(show_proof.device_proof, com0, com1, bases0, bases1):
+                return False, ""
 
     # convert revealed field elements back to claim values (lib.rs:684-720)
     revealed = {}

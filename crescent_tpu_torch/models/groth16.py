@@ -22,7 +22,14 @@ CPU runs the kernels' plain versions), whatever ``CRESCENT_PROVE_MSM``
 says; so does verify's public-input MSM.  ``R1CS.is_satisfied`` runs its
 Python loop then, as it does for small lists.  ``CRESCENT_MSM_FUSED_AGG=1``
 (the reference's switch) aggregates each chunk of the device MSMs by one
-``bucket_reduce`` launch; the proof is the same.
+``bucket_reduce`` launch; the proof is the same.  ``CRESCENT_PROVE_FUSED``
+other than 1 (the reference's switch) turns the fused data path off: h(x)
+from the Python lists of ``_compute_h`` (the native matvec while the
+backend is on), and the four G1 MSMs as one ``MSM.run_device_many`` batch
+in place of the fold (the affine route one problem after another; with
+``CRESCENT_MSM_AFFINE=0`` the scan Pippenger over all four at once), the
+G2 MSM as above.  The fold falls back to that batch by itself where the
+affine route is off.
 
 ``setup`` draws the same randomness in the same order as the reference
 (gamma == 1) and then, by the reference's switches ``CRESCENT_SETUP_TPU``
@@ -705,6 +712,24 @@ def _compute_h_device(r1cs: R1CS, zu: np.ndarray, dom: ntt.NTTDomain,
     return limb.u64_to_limbs(limb.words_to_u64(h))
 
 
+def _msm_problem(pk: ProvingKey, name: str, sc: torch.Tensor, msm_obj: MSM, device):
+    """(px, py, valid, scalars) of one MSM of `prove`: the first len(sc)
+    points of an SRS table's device planes and the (n, 8) scalar words `sc`
+    (reference groth16.py:777-781, which uploads the scalars from ints)."""
+    px, py, valid = pk.device_table(name, msm_obj, device)
+    n = sc.shape[0]
+    return (px[:n], py[:n], valid[:n], sc)
+
+
+def _prove_fused() -> bool:
+    """CRESCENT_PROVE_FUSED (the reference's switch, groth16.py:834, :880;
+    default 1): with "1", h(x) comes from the native u64 matvec and the G1
+    MSMs run as one chunk fold; any other value takes the Python-list h(x)
+    route (``_compute_h``) and the four G1 MSMs as one ``run_device_many``
+    batch."""
+    return os.environ.get("CRESCENT_PROVE_FUSED", "1") == "1"
+
+
 def prove(
     pk: ProvingKey,
     r1cs: R1CS,
@@ -738,7 +763,7 @@ def prove(
     else:
         zu = nb.ints_to_u64([x % R for x in z])
     dom = _domain_for(r1cs)
-    if _native_ok():
+    if _native_ok() and _prove_fused():
         hw = _h_device_words(r1cs, zu, dom, device, timings)
     else:
         zl = nb.u64_to_ints(zu) if isinstance(z, np.ndarray) else z
@@ -771,26 +796,27 @@ def prove(
                 # stays on the device
                 zsc = limb.u64_to_words(zu, device)
                 nh = dom.n - 1
-                ta, tb, th, tl = (
-                    pk.device_table(name, msm_g1, device)
-                    for name in ("a_query", "b_g1_query", "h_query", "l_query"))
-                fold = msm_g1.run_device_fold([
-                    (*ta, zsc),
-                    (*tb, zsc),
-                    (th[0][:nh], th[1][:nh], th[2][:nh], hw[:nh]),
-                    (*tl, zsc[ni:]),
-                ])
+                problems = [
+                    _msm_problem(pk, name, sc, msm_g1, device)
+                    for name, sc in (("a_query", zsc), ("b_g1_query", zsc),
+                                     ("h_query", hw[:nh]), ("l_query", zsc[ni:]))]
+                # the fold, or with it off (CRESCENT_PROVE_FUSED, or the
+                # affine route off) the four as one batch
+                fold = msm_g1.run_device_fold(problems) if _prove_fused() else None
+                if fold is None:
+                    g1 = msm_g1.run_device_many(problems)
+                else:
+                    g1 = JPoints(*(torch.stack(c) for c in zip(*fold)))
                 if g2_on_device:
                     # enqueued behind the fold before anything is read
                     # back, so the one wait below covers both
                     t1 = time.perf_counter()
                     msm_g2 = get_g2_msm()
                     nv = r1cs.num_vars
-                    tg2 = pk.device_table("b_g2_query", msm_g2, device)
-                    res2 = msm_g2.run_device(*(a[:nv] for a in tg2), zsc)
+                    res2 = msm_g2.run_device(*_msm_problem(pk, "b_g2_query", zsc[:nv], msm_g2,
+                                                           device))
                     g2_enqueue = time.perf_counter() - t1
-                az, bz1, hq, lw = msm_g1.ctx.points_to_host(
-                    JPoints(*(torch.stack(c) for c in zip(*fold))))
+                az, bz1, hq, lw = msm_g1.ctx.points_to_host(g1)
                 g1_seconds = time.perf_counter() - t0
                 if g2_on_device:
                     t1 = time.perf_counter()
@@ -840,7 +866,7 @@ def prove(
 def prepare_inputs(vk: VerifyingKey, public_inputs: list[int], device="cuda"):
     """gamma_abc[0] + sum_i pub_i * gamma_abc[i+1]  (verifier.rs:25): the
     MSM on the native host backend, or with it off (CRESCENT_NATIVE=0) by
-    ``get_msm(G1).run_host`` on `device`, as the reference does."""
+    ``get_msm(G1, lanes=8).run_host`` on `device`, as the reference does."""
     assert len(public_inputs) == len(vk.gamma_abc_g1) - 1
     acc = vk.gamma_abc_g1[0]
     if public_inputs:
@@ -849,8 +875,8 @@ def prepare_inputs(vk: VerifyingKey, public_inputs: list[int], device="cuda"):
             acc = G1.add(acc, nb.msm("bn254_g1", [x % R for x in public_inputs],
                                      vk.gamma_abc_g1[1:]))
         else:
-            acc = G1.add(acc, get_msm(G1).run_host(public_inputs, vk.gamma_abc_g1[1:],
-                                                   device))
+            acc = G1.add(acc, get_msm(G1, lanes=8).run_host(public_inputs,
+                                                            vk.gamma_abc_g1[1:], device))
     return acc
 
 

@@ -18,8 +18,6 @@ layouts for the full artifact tree:
   DLogPoK / PedersenOpening                  creds/src/dlog.rs:16-29
   ClientState / ShowGroth16 / ShowRange      creds/src/groth16rand.rs:25-56
   DeviceProof                                creds/src/device.rs:82-94
-      (not yet: its functions raise until device binding is ported; a
-      ShowProof without one serializes as the reference's)
   ProverParams / ShowParams / VerifierParams / ShowProof
       creds/src/lib.rs:59-139
 
@@ -660,15 +658,35 @@ def deser_client_state(r: Reader):
 
 
 def ser_device_proof(dp) -> bytes:
-    raise NotImplementedError(
-        "DeviceProof (creds/src/device.rs:82-94) comes with device binding, "
-        "ROADMAP Queue 1 item 3")
+    return (
+        ser_biguint(dp.r_x)
+        + ser_biguint(dp.r_y)
+        + ser_byte_vec(dp.digest)
+        + ser_g1_uncompressed(dp.com1)
+        + ser_g1_uncompressed(dp.comz)
+        + ser_byte_vec(dp.h_Q)
+        + ser_fr(dp.m)
+        + ser_dlogpok(dp.pi0)
+        + ser_dlogpok(dp.pi1)
+        + ser_byte_vec(dp.pi2)
+    )
 
 
 def deser_device_proof(r: Reader):
-    raise NotImplementedError(
-        "DeviceProof (creds/src/device.rs:82-94) comes with device binding, "
-        "ROADMAP Queue 1 item 3")
+    from ..credentials.device import DeviceProof
+
+    return DeviceProof(
+        r_x=r.biguint(),
+        r_y=r.biguint(),
+        digest=r.byte_vec(),
+        com1=r.g1(),
+        comz=r.g1(),
+        h_Q=r.byte_vec(),
+        m=r.fr(),
+        pi0=deser_dlogpok(r),
+        pi1=deser_dlogpok(r),
+        pi2=r.byte_vec(),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -761,6 +779,7 @@ def deser_show_proof(r: Reader):
 
 def _registry():
     from ..credentials.api import ProverParams, ShowParams, ShowProof, VerifierParams
+    from ..credentials.device import DeviceProof
     from ..credentials.dlog import DLogPoK, PedersenOpening
     from ..credentials.groth16rand import ClientState, ShowGroth16, ShowRange
     from ..credentials.rangeproof import RangeProof, RangeProofPK, RangeProofVK
@@ -784,6 +803,7 @@ def _registry():
         ClientState: (ser_client_state, deser_client_state),
         ShowGroth16: (ser_show_groth16, deser_show_groth16),
         ShowRange: (ser_show_range, deser_show_range),
+        DeviceProof: (ser_device_proof, deser_device_proof),
         ProverParams: (ser_prover_params, deser_prover_params),
         ShowParams: (ser_show_params, deser_show_params),
         VerifierParams: (ser_verifier_params, deser_verifier_params),

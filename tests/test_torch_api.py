@@ -230,17 +230,30 @@ def test_prover_params_read_back_as_arrays(pipelines):
 
 
 def test_device_binding_raises_until_ported(pipelines, tmp_path):
-    (_, _), (port_files, port_vp) = pipelines
+    """Device binding is ported (tests/test_torch_api_db.py runs it end to
+    end).  A device-bound spec against this credential, whose config
+    commits no device key, now fails in the port as it does in the
+    reference (no io location device_key_0_value), in show and in verify,
+    and ser_device_proof takes only a DeviceProof, as the reference's."""
+    (ref_files, ref_vp), (port_files, port_vp) = pipelines
     show = park.deserialize(port_files["show_proof"], papi.ShowProof)
     spec = pprep.ProofSpec(revealed=["email"], presentation_message=b"m", device_bound=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        papi.verify_show(port_vp, show, spec, now_seconds=NOW)
+    r_spec = rprep.ProofSpec(revealed=["email"], presentation_message=b"m", device_bound=True)
+    r_show = rark.deserialize(port_files["show_proof"], rapi.ShowProof)
+    for verify, vp, sh, sp in ((papi.verify_show, port_vp, show, spec),
+                               (rapi.verify_show, ref_vp, r_show, r_spec)):
+        with pytest.raises(KeyError, match="device_key_0_value"):
+            verify(vp, sh, sp, now_seconds=NOW)
     cs = park.deserialize(port_files["client_state"], ClientState)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        papi.create_show_proof(cs, None, PIOLocations.from_str(port_vp.io_locations_str),
-                               spec, rng=random.Random(1), cur_time=NOW)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        park.ser_device_proof(object())
+    r_cs = rark.deserialize(ref_files["client_state"], rapi.ClientState)
+    for create, c, sp, loc in ((papi.create_show_proof, cs, spec, PIOLocations),
+                               (rapi.create_show_proof, r_cs, r_spec, RIOLocations)):
+        with pytest.raises(KeyError, match="device_key_0_value"):
+            create(c, None, loc.from_str(port_vp.io_locations_str), sp,
+                   device_signature=bytes(64), rng=random.Random(1), cur_time=NOW)
+    for ser in (park.ser_device_proof, rark.ser_device_proof):
+        with pytest.raises(AttributeError):
+            ser(object())
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -272,7 +285,21 @@ def test_cli_stub_runs_all_five_commands(tmp_path, capsys):
 
 @pytest.mark.parametrize("name", ["rs256-db", "mdl1"])
 def test_cli_refuses_the_sets_not_ported(tmp_path, capsys, name):
+    """mdl1 (the mDL frontend) is still refused with exit code 2 and a
+    message naming what it needs; rs256-db, refused until device binding
+    was ported, now writes its fixtures: its config, the issuer's key and
+    the device's key pair, whose public x rides in the token's claims."""
     rc = pcli.main(["--base", str(tmp_path), "gen-fixtures", "--name", name])
-    assert rc != 0
-    assert "ROADMAP Queue 1 item 3" in capsys.readouterr().err
-    assert not os.path.exists(os.path.join(tmp_path, name, "config.json"))
+    base = os.path.join(tmp_path, name)
+    if name == "mdl1":
+        assert rc == 2
+        err = capsys.readouterr().err
+        assert "mDL frontend" in err and "ROADMAP Queue 1 item 3" in err
+        assert not os.path.exists(os.path.join(base, "config.json"))
+        return
+    assert rc == 0
+    with open(os.path.join(base, "config.json")) as f:
+        assert json.load(f) == pcli.DEFAULT_CONFIGS["rs256-db"]
+    assert pcli.DEFAULT_CONFIGS["rs256-db"]["device_bound"]
+    for fname in ("device.prv", "device.pub", "issuer.pub", "token.jwt"):
+        assert os.path.exists(os.path.join(base, fname)), fname

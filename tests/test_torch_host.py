@@ -55,10 +55,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             if "crescent_tpu_torch" in f.read():
                 files.append(path)
     assert len(files) > 19
-    # the credential pipeline's modules among them
+    # the credential pipeline's modules among them, device binding's too
     for mod in ("cli.py", "credentials/api.py", "credentials/circuits.py",
                 "credentials/prep_inputs.py", "r1cs/builder.py", "r1cs/witness_program.py",
-                "utils/ark.py", "utils/jwt.py"):
+                "utils/ark.py", "utils/jwt.py", "core/poseidon.py", "models/spartan.py",
+                "models/spartan_ser.py", "credentials/ecdsa_pop.py", "credentials/device.py"):
         assert os.path.join(ROOT, "crescent_tpu_torch", mod) in files, mod
     banned = ("jax", "crescent_tpu")
     for path in files:
