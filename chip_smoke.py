@@ -163,9 +163,25 @@
    and a flipped byte of the device proof must each be refused; prints
    each command's seconds and spans, Spartan's prove and verify seconds and
    the device proof's size.
-14. Prints {"kernels": [...]} (each kernel's launches in every run, those
-   of rs256's and rs256-db's zksetup and two proves, the scan MSMs' and
-   the CRESCENT_PROVE_FUSED=0 proves' among them) and, last,
+14. mdl1 (an ISO 18013-5 mDL) end to end through the port's CLI
+   in this process at its max_cred_len, 1792 (the real mDL statement:
+   SHA-256 over the COSE MSO, ES256 verified in the circuit with
+   non-native P-256 arithmetic, the validUntil, device-key and attribute
+   digest blocks): gen-fixtures (an X.509 chain for an ES256 issuer key, a
+   signed MSO, a P-256 device key), zksetup and two proves as rs256's
+   (device branch, the fold with 22 `batch_inv` a chunk and no `inv`, the
+   replay), show (the Groth16 show, the validUntil range proof, the
+   birth date's "over 18" range proof and the DeviceProof) and verify,
+   which must print PASS with resident_state WA, height 170,
+   family_name Example and given_name Alice; a changed revealed input, a
+   family_name preimage replaced by "Mallory", cur_time moved back
+   1000 s, a flipped byte of the device proof and another presentation
+   message must each be refused by verify_show_mdl.  Prints each command's
+   seconds, spans and peak host RSS, the circuit's sizes, Spartan's prove
+   and verify seconds and the show proof's size by part.
+15. Prints {"kernels": [...]} (each kernel's launches in every run, those
+   of rs256's, rs256-db's and mdl1's zksetup and two proves, the scan
+   MSMs' and the CRESCENT_PROVE_FUSED=0 proves' among them) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
@@ -225,6 +241,7 @@ SCAN_MANY = (1 << 16, 40000, 3000)  # run_device_many's three G1 problems
 FUSED_OFF = ((18, {"CRESCENT_PROVE_FUSED": "0"}, "affine"),
              (15, {"CRESCENT_PROVE_FUSED": "0", "CRESCENT_MSM_AFFINE": "0"}, "scan"))
 DB_CRED_LEN = 576  # rs256-db's max_cred_len (cli.DEFAULT_CONFIGS)
+MDL_CRED_LEN = 1792  # mdl1's max_cred_len (cli.MDL1_CONFIG)
 
 
 
@@ -2355,6 +2372,90 @@ def rs256db_phase(torch, groth16, reset, counts, card: str) -> dict:
     return out
 
 
+def mdl1_phase(torch, groth16, reset, counts, card: str) -> dict:
+    """mdl1 end to end through the port's CLI in this process at
+    MDL_CRED_LEN, the real mDL statement: gen-fixtures (real issuance),
+    zksetup and two proves as rs256's, show and verify, which must print
+    PASS with the four revealed values; five tampered shows must each be
+    refused by verify_show_mdl.  Prints each command's seconds, spans and
+    peak host RSS, Spartan's prove and verify seconds and the show proof's
+    size by part.  Returns each run's launches."""
+    import copy
+    import hashlib
+    import tempfile
+
+    from crescent_tpu_torch import cli
+    from crescent_tpu_torch.credentials import api
+    from crescent_tpu_torch.credentials.prep_inputs import ProofSpec
+
+    name = "mdl1"
+    if cli.MDL1_CONFIG["max_cred_len"] != MDL_CRED_LEN:
+        fail(f"{name}'s max_cred_len is not {MDL_CRED_LEN}")
+    out = {}
+    # the circuit is specialised to its issuer's key; the cache keys on the config
+    api._WITNESS_CACHE.clear()
+    api._PARAMS_CACHE.clear()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mdl1_") as base:
+        run = _cli_runner(base, name, out, reset, counts, card)
+        run("gen-fixtures")
+        paths = api.CachePaths(os.path.join(base, name))
+        files = ("config.json", "issuer.pub", "issuer.prv", "issuer_chain.pem", "device.prv",
+                 "device.pub", "prover_inputs.json", "prover_aux.json", "proof_spec.json")
+        missing = [f for f in files if not os.path.exists(paths.base + f)]
+        if missing:
+            fail(f"{name}: gen-fixtures did not write {missing}")
+        with open(paths.config) as f:
+            if json.load(f) != cli.MDL1_CONFIG:
+                fail(f"{name}: gen-fixtures' config.json is not cli.MDL1_CONFIG")
+        paths = _cli_setup_and_proves(api, groth16, run, base, name, out, "mdl1")
+        text, show_spans = run("show")
+        spartan_prove = _span_seconds(show_spans, "show::device proof")
+        size = [ln for ln in text.splitlines() if ln.startswith("Show proof size:")]
+        text, verify_spans = run("verify")
+        if "verify: PASS" not in text:
+            fail(f"{name}: verify did not print PASS")
+        spartan_verify = _span_seconds(verify_spans, "verify::device proof")
+        revealed = json.loads(text.split("revealed: ", 1)[1].splitlines()[0])
+        want = {"resident_state_value": "WA", "height_value": "170",
+                "family_name": "Example", "given_name": "Alice"}
+        if revealed != want:
+            fail(f"{name}: verify revealed {revealed}, not {want}")
+        vp = _verifier_params(api, paths)
+        with open(paths.proof_spec + ".resolved") as f:
+            spec = ProofSpec.from_json(f.read())
+        show = api.read_from_file(paths.show_proof)
+        now = show.cur_time + 10
+        if (not spec.device_bound or show.device_proof is None or len(show.show_range_attr) != 1
+                or not api.verify_show_mdl(vp, show, spec, now_seconds=now)[0]):
+            fail(f"{name}: the show lacks its device or age proof, or does not verify")
+        tampered = {}
+        t = tampered["a changed revealed input"] = copy.deepcopy(show)
+        t.revealed_inputs[0] += 1
+        t = tampered["the family_name preimage replaced by Mallory"] = copy.deepcopy(show)
+        pre = json.loads(t.revealed_preimages)
+        pre["family_name"] = "Mallory"
+        t.revealed_preimages = json.dumps(pre)
+        t = tampered["cur_time moved back 1000 s"] = copy.deepcopy(show)
+        t.cur_time -= 1000
+        t = tampered["a flipped byte of the device proof's pi2"] = copy.deepcopy(show)
+        pi2 = bytearray(t.device_proof.pi2)
+        pi2[len(pi2) // 2] ^= 1
+        t.device_proof.pi2 = bytes(pi2)
+        for what, t in tampered.items():
+            if api.verify_show_mdl(vp, t, spec, now_seconds=now)[0]:
+                fail(f"{name}: a show with {what} verifies")
+        other = ProofSpec.from_json(spec.to_json())
+        other.presentation_message = hashlib.sha256(b"another presentation message").digest()
+        if api.verify_show_mdl(vp, show, other, now_seconds=now)[0]:
+            fail(f"{name}: a show verifies against a presentation message it did not sign")
+        say(f"{name}: Spartan (ECDSA proof of possession) prove {spartan_prove:.3f} s, verify "
+            f"{spartan_verify:.3f} s; {size[0] if size else 'no size line'}; refused: "
+            f"{', '.join(tampered)}, another presentation message; [{card}]")
+    api._WITNESS_CACHE.clear()
+    api._PARAMS_CACHE.clear()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2598,6 +2699,8 @@ def main() -> None:
     rs256_runs = rs256_phase(torch, groth16, reset, counts, card)
     # (d) rs256-db through the CLI: device binding
     db_runs = rs256db_phase(torch, groth16, reset, counts, card)
+    # (e) mdl1 through the CLI: the mDL statement, its age proof, device binding
+    mdl_runs = mdl1_phase(torch, groth16, reset, counts, card)
     say(f"chunk MSM 2^{CHUNK_LOG}: {mres['chunk_ms']:.3f} ms on the card, "
         f"{mres['enqueue_ms']:.3f} ms to enqueue; G2: {mres['g2_chunk_ms']:.3f} ms on the "
         f"card, {mres['g2_enqueue_ms']:.3f} ms to enqueue")
@@ -2633,7 +2736,8 @@ def main() -> None:
                 fail(f"{name}'s kernel {entry} spills {spill} bytes (nvcc -Xptxas -v)")
     runs = (setup_launches, prove_launches, native0_launches, fused_launches,
             verify_launches, *off_runs.values(), *show_runs.values(), *rs256_runs.values(),
-            *scan_runs.values(), *fused_off_runs.values(), *db_runs.values())
+            *scan_runs.values(), *fused_off_runs.values(), *db_runs.values(),
+            *mdl_runs.values())
     source = {"mul": "ntt.cu", "butterfly": "ntt.cu"}
     source.update({k: "ec2.cu" for k in names if k.startswith("fq2_")})
     source.update(batch_inv="batch_inv.cuh", fq2_batch_inv="batch_inv.cuh")
@@ -2672,6 +2776,9 @@ def main() -> None:
             "launches_rs256db_setup": db_runs["rs256db_setup"][name],
             "launches_rs256db_prove": db_runs["rs256db_prove"][name],
             "launches_rs256db_prove_replay": db_runs["rs256db_prove_replay"][name],
+            "launches_mdl1_setup": mdl_runs["mdl1_setup"][name],
+            "launches_mdl1_prove": mdl_runs["mdl1_prove"][name],
+            "launches_mdl1_prove_replay": mdl_runs["mdl1_prove_replay"][name],
             # the scan Pippenger: 2^16 G1 points (kernel form), the same
             # under CRESCENT_MSM_PALLAS=0, 2^14 G2 points, run_device_many
             **{f"launches_{k}": v[name] for k, v in scan_runs.items()},

@@ -6,11 +6,10 @@ replaces the reference's run_setup.sh:96-126 sample-credential generation
 (random issuer key + deterministic-structure JWT; for device-bound sets a
 P-256 device key pair, gen_mdl_device_key.sh equivalent).
 
-Parameter sets (README.md:38-44): rs256, rs256-sd and rs256-db (device
+Parameter sets (README.md:38-44): rs256, rs256-sd, rs256-db (device
 bound: the show carries a Spartan proof of an ECDSA signature on the
-presentation message).  mdl1 needs the mDL frontend, which is not ported
-yet (ROADMAP Queue 1 item 3): asked for, every command exits with code 2
-and says so.
+presentation message) and mdl1 (an ISO 18013-5 mDL: an ES256-signed
+COSE MSO, an "over 18" range proof on the birth date, device bound).
 
 Usage:
   python -m crescent_tpu_torch.cli gen-fixtures --name rs256
@@ -22,7 +21,8 @@ Usage:
 --device names where zksetup and prove run their device work: the card
 (cuda, the default) or the CPU (cpu: the kernels' plain versions).
 --frontend stub swaps in the IO-compatible placeholder statement (fast,
-NOT sound) for protocol testing; the default is the real JWT circuit.
+NOT sound) for protocol testing; the default is the real JWT circuit, or
+the real mDL statement where config.json's credtype is "mdl".
 """
 
 from __future__ import annotations
@@ -74,10 +74,32 @@ DEFAULT_PROOF_SPECS = {
     "rs256": '{"revealed": ["email"]}',
     "rs256-sd": '{"revealed": ["family_name"]}',
     "rs256-db": '{"revealed": ["email"], "device_bound": true}',
+    "mdl1": json.dumps({
+        "revealed": ["resident_state", "height", "family_name", "given_name"],
+        "range_over_year": {"birth_date": 18},
+        "device_bound": True,
+        "presentation_message": [1, 2, 3, 4],
+    }),
 }
-NOT_PORTED = {"mdl1"}
-NOT_PORTED_MESSAGE = ("needs the mDL frontend (CBOR, the mDL statement and its "
-                      "show), which is not ported yet (ROADMAP Queue 1 item 3)")
+
+MDL1_CONFIG = {
+    "credtype": "mdl",
+    "alg": "ES256",
+    "device_bound": True,
+    "max_cred_len": 1792,
+    "birth_date": {"type": "date", "reveal": True, "max_claim_byte_len": 31},
+    "resident_state": {"type": "string", "reveal": True, "max_claim_byte_len": 31},
+    "height": {"type": "integer", "reveal": True, "max_claim_byte_len": 31},
+    "family_name": {"type": "string", "reveal_digest": True, "max_claim_byte_len": 62},
+    "given_name": {"type": "string", "reveal_digest": True, "max_claim_byte_len": 62},
+}
+MDL1_ATTRIBUTES = {
+    "birth_date": "1990-05-17",
+    "resident_state": "WA",
+    "height": 170,
+    "family_name": "Example",
+    "given_name": "Alice",
+}
 
 
 def _paths(args) -> api.CachePaths:
@@ -86,7 +108,22 @@ def _paths(args) -> api.CachePaths:
     return api.CachePaths(base)
 
 
-def _frontend(args):
+def _is_mdl(paths) -> bool:
+    try:
+        with open(paths.config) as f:
+            return json.load(f).get("credtype") == "mdl"
+    except FileNotFoundError:
+        return False
+
+
+def _frontend(args, paths):
+    if _is_mdl(paths):
+        from .credentials.mdl import MDLFrontend, StubMDLFrontend
+
+        if args.frontend == "stub":
+            return StubMDLFrontend()
+        with open(paths.issuer_pem) as f:
+            return MDLFrontend(issuer_pem=f.read())
     if args.frontend == "stub":
         return StubJWTFrontend()
     return JWTFrontend()
@@ -104,6 +141,8 @@ def cmd_gen_fixtures(args):
     from .utils import jwt as jwtutil
 
     paths = _paths(args)
+    if args.name == "mdl1":
+        return _gen_mdl_fixtures(paths)
     default_cfg = DEFAULT_CONFIGS.get(args.name, DEFAULT_CONFIGS["rs256"])
     if not os.path.exists(paths.config):
         with open(paths.config, "w") as f:
@@ -144,16 +183,60 @@ def cmd_gen_fixtures(args):
     return 0
 
 
+def _gen_mdl_fixtures(paths):
+    """mdl-gen + gen_mdl_device_key.sh equivalent: ES256 issuer key in a
+    3-cert X.509 chain, P-256 device key, a signed MSO and its circuit
+    inputs as prover_inputs.json / prover_aux.json (what the reference's
+    mdl prove path reads, SURVEY.md §3.2)."""
+    from .credentials.device import TestDevice
+    from .credentials.mdl import gen_x509_cert_chain, prepare_mdl_prover_inputs
+
+    if not os.path.exists(paths.config):
+        with open(paths.config, "w") as f:
+            json.dump(MDL1_CONFIG, f, indent=2)
+    priv, pub, chain = gen_x509_cert_chain()
+    with open(paths.issuer_pem, "w") as f:
+        f.write(pub)
+    with open(paths.base + "issuer.prv", "w") as f:
+        f.write(priv)
+    with open(paths.base + "issuer_chain.pem", "w") as f:
+        f.write(chain)
+    dev = TestDevice()
+    with open(paths.base + "device.prv", "w") as f:
+        f.write(str(dev.secret))
+    with open(paths.device_pub_pem, "w") as f:
+        f.write(dev.public_pem())
+    with open(paths.config) as f:
+        config = parse_config(f.read())
+    pi, aux = prepare_mdl_prover_inputs(
+        config, MDL1_ATTRIBUTES, valid_until="2033-01-01",
+        issuer_pem=pub, device_pub_pem=dev.public_pem(),
+        issuer_priv_pem=priv,  # real issuance: signed MSO + circuit inputs
+        x5chain_pem=chain,
+    )
+    with open(paths.mdl_prover_inputs, "w") as f:
+        json.dump(pi, f, indent=2)
+    with open(paths.mdl_prover_aux, "w") as f:
+        json.dump(aux, f, indent=2)
+    if not os.path.exists(paths.proof_spec):
+        with open(paths.proof_spec, "w") as f:
+            f.write(DEFAULT_PROOF_SPECS["mdl1"])
+    print(f"mdl fixtures written under {paths.base}")
+    return 0
+
+
 def cmd_zksetup(args):
     paths = _paths(args)
     t0 = time.time()
-    api.run_zksetup(paths.base, _frontend(args), device=args.device)
+    api.run_zksetup(paths.base, _frontend(args, paths), device=args.device)
     print(f"zksetup completed in {time.time()-t0:.1f}s; artifacts in {paths.cache}")
     return 0
 
 
 def cmd_prove(args):
     paths = _paths(args)
+    if _is_mdl(paths):
+        return _cmd_prove_mdl(args, paths)
     with open(paths.config) as f:
         config = parse_config(f.read())
     with open(paths.jwt) as f:
@@ -169,8 +252,25 @@ def cmd_prove(args):
         config, token, issuer_pem, device_pub_pem=device_pub_pem
     )
     cs = api.create_client_state(
-        paths, prover_inputs, _frontend(args), prover_aux=json.dumps(prover_aux),
+        paths, prover_inputs, _frontend(args, paths), prover_aux=json.dumps(prover_aux),
         device=args.device,
+    )
+    api.write_to_file(cs, paths.client_state)
+    print(f"Proving time: {time.time()-t0:.1f}s; client state written to {paths.client_state}")
+    return 0
+
+
+def _cmd_prove_mdl(args, paths):
+    """mDL prove: reads prover_inputs.json / prover_aux.json (main.rs mdl
+    path; the CBOR mdoc parser feeding these is mdl-tools territory)."""
+    with open(paths.mdl_prover_inputs) as f:
+        pi = json.load(f)
+    with open(paths.mdl_prover_aux) as f:
+        aux = json.load(f)
+    t0 = time.time()
+    cs = api.create_client_state(
+        paths, pi, _frontend(args, paths), prover_aux=json.dumps(aux),
+        credtype="mdl", device=args.device,
     )
     api.write_to_file(cs, paths.client_state)
     print(f"Proving time: {time.time()-t0:.1f}s; client state written to {paths.client_state}")
@@ -203,8 +303,14 @@ def cmd_show(args):
     if spec.device_bound:
         device_signature = _load_device(paths).sign(spec.presentation_message)
     t0 = time.time()
-    sp = api.create_show_proof(client_state, range_pk, io_locations, spec,
-                               device_signature=device_signature)
+    if _is_mdl(paths):
+        sp = api.create_show_proof_mdl(
+            client_state, range_pk, spec, io_locations,
+            device_signature=device_signature,
+        )
+    else:
+        sp = api.create_show_proof(client_state, range_pk, io_locations, spec,
+                                   device_signature=device_signature)
     api.write_to_file(sp, paths.show_proof)
     with open(paths.proof_spec + ".resolved", "w") as f:
         f.write(spec.to_json())
@@ -258,7 +364,10 @@ def cmd_verify(args):
     else:
         spec = _load_proof_spec(paths, None)
     t0 = time.time()
-    ok, revealed = api.verify_show(vp, show_proof, spec)
+    if _is_mdl(paths):
+        ok, revealed = api.verify_show_mdl(vp, show_proof, spec)
+    else:
+        ok, revealed = api.verify_show(vp, show_proof, spec)
     print(f"Verification time: {time.time()-t0:.2f}s")
     print(f"verify: {'PASS' if ok else 'FAIL'}")
     if ok:
@@ -283,7 +392,7 @@ def main(argv=None) -> int:
         sp.add_argument("--name", default="rs256")
         sp.add_argument(
             "--frontend", choices=["real", "stub"], default="real",
-            help="statement circuit: real JWT statement or fast IO-stub",
+            help="statement circuit: the real statement or fast IO-stub",
         )
         sp.add_argument(
             "--device", default="cuda",
@@ -293,10 +402,6 @@ def main(argv=None) -> int:
             sp.add_argument("--presentation-message", default=None)
         sp.set_defaults(fn=fn)
     args = p.parse_args(argv)
-    if args.name in NOT_PORTED:
-        print(f"crescent {args.cmd}: parameter set {args.name!r} {NOT_PORTED_MESSAGE}",
-              file=sys.stderr)
-        return 2
     return args.fn(args)
 
 

@@ -18,7 +18,7 @@ same show/verify semantics:
 Statement circuits plug in through `CircuitFrontend`; the native builder
 frontend lives in credentials/circuits.py.
 
-This is the JWT half, device binding included (a `device_bound` proof
+Both halves, JWT and mDL, device binding included (a `device_bound` proof
 spec: the DeviceProof of credentials/device.py, a Spartan proof of an
 ECDSA signature on the presentation message).  The entry points that reach
 the device, `run_zksetup` and `create_client_state`, take a keyword-only
@@ -26,9 +26,8 @@ the device, `run_zksetup` and `create_client_state`, take a keyword-only
 `verify` and `rangeproof.setup`; they raise without a card unless given
 "cpu".  Show and verify run on the host, as the show path does
 (credentials/groth16rand.py), the DeviceProof's Spartan NIZK on the native
-backend (models/spartan.py).  The mDL show and verify (the reference's
-`create_show_proof_mdl`, `verify_show_mdl`) are not ported yet (ROADMAP
-Queue 1 item 3).
+backend (models/spartan.py).  The mDL half, `create_show_proof_mdl` and
+`verify_show_mdl`, is host-only too; its statement is credentials/mdl.py.
 """
 
 from __future__ import annotations
@@ -573,5 +572,246 @@ def verify_show(
             revealed[attr] = json.loads(preimages.get(attr))
         except (TypeError, ValueError):
             revealed[attr] = preimages.get(attr)
+
+    return True, json.dumps(revealed)
+
+
+# ---------------------------------------------------------------------------
+# mDL show / verify (lib.rs:403-530 create_show_proof_mdl,
+# lib.rs:723-891 verify_show_mdl)
+# ---------------------------------------------------------------------------
+
+def create_show_proof_mdl(
+    client_state: ClientState,
+    range_pk: rp.RangeProofPK,
+    proof_spec: ProofSpec,
+    io_locations: IOLocations,
+    device_signature: Optional[bytes] = None,
+    rng: random.Random | None = None,
+    cur_time: Optional[int] = None,
+) -> ShowProof:
+    rng = rng or random.SystemRandom()
+    psi = create_proof_spec_internal(proof_spec, client_state.config_str)
+
+    valid_until_pos = io_locations.get_io_location("valid_until_value")
+    io_types = [PublicIOType.HIDDEN] * len(client_state.inputs)
+    io_types[valid_until_pos - 1] = PublicIOType.COMMITTED
+    for attr, _age in psi.range_over_year:
+        loc = io_locations.get_io_location(f"{attr}_value")
+        io_types[loc - 1] = PublicIOType.COMMITTED
+    for i in io_locations.get_public_key_indices():
+        io_types[i] = PublicIOType.REVEALED
+
+    revealed_inputs = []
+    for attr in psi.revealed:
+        loc = io_locations.get_io_location(f"{attr}_value")
+        io_types[loc - 1] = PublicIOType.REVEALED
+        revealed_inputs.append(client_state.inputs[loc - 1])
+
+    revealed_preimages = {}
+    for attr in psi.hashed:
+        loc = io_locations.get_io_location(f"{attr}_digest")
+        io_types[loc - 1] = PublicIOType.REVEALED
+        if client_state.aux is None:
+            raise ValueError(f"missing aux data for hashed attribute {attr}")
+        aux = json.loads(client_state.aux)
+        # mdl preimages ship as-is (lib.rs:449), unlike the JWT path's
+        # JSON-serialized slice
+        revealed_preimages[attr] = aux[attr]
+
+    if psi.device_bound:
+        io_types[io_locations.get_io_location("device_key_0_value") - 1] = PublicIOType.COMMITTED
+        io_types[io_locations.get_io_location("device_key_1_value") - 1] = PublicIOType.COMMITTED
+
+    context = _context_json(psi)
+    show = client_state.show_groth16(context, io_types, rng=rng)
+
+    time_sec = utc_now_seconds() if cur_time is None else cur_time
+    # range proof: valid_until - now is a 32-bit value (not expired)
+    com_vu = client_state.committed_input_openings[0]
+    from .dlog import PedersenOpening
+
+    shifted = PedersenOpening(
+        bases=list(com_vu.bases),
+        m=(com_vu.m - time_sec) % R,
+        r=com_vu.r,
+        c=G1.add(com_vu.c, G1.neg(G1.mul(time_sec, com_vu.bases[0]))),
+    )
+    show_range_exp = client_state.show_range(shifted, RANGE_PROOF_INTERVAL_BITS, range_pk, rng=rng)
+
+    device_proof = None
+    if psi.device_bound:
+        from .device import DeviceProof, ECDSASig
+
+        assert len(client_state.committed_input_openings) >= 3
+        com0 = client_state.committed_input_openings[1]
+        com1 = client_state.committed_input_openings[2]
+        aux = json.loads(client_state.aux)
+        sig = ECDSASig.from_bytes(psi.presentation_message, device_signature)
+        with timed("show::device proof (Spartan, ECDSA proof of possession)"):
+            device_proof = DeviceProof.prove(
+                com0, com1, sig, int(aux["device_pub_x"]), int(aux["device_pub_y"]), rng=rng
+            )
+
+    # per-attribute "over N years" range proofs (skip the first 3
+    # commitments: validUntil, device_key_0, device_key_1 — lib.rs:505)
+    from .daystamp import days_to_be_age
+
+    show_range_attr = []
+    commitment_index = 3
+    for _attr, age in psi.range_over_year:
+        days = days_to_be_age(age)
+        com_attr = client_state.committed_input_openings[commitment_index]
+        shifted_a = PedersenOpening(
+            bases=list(com_attr.bases),
+            m=(com_attr.m - days) % R,
+            r=com_attr.r,
+            c=G1.add(com_attr.c, G1.neg(G1.mul(days, com_attr.bases[0]))),
+        )
+        show_range_attr.append(
+            client_state.show_range(shifted_a, RANGE_PROOF_INTERVAL_BITS, range_pk, rng=rng)
+        )
+        commitment_index += 1
+
+    return ShowProof(
+        show_groth16=show,
+        show_range_exp=show_range_exp,
+        show_range_attr=show_range_attr,
+        revealed_inputs=revealed_inputs,
+        revealed_preimages=json.dumps(revealed_preimages) if psi.hashed else None,
+        inputs_len=len(client_state.inputs),
+        cur_time=time_sec,
+        device_proof=device_proof,
+    )
+
+
+def verify_show_mdl(
+    vp: VerifierParams,
+    show_proof: ShowProof,
+    proof_spec: ProofSpec,
+    now_seconds: Optional[int] = None,
+) -> tuple[bool, str]:
+    try:
+        psi = create_proof_spec_internal(proof_spec, vp.config_str)
+    except Exception:
+        return False, "verify_show_mdl failed: proof_spec"
+    io_locations = IOLocations.from_str(vp.io_locations_str)
+    valid_until_pos = io_locations.get_io_location("valid_until_value")
+    io_types = [PublicIOType.HIDDEN] * show_proof.inputs_len
+    io_types[valid_until_pos - 1] = PublicIOType.COMMITTED
+    for attr, _age in psi.range_over_year:
+        try:
+            loc = io_locations.get_io_location(f"{attr}_value")
+        except KeyError:
+            return False, "verify_show_mdl failed: range_attr_io"
+        io_types[loc - 1] = PublicIOType.COMMITTED
+    for i in io_locations.get_public_key_indices():
+        io_types[i] = PublicIOType.REVEALED
+    for attr in psi.revealed:
+        try:
+            loc = io_locations.get_io_location(f"{attr}_value")
+        except KeyError:
+            return False, "verify_show_mdl failed: revealed_io"
+        io_types[loc - 1] = PublicIOType.REVEALED
+
+    revealed_hashed = []
+    preimages = {}
+    if psi.hashed:
+        if show_proof.revealed_preimages is None:
+            return False, "verify_show_mdl failed: no_preimages"
+        preimages = json.loads(show_proof.revealed_preimages)
+        hashed_sorted = sorted(
+            psi.hashed, key=lambda a: io_locations.get_io_location(f"{a}_digest")
+        )
+        for attr in hashed_sorted:
+            loc = io_locations.get_io_location(f"{attr}_digest")
+            io_types[loc - 1] = PublicIOType.REVEALED
+            pre = preimages.get(attr)
+            if not isinstance(pre, str):
+                return False, "verify_show_mdl failed: preimage_type"
+            digest = hashlib.sha256(pre.encode()).digest()
+            revealed_hashed.append(bits_to_num(digest[:31]))
+
+    if psi.device_bound:
+        io_types[io_locations.get_io_location("device_key_0_value") - 1] = PublicIOType.COMMITTED
+        io_types[io_locations.get_io_location("device_key_1_value") - 1] = PublicIOType.COMMITTED
+
+    try:
+        public_key_inputs = pem_to_inputs(vp.issuer_pem)
+    except Exception:
+        return False, "verify_show_mdl failed: pem"
+    inputs = list(revealed_hashed) + [x % R for x in public_key_inputs] + list(show_proof.revealed_inputs)
+
+    context = _context_json(psi)
+    if not show_proof.show_groth16.verify(vp.vk, vp.pvk, context, io_types, inputs):
+        return False, "verify_show_mdl failed: groth16_show"
+
+    now = utc_now_seconds() if now_seconds is None else now_seconds
+    if max(0, now - show_proof.cur_time) > SHOW_PROOF_VALIDITY_SECONDS:
+        return False, "verify_show_mdl failed: freshness"
+
+    ped_com_vu = G1.add(
+        show_proof.show_groth16.committed_inputs[0],
+        G1.neg(G1.mul(show_proof.cur_time, vp.vk.gamma_abc_g1[valid_until_pos])),
+    )
+    if not show_proof.show_range_exp.verify(
+        ped_com_vu, RANGE_PROOF_INTERVAL_BITS, vp.range_vk, io_locations, vp.vk,
+        "valid_until_value",
+    ):
+        return False, "verify_show_mdl failed: range_valid_until"
+
+    from .daystamp import days_to_be_age
+
+    if len(show_proof.show_range_attr) != len(psi.range_over_year):
+        return False, "verify_show_mdl failed: range_attr_count"
+    for i, show_range_a in enumerate(show_proof.show_range_attr):
+        commitment_index = i + 3  # skip validUntil, device_key_0, device_key_1
+        attr, age = psi.range_over_year[i]
+        days = days_to_be_age(age)
+        try:
+            io_pos = io_locations.get_io_location(f"{attr}_value")
+        except KeyError:
+            return False, "verify_show_mdl failed: range_attr_io2"
+        if commitment_index >= len(show_proof.show_groth16.committed_inputs):
+            return False, "verify_show_mdl failed: range_attr_commit_idx"
+        ped_com_attr = G1.add(
+            show_proof.show_groth16.committed_inputs[commitment_index],
+            G1.neg(G1.mul(days, vp.vk.gamma_abc_g1[io_pos])),
+        )
+        if not show_range_a.verify(
+            ped_com_attr, RANGE_PROOF_INTERVAL_BITS, vp.range_vk, io_locations,
+            vp.vk, f"{attr}_value",
+        ):
+            return False, "verify_show_mdl failed: range_attr_proof"
+
+    if psi.device_bound:
+        from .device import DeviceProof
+
+        k0 = io_locations.get_io_location("device_key_0_value")
+        k1 = io_locations.get_io_location("device_key_1_value")
+        com0 = show_proof.show_groth16.committed_inputs[1]
+        com1 = show_proof.show_groth16.committed_inputs[2]
+        bases0 = [vp.vk.gamma_abc_g1[k0], vp.vk.delta_g1]
+        bases1 = [vp.vk.gamma_abc_g1[k1], vp.vk.delta_g1]
+        if show_proof.device_proof is None:
+            return False, "Device proof missing in show_proof"
+        with timed("verify::device proof (Spartan, ECDSA proof of possession)"):
+            if not DeviceProof.verify(show_proof.device_proof, com0, com1, bases0, bases1):
+                return False, "verify_show_mdl failed: device_missing_wait"
+
+    # unpack revealed claim values (lib.rs:684-720 semantics for mdl types)
+    revealed = {}
+    for idx, attr in enumerate(psi.revealed):
+        claim_type = psi.claim_types.get(attr, "")
+        v = show_proof.revealed_inputs[idx]
+        if claim_type in ("number", "integer", "date"):
+            revealed[f"{attr}_value"] = str(v)
+        else:
+            try:
+                revealed[f"{attr}_value"] = unpack_int_to_string_unquoted(v)
+            except Exception:
+                return False, "verify_show_mdl failed: unpack"
+    for attr in psi.hashed:
+        revealed[attr] = preimages.get(attr)
 
     return True, json.dumps(revealed)

@@ -551,7 +551,7 @@ def setup(r1cs: R1CS, rng: random.Random, *, device="cuda",
     device work shows in the fetches); of the host branch "qap_evals",
     "scalar_prep", "g1_fixed_base", "g2_fixed_base"."""
     _require_native()
-    device = torch.device(device)
+    device = _device(device)
     # gamma = 1 exactly as the reference generator (generator.rs:28): the
     # show protocol's committed-input algebra relies on it
     alpha, beta, delta, t = (rng.randrange(1, R) for _ in range(4))
@@ -755,7 +755,7 @@ def prove(
     G2 on the device, "msm_g2" is the host's time to enqueue it and read its
     result, and its device time falls in the one wait, inside "msm_g1")."""
     _require_native()
-    device = torch.device(device)
+    device = _device(device)
     r = rng.randrange(R) if r is None else r
     s = rng.randrange(R) if s is None else s
     if isinstance(z, np.ndarray):

@@ -285,21 +285,25 @@ def test_cli_stub_runs_all_five_commands(tmp_path, capsys):
 
 @pytest.mark.parametrize("name", ["rs256-db", "mdl1"])
 def test_cli_refuses_the_sets_not_ported(tmp_path, capsys, name):
-    """mdl1 (the mDL frontend) is still refused with exit code 2 and a
-    message naming what it needs; rs256-db, refused until device binding
-    was ported, now writes its fixtures: its config, the issuer's key and
-    the device's key pair, whose public x rides in the token's claims."""
+    """No parameter set is refused any more.  Both device-bound sets, refused
+    until their halves were ported, write their fixtures with exit code 0:
+    rs256-db its config, the issuer's key and the device's key pair, whose
+    public x rides in the token's claims; mdl1 its config (cli.MDL1_CONFIG),
+    an ES256 issuer key in a three-certificate X.509 chain, the device's key
+    pair, and the signed MSO's circuit inputs and aux data."""
     rc = pcli.main(["--base", str(tmp_path), "gen-fixtures", "--name", name])
     base = os.path.join(tmp_path, name)
-    if name == "mdl1":
-        assert rc == 2
-        err = capsys.readouterr().err
-        assert "mDL frontend" in err and "ROADMAP Queue 1 item 3" in err
-        assert not os.path.exists(os.path.join(base, "config.json"))
-        return
     assert rc == 0
+    assert "not ported" not in capsys.readouterr().err
     with open(os.path.join(base, "config.json")) as f:
-        assert json.load(f) == pcli.DEFAULT_CONFIGS["rs256-db"]
-    assert pcli.DEFAULT_CONFIGS["rs256-db"]["device_bound"]
-    for fname in ("device.prv", "device.pub", "issuer.pub", "token.jwt"):
+        config = json.load(f)
+    if name == "mdl1":
+        assert config == pcli.MDL1_CONFIG and config["device_bound"]
+        fnames = ("issuer.pub", "issuer.prv", "issuer_chain.pem", "device.prv", "device.pub",
+                  "prover_inputs.json", "prover_aux.json", "proof_spec.json")
+    else:
+        assert config == pcli.DEFAULT_CONFIGS["rs256-db"]
+        assert pcli.DEFAULT_CONFIGS["rs256-db"]["device_bound"]
+        fnames = ("device.prv", "device.pub", "issuer.pub", "token.jwt")
+    for fname in fnames:
         assert os.path.exists(os.path.join(base, fname)), fname

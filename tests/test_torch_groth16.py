@@ -339,6 +339,8 @@ import crescent_tpu_torch.convert, crescent_tpu_torch.ops.msm
 import crescent_tpu_torch.cli, crescent_tpu_torch.utils.ark
 import crescent_tpu_torch.r1cs.jwt_circuit, crescent_tpu_torch.r1cs.witness_program
 import crescent_tpu_torch.credentials.device, crescent_tpu_torch.models.spartan_ser
+import crescent_tpu_torch.credentials.mdl, crescent_tpu_torch.r1cs.p256
+import crescent_tpu_torch.client
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "crescent_tpu"))
 assert leaked == ["crescent_tpu", "jax"], leaked

@@ -59,7 +59,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in ("cli.py", "credentials/api.py", "credentials/circuits.py",
                 "credentials/prep_inputs.py", "r1cs/builder.py", "r1cs/witness_program.py",
                 "utils/ark.py", "utils/jwt.py", "core/poseidon.py", "models/spartan.py",
-                "models/spartan_ser.py", "credentials/ecdsa_pop.py", "credentials/device.py"):
+                "models/spartan_ser.py", "credentials/ecdsa_pop.py", "credentials/device.py",
+                # the mDL half and the thin client
+                "utils/cbor.py", "credentials/daystamp.py", "r1cs/dates.py", "r1cs/p256.py",
+                "credentials/mdl.py", "utils/drbg.py", "client.py"):
         assert os.path.join(ROOT, "crescent_tpu_torch", mod) in files, mod
     banned = ("jax", "crescent_tpu")
     for path in files:
