@@ -52,7 +52,12 @@
    planted in the second run, also against the card's own tree of `mul`
    launches with `inv` on its root level, the launches it replaces), and
    once over a curve with a != 0 (2^14 lanes, `jadd` at the chunk's
-   shapes and `bucket_reduce` at 25 x 1025).  Tolerance:
+   shapes and `bucket_reduce` at 25 x 1025); then `jadd` and `jdbl` over
+   T-256's base field (p >= 2^255, a = p - 3: warp.cuh's kWide instances)
+   at 64, 128, 256, 1,024, 8,192 and 16,384 lanes (`jdbl` also at 32,768),
+   coordinates at p - 1 and 2^255, sums and products across 2^256, the
+   identity, P + P and P + (-P) planted, and `mul` over T-256 at 34, 129
+   and 2^20 rows by R^2 (points_to_device's conversion).  Tolerance:
    none, the results must be bit-identical (exact integer arithmetic).
    Prints the kernel's and the plain version's times (CUDA events; `jadd`'s,
    `batch_inv`'s and `bucket_reduce`'s around a CUDA graph of their
@@ -162,7 +167,14 @@
    which must print PASS; a presentation message other than the signed one
    and a flipped byte of the device proof must each be refused; prints
    each command's seconds and spans, Spartan's prove and verify seconds and
-   the device proof's size.
+   the device proof's size.  Then show and verify once more from the same
+   artifacts under CRESCENT_NATIVE=0 (Spartan's T-256 MSMs on the card:
+   `mul`, `jadd` and `jdbl` over T-256, which must launch), verify printing
+   PASS and a flipped device-proof byte refused, the spans "show::device
+   proof" and "verify::device proof" printed.  And a DeviceProof on the
+   ECDSA statement, its randomness and Spartan's tape fixed, built with the
+   native backend on and off: the same bytes, each verifying under the
+   other route.
 14. mdl1 (an ISO 18013-5 mDL) end to end through the port's CLI
    in this process at its max_cred_len, 1792 (the real mDL statement:
    SHA-256 over the COSE MSO, ES256 verified in the circuit with
@@ -181,7 +193,9 @@
    and verify seconds and the show proof's size by part.
 15. Prints {"kernels": [...]} (each kernel's launches in every run, those
    of rs256's, rs256-db's and mdl1's zksetup and two proves, the scan
-   MSMs' and the CRESCENT_PROVE_FUSED=0 proves' among them) and, last,
+   MSMs' and the CRESCENT_PROVE_FUSED=0 proves' among them; the T-256
+   rows t256_mul, t256_jadd and t256_jdbl with the launches of the
+   CRESCENT_NATIVE=0 show, verify and DeviceProof) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero.  Imports nothing of JAX.
@@ -284,6 +298,11 @@ INSTANCES = {"jadd": "_jadd_kernelINS_{f}E", "bucket_reduce": "bucket_reduce_ker
              "affine_add": "affine_add_(?:lane|halves)_kernelI"}
 
 
+# an instance over Fq or Fq2 with a != 0 (kAZero, the first bool after the
+# field type, false)
+A_NONZERO = r"(?:2Fe|3Fe2)ELb0E"
+# warp.cuh's kWide instances (a != 0, p >= 2^255: T-256's jadd and jdbl)
+WIDE_ENTRY = r"ELb0E(?:Li\d+E)?Lb1EE"
 def _jadd_registers(regs: dict, name: str) -> dict:
     """(registers, spill store bytes) of each instance of warp.cuh's `jadd`
     and `jdbl` kernels over Fq (`jadd`) or Fq2 (`fq2_jadd`), of bucket.cuh's
@@ -315,7 +334,7 @@ def _kernel_registers(regs: dict, name: str):
                "jdbl_n": warp.format("2Fe")}.get(base, base + "_kernel")
     if base in INSTANCES:  # the most registers and spills of any but a != 0's
         hits = [v for e, v in _jadd_registers(regs, name).items()
-                if not re.search(r"[IE]Lb0E", e)]
+                if not re.search(A_NONZERO, e)]
         return (max(h[0] for h in hits), max(h[1] for h in hits)) if hits else None
     hits = [v for (l, e), v in regs.items() if l == lib and re.search(rf"\d{key}", e)]
     return hits[0] if len(hits) == 1 else None
@@ -1748,6 +1767,89 @@ def scalar_mul_kernel_phase(torch, ec, label: str, prefix: str, seed: int, out: 
                 6 * e * lanes, (7 * sqr + mul) * MONT_MUL_MADS * lanes)
 
 
+# T-256 (Spartan's MSMs under CRESCENT_NATIVE=0, the device-bound show): the
+# small MSM's scalar_mul runs jadd and jdbl over 64 to 16,384 lanes (an MSM of
+# 34 to 129 points padded to a power of two; the 64 row commits of
+# poly_commit as one batch of 64 x 256 lanes), and points_to_device's mul
+# over the bases (34 to 129 rows); jdbl also at 32,768, its one-thread
+# executor's first width
+T256_LANES = (64, 128, 256, 1024, 8192, 16384)
+T256_JDBL_LANES = T256_LANES + (32768,)
+T256_MUL_ROWS = (34, 129, 1 << 20)
+
+
+def _plant_t256(torch, ec, pq) -> None:
+    """Plant in lanes 6..13 of the batches P, Q (past _point_inputs' cases)
+    coordinates whose Montgomery words are p - 1 and 2^255, sums and
+    products that cross 2^256 (p - 1 + p - 1, 2^255 + 2^255), and P + P and
+    P + (-P) at those words."""
+    p = ec.modulus
+    f = ec.ctx
+    top, half = f.words([p - 1], "cuda")[0], f.words([1 << 255], "cuda")[0]
+    neg_half = f.words([p - (1 << 255)], "cuda")[0]
+    x1, y1, z1, x2, y2, z2 = pq
+    z1[6] = top
+    x1[7], x2[7] = top, top
+    y1[8], z2[8] = half, half
+    x1[9], y1[9], z1[9] = top, top, top
+    x1[10], y1[10], z1[10] = half, half, half
+    for i, left, right in ((11, (top, top, top), (top, top, top)),  # P + P
+                           (12, (half, half, half), (half, half, half)),  # P + P
+                           (13, (half, half, half), (half, neg_half, half))):  # P + (-P)
+        x1[i], y1[i], z1[i] = left
+        x2[i], y2[i], z2[i] = right
+
+
+def t256_kernel_phase(torch, curves, get_cuda_ec, out: dict) -> None:
+    """`jadd` and `jdbl` over T-256's base field (p >= 2^255, a = p - 3:
+    csrc/warp.cuh's kWide instances, crescent_jadd_wide and
+    crescent_jdbl_wide) against their plain versions at T256_LANES (jdbl
+    also at 32,768), bit for bit, with _point_inputs' cases (the identity
+    on either side and both, P + P (a tangent with a != 0), P + (-P)) and
+    _plant_t256's; `jdbl` also against jadd(P, P) off the identities; and
+    `mul` (ntt.cu, as it is) at T256_MUL_ROWS against mul_plain, a row of R^2
+    broadcast as points_to_device gives it, with 0, 1, p - 1, 2^255 and
+    R mod p planted.  Each timed as a CUDA graph of its launches (mul by
+    CUDA events) beside its plain version and its bound: 16 products a
+    jadd lane and 10 a jdbl lane (a != 0)."""
+    T256 = curves.T256
+    ec = get_cuda_ec(T256.p, T256.a)
+    if not ec.wide or ec.a_is_zero:
+        fail("T-256's kernel set is not the wide one with a != 0")
+    label = "T-256 Fp, a = p - 3"
+    for lanes in T256_JDBL_LANES:
+        pq = _point_inputs(torch, ec, lanes, SEED + 300 + lanes)
+        _plant_t256(torch, ec, pq)
+        if lanes in T256_LANES:
+            got = ec.jadd(*pq)
+            torch.cuda.synchronize()
+            want, plain_ms = _timed_once(torch, lambda: ec.jadd_plain(*pq))
+            z = got[2]
+            if z[2].any().item() or z[5].any().item() or z[13].any().item() or (
+                    not z[0].any().item()) or not z[11].any().item():
+                fail("t256_jadd: P + (-P) or inf + inf is not the identity, or P + P is")
+            _record(out, "t256_jadd", label, f"{lanes} lanes", _errs(torch, got, want),
+                    _graph_ms(torch, lambda: ec.jadd(*pq), REPS), plain_ms,
+                    9 * 32 * lanes, 16 * MONT_MUL_MADS * lanes)
+        err, pl = _jdbl_check(torch, ec, pq[:3], lanes)
+        _, plain_ms = _timed_once(torch, lambda: ec.jdbl_plain(*pl))
+        _record(out, "t256_jdbl", label, f"{lanes} lanes", err,
+                _graph_ms(torch, lambda: ec.jdbl(*pl), REPS), plain_ms,
+                6 * 32 * lanes, 10 * MONT_MUL_MADS * lanes)
+    base = get_cuda_ec(T256.p)
+    f = base.ctx
+    r2 = f.const_words(f.r2, "cuda")
+    for rows in T256_MUL_ROWS:
+        x = _rand_elems(torch, rows, T256.p, SEED + 400 + rows)
+        x[:5] = f.words([0, 1, T256.p - 1, 1 << 255, f.r_mod_n], "cuda")
+        got = base.mul(x, r2)
+        torch.cuda.synchronize()
+        want, plain_ms = _timed_once(torch, lambda: base.mul_plain(x, r2))
+        _record(out, "t256_mul", label, f"{rows} rows x R^2", _errs(torch, got, want),
+                _time_ms(torch, lambda: base.mul(x, r2), REPS), plain_ms,
+                64 * rows, MONT_MUL_MADS * rows)
+
+
 def native_off_phase(torch, groth16, reset, counts, card: str) -> dict:
     """(a) dummy_circuit(NATIVE_OFF_LOG) set up and proved with the native
     backend off (CRESCENT_NATIVE=0), the reference's route there: setup's
@@ -2312,7 +2414,88 @@ def _span_seconds(spans: list, prefix: str) -> float:
     return secs[0]
 
 
-def rs256db_phase(torch, groth16, reset, counts, card: str) -> dict:
+def _device_proof(seed: int):
+    """A DeviceProof on the real ECDSA statement, every draw from one seeded
+    rng (the device key, its signature on a digest, the commitments to the
+    split key under two BN254 base pairs, the sigma proofs) and Spartan's
+    tape entropy (RandomTape's os.urandom) fixed.  Returns the proof and the
+    verifier's statement (com0, com1, bases0, bases1)."""
+    import hashlib
+    import types
+
+    from crescent_tpu_torch.core.curves import BN254_G1
+    from crescent_tpu_torch.core.fields import BN254_FR
+    from crescent_tpu_torch.credentials import device, dlog, ecdsa_pop
+    from crescent_tpu_torch.models import spartan
+
+    saved = spartan._os
+    spartan._os = types.SimpleNamespace(urandom=lambda n: bytes(range(7, 7 + n)))
+    try:
+        rng = random.Random(seed)
+        dev = device.TestDevice(rng=rng)
+        bases = [[BN254_G1.mul(rng.randrange(1, BN254_FR), BN254_G1.generator)
+                  for _ in range(2)] for _ in range(2)]
+        q0, q1 = ecdsa_pop.split_public_key_x(dev.public[0])
+        com0 = dlog.pedersen_commit(q0, bases[0], rng=rng)
+        com1 = dlog.pedersen_commit(q1, bases[1], rng=rng)
+        digest = hashlib.sha256(b"presentation message").digest()
+        sig = device.ECDSASig.from_bytes(digest, dev.sign(digest))
+        proof = device.DeviceProof.prove(com0, com1, sig, *dev.public, rng=rng)
+    finally:
+        spartan._os = saved
+    return proof, (com0.c, com1.c, bases[0], bases[1])
+
+
+def device_proof_phase(torch, reset, counts, card: str) -> dict:
+    """(d') The DeviceProof with Spartan's T-256 MSMs on the card: built from
+    one seed with the native backend on (its MSMs native) and off
+    (CRESCENT_NATIVE=0: commit_vector, _t256_msm and poly_commit's row
+    commits by get_msm(T256) on the card, jadd and jdbl over T-256), the two
+    proofs' bytes must be equal and each must verify under the other route.
+    Prints each one's seconds; reset and counts are T-256's launch counts.
+    Returns the launches of the prove and the verify under
+    CRESCENT_NATIVE=0."""
+    from crescent_tpu_torch.credentials.device import DeviceProof
+    from crescent_tpu_torch.utils import ark
+
+    out = {}
+    (native, stmt), native_s = _timed_wall(torch, lambda: _device_proof(1717))
+    reset()
+    (off, _), off_s = _timed_wall(torch, lambda: _with_env(
+        "CRESCENT_NATIVE", "0", lambda: _device_proof(1717)))
+    out["t256_device_proof_prove"] = counts()
+    if ark.serialize(native) != ark.serialize(off):
+        fail("the DeviceProof under CRESCENT_NATIVE=0 differs from the native route's")
+    reset()
+    ok, off_verify_s = _timed_wall(torch, lambda: _with_env(
+        "CRESCENT_NATIVE", "0", lambda: DeviceProof.verify(native, *stmt)))
+    out["t256_device_proof_verify"] = counts()
+    if not ok:
+        fail("the native route's DeviceProof does not verify under CRESCENT_NATIVE=0")
+    ok, native_verify_s = _timed_wall(torch, lambda: DeviceProof.verify(off, *stmt))
+    if not ok:
+        fail("the CRESCENT_NATIVE=0 DeviceProof does not verify on the native route")
+    for key, launches in out.items():
+        if not all(launches[k] for k in ("mul", "jadd", "jdbl")):
+            fail(f"{key}: mul, jadd or jdbl over T-256 was not launched")
+        say(f"T-256 launches during {key} (CRESCENT_NATIVE=0): "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    say(f"DeviceProof ({len(ark.serialize(off))} bytes): prove native {native_s:.3f} s, "
+        f"CRESCENT_NATIVE=0 {off_s:.3f} s, the same bytes; verify CRESCENT_NATIVE=0 "
+        f"{off_verify_s:.3f} s, native {native_verify_s:.3f} s, each the other's proof; "
+        f"[{card}]")
+    return out
+
+
+def _timed_wall(torch, fn):
+    """(fn(), its seconds on the host's clock, the card synchronised)."""
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def rs256db_phase(torch, groth16, reset, counts, card: str, t256_reset, t256_counts) -> dict:
     """(d) rs256-db (device bound) end to end through the port's CLI in this
     process at its own max_cred_len, DB_CRED_LEN: gen-fixtures (an issuer
     key, a P-256 device key whose public x rides in the JWT as
@@ -2322,9 +2505,13 @@ def rs256db_phase(torch, groth16, reset, counts, card: str) -> dict:
     of the device's ECDSA signature on the digest of the presentation
     message) and verify, which must print PASS.  A presentation message
     other than the signed one and a flipped byte of the device proof must
-    each be refused.  Prints each command's seconds and spans, Spartan's
-    prove and verify seconds and the device proof's size.  Returns each
-    run's launches."""
+    each be refused.  Then show and verify again from the same artifacts
+    under CRESCENT_NATIVE=0 (Spartan's T-256 MSMs on the card: jadd and jdbl
+    over T-256, counted by t256_reset and t256_counts): PASS again, and a
+    flipped byte of that show's device proof refused.  Prints each
+    command's seconds and spans, Spartan's prove and verify seconds and the
+    device proof's size.  Returns each run's launches (T-256's under
+    t256_show and t256_verify)."""
     import hashlib
     import tempfile
 
@@ -2368,6 +2555,32 @@ def rs256db_phase(torch, groth16, reset, counts, card: str) -> dict:
         say(f"{name}: Spartan (ECDSA proof of possession) prove {spartan_prove:.3f} s, verify "
             f"{spartan_verify:.3f} s; device proof {dp_bytes} bytes; another presentation "
             f"message and a flipped device-proof byte are refused; [{card}]")
+        # the native backend off: Spartan's T-256 MSMs on the card
+        t256_reset()
+        _, show_spans = _with_env("CRESCENT_NATIVE", "0", lambda: run("show"))
+        out["t256_show"] = t256_counts()
+        t256_reset()
+        text, verify_spans = _with_env("CRESCENT_NATIVE", "0", lambda: run("verify"))
+        out["t256_verify"] = t256_counts()
+        if "verify: PASS" not in text:
+            fail(f"{name}: verify under CRESCENT_NATIVE=0 did not print PASS")
+        show = api.read_from_file(paths.show_proof)
+        if show.device_proof is None:
+            fail(f"{name}: the CRESCENT_NATIVE=0 show carries no device proof")
+        pi2 = bytearray(show.device_proof.pi2)
+        pi2[len(pi2) // 3] ^= 1
+        show.device_proof.pi2 = bytes(pi2)
+        if _with_env("CRESCENT_NATIVE", "0", lambda: api.verify_show(vp, show, spec)[0]):
+            fail(f"{name}: under CRESCENT_NATIVE=0 a flipped device-proof byte verifies")
+        for key in ("t256_show", "t256_verify"):
+            if not all(out[key][k] for k in ("mul", "jadd", "jdbl")):
+                fail(f"{name}: the {key} run did not launch mul, jadd and jdbl over T-256")
+            say(f"T-256 launches during {name} {key} (CRESCENT_NATIVE=0): "
+                f"{ {k: v for k, v in out[key].items() if v} }")
+        say(f"{name} under CRESCENT_NATIVE=0 (Spartan's T-256 MSMs on the card): "
+            f"show::device proof {_span_seconds(show_spans, 'show::device proof'):.3f} s, "
+            f"verify::device proof {_span_seconds(verify_spans, 'verify::device proof'):.3f} s;"
+            f" verify PASS, a flipped device-proof byte refused; [{card}]")
     api._WITNESS_CACHE.clear()
     return out
 
@@ -2516,6 +2729,8 @@ def main() -> None:
                             kres)
     scalar_mul_kernel_phase(torch, get_cuda_quad_ec(fields.BN254_FQ), "BN254 Fq2", "fq2_",
                             SEED + 170, kres)
+    # jadd, jdbl and mul over T-256 (p >= 2^255) at Spartan's widths
+    t256_kernel_phase(torch, curves, get_cuda_ec, kres)
     mres = msm_phase(torch, curves, nb)
     mres.update(g2_msm_phase(torch, curves, nb))
     mres.update(small_msm_phase(torch, curves, nb))
@@ -2537,6 +2752,19 @@ def main() -> None:
         c = {k: sum(ec.launches()[k] for ec in ecs) for k in KERNELS}
         c.update({f"fq2_{k}": v for k, v in ec2.launches().items()})
         return c
+
+    # T-256's kernel sets: jadd and jdbl (a = p - 3), and the base field's
+    # mul (points_to_device's conversion)
+    ecs_t256 = (get_cuda_ec(curves.T256.p, curves.T256.a), get_cuda_ec(curves.T256.p))
+
+    def t256_reset():
+        torch.cuda.synchronize()
+        for ec in ecs_t256:
+            ec.reset_launches()
+
+    def t256_counts() -> dict:
+        torch.cuda.synchronize()
+        return {k: sum(ec.launches()[k] for ec in ecs_t256) for k in KERNELS}
 
     t0 = time.perf_counter()
     r1cs, z = groth16.dummy_circuit(LOG_SIZE, random.Random(SEED))
@@ -2697,8 +2925,11 @@ def main() -> None:
     show_runs = show_phase(torch, groth16, reset, counts, card)
     # (c) rs256 through the CLI
     rs256_runs = rs256_phase(torch, groth16, reset, counts, card)
-    # (d) rs256-db through the CLI: device binding
-    db_runs = rs256db_phase(torch, groth16, reset, counts, card)
+    # (d) rs256-db through the CLI: device binding, Spartan's T-256 MSMs on
+    # the card under CRESCENT_NATIVE=0 too
+    db_runs = rs256db_phase(torch, groth16, reset, counts, card, t256_reset, t256_counts)
+    t256_runs = {k: db_runs.pop(k) for k in ("t256_show", "t256_verify")}
+    t256_runs.update(device_proof_phase(torch, t256_reset, t256_counts, card))
     # (e) mdl1 through the CLI: the mDL statement, its age proof, device binding
     mdl_runs = mdl1_phase(torch, groth16, reset, counts, card)
     say(f"chunk MSM 2^{CHUNK_LOG}: {mres['chunk_ms']:.3f} ms on the card, "
@@ -2811,6 +3042,45 @@ def main() -> None:
             kernels[-1].update({k: v for k, v in tree.items() if k != "tree_ms"})
             for row in kernels[-1]["shapes"]:
                 row["tree_ms"] = tree["tree_ms"][int(row["shape"].split()[0])]
+    import re
+
+    # T-256's kernels (the wide jadd and jdbl, ntt.cu's mul): the
+    # device-bound show's path under CRESCENT_NATIVE=0
+    for name, kernel, main_shape, src in (
+            ("t256_mul", "mul", "129 rows x R^2", "ntt.cu"),
+            ("t256_jadd", "jadd", "16384 lanes", "warp.cuh"),
+            ("t256_jdbl", "jdbl", "16384 lanes", "warp.cuh")):
+        rows = kres[name]
+        label, _, ms, plain_ms, bound_ms, bound_by = next(r for r in rows if r[0] == main_shape)
+        if kernel == "mul":
+            hits = [_kernel_registers(regs, "mul") or (None, None)]
+        else:  # the kWide instances, and point.cuh's one thread a lane
+            hits = [v for e, v in _jadd_registers(regs, kernel).items()
+                    if re.search(WIDE_ENTRY, e) or "jdbl_kernelINS_2FeEEEv" in e]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "crescent_tpu_torch/csrc/" + src,
+            "replaces": f"{pallas}:{replaces[kernel]}",
+            "shape": label,
+            "launches": sum(r[kernel] for r in t256_runs.values()),
+            **{f"launches_{k}": v[kernel] for k, v in t256_runs.items()},
+            "registers": max((h[0] for h in hits if h[0] is not None), default=None),
+            "spill_store_bytes": max((h[1] for h in hits if h[1] is not None), default=None),
+            "max_abs_err": max(r[1] for r in rows),
+            "bit_exact": all(r[1] == 0 for r in rows),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "shapes": [{"shape": r[0], "ms": r[2], "plain_ms": r[3], "bound_ms": r[4]}
+                       for r in rows],
+        })
+        if kernel != "mul":
+            kernels[-1]["registers_by_entry"] = {
+                e: r for e, (r, _) in _jadd_registers(regs, kernel).items()
+                if re.search(WIDE_ENTRY, e)}
     say(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

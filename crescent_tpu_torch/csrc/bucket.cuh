@@ -209,7 +209,7 @@ __device__ __forceinline__ void bucket_lanes(const Curve& C, int lo, int hi,
   const int slot = threadIdx.x / G, t = threadIdx.x % G;
   if constexpr (kGroups) {
     // made for the level, kept across its passes (its buffers alternate)
-    WarpGroups ex = GroupsOf<32>::make(C.M);
+    WarpGroups<> ex = GroupsOf<32>::make(C.M);
 #pragma unroll 1
     for (int base = lo; base < hi; base += per) {
       const int i = base + slot;

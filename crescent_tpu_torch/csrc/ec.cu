@@ -92,6 +92,17 @@
 //     lane would repeat too much work; P == Q takes warp.cuh's doubling
 //     on the same threads, where a lane run with it needs it.
 //
+// The modulus.  BN254's are below 2^254.  T-256's base field (Spartan's
+// MSMs, ECDSA device binding) is above 2^255, where a sum of two elements
+// and a Montgomery product's value before its last subtraction can carry
+// out of 256 bits.  field.cuh's fe_add, fe_sub and fe_mont_mul keep that
+// carry for any p < 2^256 (fe_reduce_once's carry word), so `mul`
+// (ntt.cu) holds T-256 as it is; warp.cuh's carry chains and group
+// products drop it, so `jadd` and `jdbl` have instances with kWide set
+// (crescent_jadd_wide, crescent_jdbl_wide, a != 0), which keep it.  Every
+// other entry here computes over p < 2^255 only; ops/cuda_ec.py refuses a
+// wider modulus for them.
+//
 // Every other kernel is a template of point.cuh instantiated here over Fe;
 // ec2.cu instantiates the same bodies over Fe2, warp.cuh's `jdbl_n` and
 // `jadd` over Fe2 too, and inverts by the divsteps on the norm.
@@ -186,6 +197,19 @@ extern "C" int crescent_jadd(const uint32_t* curve26, const void* x1,
                                                               oy, oz, n, stream);
 }
 
+// jadd over a modulus p >= 2^255 with a != 0 (T-256's base field, a =
+// p - 3; Spartan's small MSMs under CRESCENT_NATIVE=0): the instances whose
+// sums and group products keep the carry out of 256 bits (warp.cuh kWide).
+extern "C" int crescent_jadd_wide(const uint32_t* curve26, const void* x1,
+                                  const void* y1, const void* z1, const void* x2,
+                                  const void* y2, const void* z2, void* ox, void* oy,
+                                  void* oz, long long n, void* stream) {
+  const Curve C = make_curve(curve26);
+  if (C.a_is_zero) return (int)cudaErrorInvalidValue;  // no a == 0 instance
+  return crescent::launch_jadd_lanes<Fe, false, true>(C, x1, y1, z1, x2, y2, z2, ox, oy, oz,
+                                                      n, stream);
+}
+
 extern "C" int crescent_jdbl_n(const uint32_t* curve26, const void* x,
                                const void* y, const void* z, void* ox, void* oy,
                                void* oz, long long n, int count, void* stream) {
@@ -208,6 +232,15 @@ extern "C" int crescent_jdbl(const uint32_t* curve26, const void* x,
   return C.a_is_zero
              ? crescent::launch_jdbl_lanes<Fe, true>(C, x, y, z, ox, oy, oz, n, stream)
              : crescent::launch_jdbl_lanes<Fe, false>(C, x, y, z, ox, oy, oz, n, stream);
+}
+
+// jdbl over a modulus p >= 2^255 with a != 0, as crescent_jadd_wide.
+extern "C" int crescent_jdbl_wide(const uint32_t* curve26, const void* x,
+                                  const void* y, const void* z, void* ox, void* oy,
+                                  void* oz, long long n, void* stream) {
+  const Curve C = make_curve(curve26);
+  if (C.a_is_zero) return (int)cudaErrorInvalidValue;  // no a == 0 instance
+  return crescent::launch_jdbl_lanes<Fe, false, true>(C, x, y, z, ox, oy, oz, n, stream);
 }
 
 extern "C" int crescent_madd(const uint32_t* curve26, const void* x1,

@@ -10,8 +10,14 @@
 //
 // The modulus is a kernel argument (`Mod`, passed by value, so it sits in
 // the constant bank and every thread reads the same words): one build
-// serves BN254 Fr and Fq alike.  Requires p < 2^255, so that the CIOS
-// accumulator never needs a tenth word; both BN254 moduli are < 2^254.
+// serves BN254 Fr and Fq alike.  fe_add, fe_sub, fe_reduce_once and
+// fe_mont_mul hold any odd p < 2^256: a sum a + b < 2p and the CIOS
+// accumulator t < 2p keep their carry out of 256 bits (fe_add's `c`, the
+// accumulator's ninth word t[8]; within a step t + a b_i < 2^289 reaches
+// a tenth, t[9]), and fe_reduce_once subtracts p where that carry is set
+// (tests/test_torch_t256.py replays them word by word over T-256's and
+// P-256's p, both above 2^255).  fe_mont_mul_sum needs p < 2^254, the
+// divstep inversion is checked on BN254's moduli only.
 //
 // The TPU kernels ran REDC's two by-constant products as byte-plane
 // Toeplitz matmuls on the MXU (pallas_ec.py:147-206).  That trick exists
@@ -85,7 +91,7 @@ __device__ __forceinline__ void fe_store(uint4* dst, const Fe& a) {
   dst[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
 }
 
-// t (with carry word `top`) < 2p  ->  t mod p.
+// t (with carry word `top`, 0 or 1) < 2p  ->  t mod p.
 __device__ __forceinline__ Fe fe_reduce_once(const Fe& t, uint32_t top,
                                              const Mod& M) {
   Fe d;

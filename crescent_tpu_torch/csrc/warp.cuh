@@ -80,6 +80,19 @@ __device__ __forceinline__ uint32_t sub_chain(Fe& t, const Fe& a, const Fe& b) {
   return borrow;
 }
 
+// t = a + b; returns the carry out (0 or 1)
+__device__ __forceinline__ uint32_t add_chain_carry(Fe& t, const Fe& a, const Fe& b) {
+  uint32_t carry;
+  asm("add.cc.u32 %0, %9, %17;\n\taddc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\taddc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\taddc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\taddc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : CRESCENT_OUT8(t), "=r"(carry)
+      : CRESCENT_IN8(a), CRESCENT_IN8(b));
+  return carry;
+}
+
 // t = a + b, the carry out dropped
 __device__ __forceinline__ void add_chain(Fe& t, const Fe& a, const Fe& b) {
   asm("add.cc.u32 %0, %8, %16;\n\taddc.cc.u32 %1, %9, %17;\n\t"
@@ -90,12 +103,22 @@ __device__ __forceinline__ void add_chain(Fe& t, const Fe& a, const Fe& b) {
       : CRESCENT_IN8(a), CRESCENT_IN8(b));
 }
 
-// a + b < 2p < 2^256 (p < 2^255): keep it if subtracting p borrows
+// a + b < 2p: keep it if subtracting p borrows.  For p < 2^255 the sum
+// fits 256 bits.  kWide (p >= 2^255, P-256's and T-256's base fields): a
+// sum with a carry out of 256 bits is above p, and the chain's t - p
+// (mod 2^256) is the result whatever it borrowed.
+template <bool kWide = false>
 __device__ __forceinline__ Fe fe_add_cc(const Fe& a, const Fe& b, const Mod& M) {
   Fe t, d;
-  add_chain(t, a, b);
-  const uint32_t borrow = sub_chain(d, t, fe_from(M.p));
-  return fe_select(borrow != 0, t, d);
+  if constexpr (kWide) {
+    const uint32_t carry = add_chain_carry(t, a, b);
+    const uint32_t borrow = sub_chain(d, t, fe_from(M.p));
+    return fe_select(borrow != 0 && carry == 0, t, d);
+  } else {
+    add_chain(t, a, b);
+    const uint32_t borrow = sub_chain(d, t, fe_from(M.p));
+    return fe_select(borrow != 0, t, d);
+  }
 }
 
 // a - b, plus p where it borrowed (the carry out dropped)
@@ -126,7 +149,11 @@ __device__ __forceinline__ uint32_t group_bits(unsigned ballot, int base) {
 // the carries out of each word, then the single-bit carry chain and the
 // borrow chain of T - p are each resolved at once from two warp votes
 // (__ballot_sync of the generate and propagate bits: carry into word k is
-// bit k of ((G << 1) + P) ^ P).  Every thread of the warp must call it.
+// bit k of ((G << 1) + P) ^ P).  kWide (p >= 2^255): T < 2p may reach
+// 2^256, its word 8 the carries out of word 7 (thread 7's, then the
+// chain's); T - p is then the product whatever it borrowed, as in
+// field.cuh's fe_reduce_once.  Every thread of the warp must call it.
+template <bool kWide = false>
 __device__ __forceinline__ uint32_t group_mont_mul(uint32_t ak, const Fe& b,
                                                    uint32_t pk, const Mod& M,
                                                    int k, int base) {
@@ -149,19 +176,28 @@ __device__ __forceinline__ uint32_t group_mont_mul(uint32_t ak, const Fe& b,
   uint32_t r = (uint32_t)s2;
   uint32_t G = group_bits(__ballot_sync(kFullWarp, (uint32_t)(s2 >> 32)), base);
   uint32_t P = group_bits(__ballot_sync(kFullWarp, r == 0xFFFFFFFFu), base);
-  r += (((G << 1) + P) ^ P) >> k & 1u;  // word 8 of T is 0: T < 2^256
-  // T - p, kept unless it borrows out of word 7
+  const uint32_t carry = ((G << 1) + P) ^ P;
+  r += carry >> k & 1u;  // for p < 2^255 word 8 of T is 0: T < 2^256
+  uint32_t top = 0;
+  if constexpr (kWide) {
+    top = __shfl_sync(kFullWarp, (uint32_t)(s >> 32), base + 7) + (carry >> 8 & 1u);
+  }
+  // T - p, kept unless it borrows out of word 7 (and word 8 is 0)
   G = group_bits(__ballot_sync(kFullWarp, r < pk), base);
   P = group_bits(__ballot_sync(kFullWarp, r == pk), base);
   const uint32_t borrow = ((G << 1) + P) ^ P;
   const uint32_t d = r - pk - (borrow >> k & 1u);
-  return borrow >> 8 & 1u ? r : d;
+  if constexpr (kWide) {
+    return (borrow >> 8 & 1u) > top ? r : d;
+  } else {
+    return borrow >> 8 & 1u ? r : d;
+  }
 }
 
 // N <= 4 products a[j] b[j], group j of the warp computing product j (the
 // other groups repeat product 0 and are not read); every thread gets every
 // product whole (8 shuffles a product).  g, k: this thread's group and word.
-template <int N>
+template <int N, bool kWide>
 __device__ __forceinline__ void warp_products(const Fe (&a)[N], const Fe (&b)[N],
                                               Fe (&out)[N], const Mod& M,
                                               int g, int k, uint32_t pk) {
@@ -171,7 +207,7 @@ __device__ __forceinline__ void warp_products(const Fe (&a)[N], const Fe (&b)[N]
     x = fe_select(g == j, a[j], x);
     y = fe_select(g == j, b[j], y);
   }
-  const uint32_t w = group_mont_mul(fe_word(x, k), y, pk, M, k, 8 * g);
+  const uint32_t w = group_mont_mul<kWide>(fe_word(x, k), y, pk, M, k, 8 * g);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
 #pragma unroll
@@ -183,7 +219,7 @@ __device__ __forceinline__ void warp_products(const Fe (&a)[N], const Fe (&b)[N]
 // 8 (j % 4) .. 8 (j % 4) + 7 of warp j / 4) computing product j (the other
 // groups repeat product 0 and are not read), passed on through `buf` with
 // one barrier; every thread gets every product whole.
-template <int N>
+template <int N, bool kWide>
 __device__ __forceinline__ void block_products(const Fe (&a)[N], const Fe (&b)[N],
                                                Fe (&out)[N], uint32_t (*buf)[8],
                                                const Mod& M, int g, int k,
@@ -194,7 +230,7 @@ __device__ __forceinline__ void block_products(const Fe (&a)[N], const Fe (&b)[N
     x = fe_select(g == j, a[j], x);
     y = fe_select(g == j, b[j], y);
   }
-  const uint32_t w = group_mont_mul(fe_word(x, k), y, pk, M, k, 8 * (g & 3));
+  const uint32_t w = group_mont_mul<kWide>(fe_word(x, k), y, pk, M, k, 8 * (g & 3));
   if (g < N) buf[g][k] = w;
   __syncthreads();
 #pragma unroll
@@ -232,18 +268,21 @@ __device__ __forceinline__ Fe2 fe2_square(const Fe& c0, const Fe& t, const Mod& 
 // most products a round of groups can have); `any(c)` is true where c holds
 // for any lane that runs its rounds together with this one (c the same in
 // all of a lane's threads; every thread calls it), so a branch on it runs
-// its rounds on all of those lanes or on none.
+// its rounds on all of those lanes or on none.  kWide: the modulus is at
+// or above 2^255 (the point bodies' sums then keep their carries too).
 
 // One warp a lane: four 8-thread groups, the products passed on by shuffles.
+template <bool W = false>
 struct WarpGroups {
   static constexpr int kSlots = 4;
+  static constexpr bool kWide = W;
   const Mod& M;
   int g, k;     // this thread's group and word
   uint32_t pk;  // word k of p
   template <int N>
   __device__ __forceinline__ void run(const Fe (&a)[N], const Fe (&b)[N], Fe (&out)[N]) {
     static_assert(N <= kSlots, "a round has more products than groups");
-    warp_products<N>(a, b, out, M, g, k, pk);
+    warp_products<N, W>(a, b, out, M, g, k, pk);
   }
   __device__ __forceinline__ bool any(bool c) const { return c; }  // one lane
 };
@@ -252,9 +291,10 @@ struct WarpGroups {
 // passed on through two shared buffers in turn.  One barrier a round is
 // enough: a buffer is written again two rounds later, by threads that have
 // passed the barrier after which every thread read it.
-template <int kWarps>
+template <int kWarps, bool W = false>
 struct BlockGroups {
   static constexpr int kSlots = 4 * kWarps;
+  static constexpr bool kWide = W;
   const Mod& M;
   int g, k;
   uint32_t pk;
@@ -263,7 +303,7 @@ struct BlockGroups {
   template <int N>
   __device__ __forceinline__ void run(const Fe (&a)[N], const Fe (&b)[N], Fe (&out)[N]) {
     static_assert(N <= kSlots, "a round has more products than groups");
-    block_products<N>(a, b, out, buf[turn], M, g, k, pk);
+    block_products<N, W>(a, b, out, buf[turn], M, g, k, pk);
     turn ^= 1;
   }
   __device__ __forceinline__ bool any(bool c) const { return c; }  // one lane
@@ -271,9 +311,9 @@ struct BlockGroups {
 
 // The group executor of kThreads threads a lane: one warp (four lanes a
 // block of 128 threads, or one), or the block's warps.
-template <int kThreads>
+template <int kThreads, bool kWide = false>
 struct GroupsOf {
-  typedef BlockGroups<kThreads / 32> type;
+  typedef BlockGroups<kThreads / 32, kWide> type;
   static __device__ __forceinline__ type make(const Mod& M) {
     __shared__ uint32_t buf[2][kThreads / 8][8];
     const int k = threadIdx.x & 7;
@@ -281,9 +321,9 @@ struct GroupsOf {
   }
 };
 
-template <>
-struct GroupsOf<32> {
-  typedef WarpGroups type;
+template <bool kWide>
+struct GroupsOf<32, kWide> {
+  typedef WarpGroups<kWide> type;
   static __device__ __forceinline__ type make(const Mod& M) {
     const int k = threadIdx.x & 7;
     return type{M, (int)((threadIdx.x >> 3) & 3), k, fe_word(fe_from(M.p), k)};
@@ -294,9 +334,11 @@ struct GroupsOf<32> {
 // t + 2 T, ... of a round whole (the others repeat the first of their
 // turn, which is not read) and passing them on by shuffles; one thread a
 // lane computes a round's products in turn.  `mask` holds the warp's live
-// threads.
-template <int T>
+// threads.  fe_mont_mul holds any p < 2^256, so kWide only tells the
+// bodies.
+template <int T, bool W = false>
 struct ProductThreads {
+  static constexpr bool kWide = W;
   const Mod& M;
   int t;
   unsigned mask;
@@ -338,7 +380,7 @@ __device__ __forceinline__ PtT<Fe> warp_double(const Curve& C, const PtT<Fe>& P,
   const Mod& M = C.M;
   Fe s1[4];
   {
-    const Fe a[4] = {P.x, P.y, P.z, fe_add_cc(P.y, P.z, M)};
+    const Fe a[4] = {P.x, P.y, P.z, fe_add_cc<X::kWide>(P.y, P.z, M)};
     ex.run(a, a, s1);
   }
   const Fe& XX = s1[0];
@@ -346,34 +388,34 @@ __device__ __forceinline__ PtT<Fe> warp_double(const Curve& C, const PtT<Fe>& P,
   const Fe& ZZ = s1[2];
   PtT<Fe> R;
   R.z = fe_sub_cc(fe_sub_cc(s1[3], YY, M), ZZ, M);
-  Fe Mm = fe_add_cc(fe_add_cc(XX, XX, M), XX, M);
+  Fe Mm = fe_add_cc<X::kWide>(fe_add_cc<X::kWide>(XX, XX, M), XX, M);
   Fe s2[3];
   if (kAZero) {
-    const Fe a[3] = {YY, fe_add_cc(P.x, YY, M), Mm};
+    const Fe a[3] = {YY, fe_add_cc<X::kWide>(P.x, YY, M), Mm};
     ex.run(a, a, s2);
   } else {
-    const Fe a[3] = {YY, fe_add_cc(P.x, YY, M), ZZ};
+    const Fe a[3] = {YY, fe_add_cc<X::kWide>(P.x, YY, M), ZZ};
     ex.run(a, a, s2);
     Fe t[1];
     const Fe ca[1] = {fe_from(C.a)}, z4[1] = {s2[2]};
     ex.run(ca, z4, t);
-    Mm = fe_add_cc(Mm, t[0], M);
+    Mm = fe_add_cc<X::kWide>(Mm, t[0], M);
     const Fe mm[1] = {Mm};
     ex.run(mm, mm, t);
     s2[2] = t[0];
   }
   const Fe& YYYY = s2[0];
   Fe S = fe_sub_cc(fe_sub_cc(s2[1], XX, M), YYYY, M);
-  S = fe_add_cc(S, S, M);
-  R.x = fe_sub_cc(s2[2], fe_add_cc(S, S, M), M);
+  S = fe_add_cc<X::kWide>(S, S, M);
+  R.x = fe_sub_cc(s2[2], fe_add_cc<X::kWide>(S, S, M), M);
   Fe t[1];
   {
     const Fe mm[1] = {Mm}, sx[1] = {fe_sub_cc(S, R.x, M)};
     ex.run(mm, sx, t);
   }
-  Fe e8 = fe_add_cc(YYYY, YYYY, M);
-  e8 = fe_add_cc(e8, e8, M);
-  R.y = fe_sub_cc(t[0], fe_add_cc(e8, e8, M), M);
+  Fe e8 = fe_add_cc<X::kWide>(YYYY, YYYY, M);
+  e8 = fe_add_cc<X::kWide>(e8, e8, M);
+  R.y = fe_sub_cc(t[0], fe_add_cc<X::kWide>(e8, e8, M), M);
   return R;
 }
 
@@ -490,10 +532,10 @@ __device__ __forceinline__ JaddCase jadd_sum(const Curve& C, X& ex, const JaddRo
   const bool finite = !p_inf && !q_inf;
   const bool dbl = finite && h_zero && r_zero;
   if (ex.any(!dbl)) {
-    const Fe rr = fe_add_cc(r, r, M);
+    const Fe rr = fe_add_cc<X::kWide>(r, r, M);
     Fe r3[3];
     {
-      const Fe a[3] = {fe_add_cc(H, H, M), rr, fe_add_cc(Z1, Z2, M)};
+      const Fe a[3] = {fe_add_cc<X::kWide>(H, H, M), rr, fe_add_cc<X::kWide>(Z1, Z2, M)};
       ex.run(a, a, r3);
     }
     const Fe& I = r3[0];
@@ -505,7 +547,7 @@ __device__ __forceinline__ JaddCase jadd_sum(const Curve& C, X& ex, const JaddRo
     }
     const Fe& J = r4[0];
     const Fe& V = r4[1];
-    R.x = fe_sub_cc(fe_sub_cc(r3[1], J, M), fe_add_cc(V, V, M), M);
+    R.x = fe_sub_cc(fe_sub_cc(r3[1], J, M), fe_add_cc<X::kWide>(V, V, M), M);
     R.z = r4[2];
     Fe r5[2];
     {
@@ -513,7 +555,7 @@ __device__ __forceinline__ JaddCase jadd_sum(const Curve& C, X& ex, const JaddRo
       const Fe b[2] = {J, fe_sub_cc(V, R.x, M)};
       ex.run(a, b, r5);
     }
-    R.y = fe_sub_cc(r5[1], fe_add_cc(r5[0], r5[0], M), M);
+    R.y = fe_sub_cc(r5[1], fe_add_cc<X::kWide>(r5[0], r5[0], M), M);
   }
   return {dbl, p_inf, q_inf, finite && h_zero && !r_zero};
 }
@@ -782,6 +824,7 @@ __device__ __forceinline__ void madd_doubles(const Curve& C, X& ex, bool dbl, Pt
 template <bool kAZero, class X>
 __device__ __forceinline__ void madd_sum(const Curve& C, X& ex, bool add, const Fe& qx,
                                          const Fe& qy, PtT<Fe>& P) {
+  static_assert(!X::kWide, "madd serves p < 2^255 (ROADMAP Queue 2 item 1)");
   const Mod& M = C.M;
   Fe r1[2];
   {
@@ -995,14 +1038,15 @@ __device__ __forceinline__ void store_coords(uint4* ox, uint4* oy, uint4* oz, lo
 
 // `count` chained doublings of lane blockIdx.x over F (Fe or Fe2), a block
 // of kLaneThreads<F> a lane; kAZero must be C.a_is_zero (the launch picks
-// the instance; over Fe2 only a = 0 exists).
-template <class F, bool kAZero>
+// the instance; over Fe2 only a = 0 exists), kWide p >= 2^255.
+template <class F, bool kAZero, bool kWide = false>
 __global__ void __launch_bounds__(kLaneThreads<F>)
     warp_jdbl_n_kernel(Curve C, const uint4* x, const uint4* y, const uint4* z,
                        uint4* ox, uint4* oy, uint4* oz, long long n, int count) {
   const long long i = blockIdx.x;
   if (i >= n) return;  // the whole block
-  typename GroupsOf<kLaneThreads<F>>::type ex = GroupsOf<kLaneThreads<F>>::make(C.M);
+  typedef GroupsOf<kLaneThreads<F>, kWide> Groups;
+  typename Groups::type ex = Groups::make(C.M);
   PtT<F> P = pt_load<F>(x, y, z, i);
 #pragma unroll 1
   for (int c = 0; c < count; ++c) P = warp_double<kAZero>(C, P, ex);
@@ -1012,13 +1056,13 @@ __global__ void __launch_bounds__(kLaneThreads<F>)
 
 // One addition a lane on groups: kJaddGroupThreads<F> threads a lane, a
 // block of 128 threads (four lanes) over Fe, one lane a block over Fe2.
-template <class F, bool kAZero>
+template <class F, bool kAZero, bool kWide = false>
 __global__ void __launch_bounds__((kJaddGroupThreads<F> > 32 ? kJaddGroupThreads<F> : 128))
     group_jadd_kernel(Curve C, JaddRows in, uint4* ox, uint4* oy, uint4* oz, long long n) {
   constexpr int T = kJaddGroupThreads<F>;
   const long long i = (long long)blockIdx.x * (blockDim.x / T) + threadIdx.x / T;
   if (i >= n) return;  // whole lanes: a warp, or the block
-  typename GroupsOf<T>::type ex = GroupsOf<T>::make(C.M);
+  typename GroupsOf<T, kWide>::type ex = GroupsOf<T, kWide>::make(C.M);
   PtT<F> R;
   jadd_rounds<kAZero>(C, ex, in, i, R);
   lane_sync<T>(kFullWarp);
@@ -1026,22 +1070,23 @@ __global__ void __launch_bounds__((kJaddGroupThreads<F> > 32 ? kJaddGroupThreads
 }
 
 // One addition a lane on T product threads, blocks of 128 threads.
-template <class F, bool kAZero, int T>
+template <class F, bool kAZero, int T, bool kWide = false>
 __global__ void __launch_bounds__(128)
     thread_jadd_kernel(Curve C, JaddRows in, uint4* ox, uint4* oy, uint4* oz, long long n) {
   const long long i = ((long long)blockIdx.x * 128 + threadIdx.x) / T;
   const unsigned live = __ballot_sync(kFullWarp, i < n);
   if (i >= n) return;  // whole lanes
-  ProductThreads<T> ex{C.M, (int)(threadIdx.x % T), live};
+  ProductThreads<T, kWide> ex{C.M, (int)(threadIdx.x % T), live};
   PtT<F> R;
   jadd_rounds<kAZero>(C, ex, in, i, R);
   lane_sync<T>(live);
   store_coords<F, T>(ox, oy, oz, i, R, threadIdx.x % T);
 }
 
-// Host side: n additions over F with kAZero == C.a_is_zero, on the design
-// that n lanes take; returns cudaGetLastError().
-template <class F, bool kAZero>
+// Host side: n additions over F with kAZero == C.a_is_zero and kWide ==
+// (p >= 2^255), on the design that n lanes take; returns
+// cudaGetLastError().
+template <class F, bool kAZero, bool kWide = false>
 int launch_jadd_lanes(const Curve& C, const void* x1, const void* y1, const void* z1,
                       const void* x2, const void* y2, const void* z2, void* ox, void* oy,
                       void* oz, long long n, void* stream) {
@@ -1050,14 +1095,15 @@ int launch_jadd_lanes(const Curve& C, const void* x1, const void* y1, const void
                       (const uint4*)x2, (const uint4*)y2, (const uint4*)z2};
     if (n <= kJaddGroupLanesMax<F>) {
       constexpr int T = kJaddGroupThreads<F>, B = T > 32 ? T : 128;
-      group_jadd_kernel<F, kAZero><<<grid_for(n * T, B), B, 0, (cudaStream_t)stream>>>(
+      group_jadd_kernel<F, kAZero, kWide><<<grid_for(n * T, B), B, 0, (cudaStream_t)stream>>>(
           C, in, (uint4*)ox, (uint4*)oy, (uint4*)oz, n);
     } else if (kJaddOneThreadLanesMin<F> == 0 || n < kJaddOneThreadLanesMin<F>) {
       constexpr int T = kJaddProductThreads<F>;
-      thread_jadd_kernel<F, kAZero, T><<<grid_for(n * T, 128), 128, 0, (cudaStream_t)stream>>>(
+      thread_jadd_kernel<F, kAZero, T, kWide>
+          <<<grid_for(n * T, 128), 128, 0, (cudaStream_t)stream>>>(
           C, in, (uint4*)ox, (uint4*)oy, (uint4*)oz, n);
     } else if constexpr (kJaddOneThreadLanesMin<F> > 0) {
-      thread_jadd_kernel<F, kAZero, 1><<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+      thread_jadd_kernel<F, kAZero, 1, kWide><<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
           C, in, (uint4*)ox, (uint4*)oy, (uint4*)oz, n);
     }
   }
@@ -1095,32 +1141,34 @@ template <>
 constexpr long long kJdblOneThreadLanesMin<Fe2> = 0;
 
 // One doubling a lane on T product threads, blocks of 128 threads.
-template <class F, bool kAZero, int T>
+template <class F, bool kAZero, int T, bool kWide = false>
 __global__ void __launch_bounds__(128)
     thread_jdbl_kernel(Curve C, const uint4* x, const uint4* y, const uint4* z, uint4* ox,
                        uint4* oy, uint4* oz, long long n) {
   const long long i = ((long long)blockIdx.x * 128 + threadIdx.x) / T;
   const unsigned live = __ballot_sync(kFullWarp, i < n);
   if (i >= n) return;  // whole lanes
-  ProductThreads<T> ex{C.M, (int)(threadIdx.x % T), live};
+  ProductThreads<T, kWide> ex{C.M, (int)(threadIdx.x % T), live};
   const PtT<F> R = warp_double<kAZero>(C, pt_load<F>(x, y, z, i), ex);
   lane_sync<T>(live);
   store_coords<F, T>(ox, oy, oz, i, R, threadIdx.x % T);
 }
 
-// Host side: n doublings over F with kAZero == C.a_is_zero, on the design
-// that n lanes take; returns cudaGetLastError().
-template <class F, bool kAZero>
+// Host side: n doublings over F with kAZero == C.a_is_zero and kWide ==
+// (p >= 2^255), on the design that n lanes take (point.cuh's one thread a
+// lane runs field.cuh's ops, which hold any p < 2^256); returns
+// cudaGetLastError().
+template <class F, bool kAZero, bool kWide = false>
 int launch_jdbl_lanes(const Curve& C, const void* x, const void* y, const void* z, void* ox,
                       void* oy, void* oz, long long n, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
     if (n <= kJdblGroupLanesMax<F>) {
-      warp_jdbl_n_kernel<F, kAZero><<<(unsigned)n, kLaneThreads<F>, 0, s>>>(
+      warp_jdbl_n_kernel<F, kAZero, kWide><<<(unsigned)n, kLaneThreads<F>, 0, s>>>(
           C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n, 1);
     } else if (kJdblOneThreadLanesMin<F> == 0 || n < kJdblOneThreadLanesMin<F>) {
       constexpr int T = kJdblProductThreads<F>;
-      thread_jdbl_kernel<F, kAZero, T><<<grid_for(n * T, 128), 128, 0, s>>>(
+      thread_jdbl_kernel<F, kAZero, T, kWide><<<grid_for(n * T, 128), 128, 0, s>>>(
           C, (In)x, (In)y, (In)z, (Out)ox, (Out)oy, (Out)oz, n);
     } else if constexpr (kJdblOneThreadLanesMin<F> > 0) {
       jdbl_kernel<F><<<grid_for(n, kThreads), kThreads, 0, s>>>(

@@ -7,13 +7,15 @@ SURVEY.md §2c): dense multilinear polynomials, the sumcheck protocol
 R1CS-satisfiability sumcheck instance.
 
 Its MSMs over T-256 and its field loops run on the native host backend, as
-the reference's defaults do.  The reference's device fallbacks, taken when
-the backend is off (``CRESCENT_NATIVE=0``) -- ``commit_vector``'s and
-``_t256_msm``'s ``get_msm(T256)`` and ``poly_commit``'s row commits through
-``run_device_many`` -- need T-256 on the device, whose 256-bit modulus the
-port's field layer cannot hold yet (it requires p < 2^255): they raise
-NotImplementedError naming ROADMAP Queue 1 item 5, and never take the
-native route instead.  Everything else is the reference's code.
+the reference's defaults do.  With the backend off (``CRESCENT_NATIVE=0``)
+they take the reference's device routes: ``commit_vector``'s and
+``_t256_msm``'s ``get_msm(T256).run_host`` and ``poly_commit``'s row
+commits as one ``run_device_many``, each the small-MSM path (at most 1,024
+points: ``CurveCtx.scalar_mul`` on the ``jadd`` and ``jdbl`` kernels over
+T-256's base field, above 2^255, then a ``jadd`` tree).  Those three take a
+keyword-only ``device``, the card by default; without a card they raise the
+port's "no CUDA device" error unless given the CPU, where the kernels' plain
+versions run.  Everything else is the reference's code.
 
 Second half of this module: the full zero-knowledge NIZK assembly —
 halo2curves-compatible SSWU generator derivation (commitments.rs:19-41),
@@ -55,9 +57,13 @@ def _nb_ok() -> bool:
     return os.environ.get("CRESCENT_NATIVE", "1") == "1" and nb.available()
 
 
-T256_DEVICE_LATER = (
-    "T-256 MSMs on the device (the CRESCENT_NATIVE=0 fallback) are not ported yet: "
-    "the port's field layer requires p < 2^255 (ROADMAP Queue 1 item 5)")
+def _t256_device_msm(scalars, points, device):
+    """The reference's device route for one T-256 MSM:
+    ``get_msm(T256).run_host`` on `device`, which must exist."""
+    from ..ops.msm import get_msm
+    from .groth16 import _device
+
+    return get_msm(T256).run_host(scalars, points, device=_device(device))
 
 
 class DenseMlPoly:
@@ -318,14 +324,15 @@ def pedersen_gens(n: int, label: bytes = b"crescent-tpu spartan gens") -> Peders
     return PedersenGens(pts[:n], pts[n])
 
 
-def commit_vector(gens: PedersenGens, values: list[int], blind: int) -> AffinePoint:
+def commit_vector(gens: PedersenGens, values: list[int], blind: int, *,
+                  device="cuda") -> AffinePoint:
     bases = gens.g[: len(values)] + [gens.h]
     scalars = [v % Q for v in values] + [blind % Q]
     if len(bases) <= 16:
         return T256.msm(scalars, bases)
     if _nb_ok():
         return nb.msm("t256", scalars, bases)
-    raise NotImplementedError(T256_DEVICE_LATER)
+    return _t256_device_msm(scalars, bases, device)
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +443,7 @@ class RandomTape:
 # --- generators + Pedersen commitments (commitments.rs) --------------------
 
 
-def _t256_msm(scalars, points):
+def _t256_msm(scalars, points, *, device="cuda"):
     pts, scs = [], []
     for s, p in zip(scalars, points):
         if p is None or s % Q == 0:
@@ -449,7 +456,7 @@ def _t256_msm(scalars, points):
         return T256.msm(scs, pts)
     if _nb_ok():
         return nb.msm("t256", scs, pts)
-    raise NotImplementedError(T256_DEVICE_LATER)
+    return _t256_device_msm(scs, pts, device)
 
 
 _GENS_CACHE: dict = {}
@@ -1080,14 +1087,16 @@ class PolyCommitment:
 
 
 def poly_commit(
-    poly: DenseMlPoly, gens: PolyCommitmentGens, tape: RandomTape | None
+    poly: DenseMlPoly, gens: PolyCommitmentGens, tape: RandomTape | None, *,
+    device="cuda"
 ) -> tuple[PolyCommitment, list[int]]:
     """DensePolynomial::commit: matrix rows committed separately
     (dense_mlpoly.rs:181-206).
 
     Hot path of NIZK::prove: the rows on the native backend; without it,
-    the reference's batched device program over T-256 raises here (see the
-    module's docstring)."""
+    at L_size >= 8 rows of R_size >= 32, all rows as one batch of device
+    MSMs (``run_device_many`` on `device`, the reference's one batched
+    device program)."""
     ell = poly.num_vars
     left, right = factored_lens(ell)
     L_size, R_size = 1 << left, 1 << right
@@ -1110,8 +1119,28 @@ def poly_commit(
         ]
         return PolyCommitment(C), blinds
     if L_size >= 8 and R_size >= 32:
-        # the reference's row commits as one run_device_many over T-256
-        raise NotImplementedError(T256_DEVICE_LATER)
+        import torch
+
+        from ..ops import limb
+        from ..ops.ec import get_curve_ctx
+        from ..ops.msm import get_msm
+        from .groth16 import _device
+
+        device = _device(device)
+        m = get_msm(T256)
+        ctx = get_curve_ctx(T256)
+        P = ctx.points_to_device(gn.G[:R_size] + [gn.h], device)
+        valid = torch.ones(R_size + 1, dtype=torch.int32, device=device)
+        problems = []
+        for i in range(L_size):
+            sc = limb.limbs_to_words(limb.ints_to_limbs(
+                [v % Q for v in poly.evals[R_size * i : R_size * (i + 1)]]
+                + [blinds[i] % Q]
+            ), device)
+            problems.append((P.x, P.y, valid, sc))
+        res = m.run_device_many(problems)
+        pts = ctx.points_to_host(res)
+        return PolyCommitment([_comp(p) for p in pts]), blinds
     C = [
         _comp(commitv(poly.evals[R_size * i : R_size * (i + 1)], blinds[i], gn))
         for i in range(L_size)

@@ -48,6 +48,8 @@ SIGNATURES = {
         "crescent_jadd": [_u32p] + [_vp] * 9 + [_ll, _vp],
         "crescent_jdbl_n": [_u32p] + [_vp] * 6 + [_ll, _int, _vp],
         "crescent_jdbl": [_u32p] + [_vp] * 6 + [_ll, _vp],
+        "crescent_jadd_wide": [_u32p] + [_vp] * 9 + [_ll, _vp],
+        "crescent_jdbl_wide": [_u32p] + [_vp] * 6 + [_ll, _vp],
         "crescent_madd": [_u32p] + [_vp] * 5 + [_ll, _ll] + [_vp] * 5 + [_ll, _vp],
         "crescent_fixed_base": [_u32p] + [_vp] * 5 + [_ll, _vp],
         "crescent_bucket_reduce": [_u32p] + [_vp] * 6 + [_ll, _ll, _vp],

@@ -60,7 +60,11 @@ Fq2, canonical, Montgomery form where the op needs it; validity flags are
 reference); a CUDA tensor launches the kernel or raises.  ``<op>_launches``
 count kernel launches and nothing else.  The modulus and the curve's ``a``
 are kernel arguments, so one build serves every field and curve with
-p < 2^255.
+p < 2^255.  A modulus at or above 2^255 (T-256's base field, for Spartan's
+MSMs) takes only the kernels in ``WIDE_KERNELS`` on the card: ``mul`` as it
+is, ``jadd`` and ``jdbl`` as their kWide instances (a != 0), picked from the
+modulus when the set is made; every other kernel refuses it on a CUDA
+tensor (``WIDE_LATER``), and its plain version holds it on the CPU.
 """
 
 from __future__ import annotations
@@ -113,6 +117,15 @@ def _stream(device: torch.device) -> int:
 def _words32(x: int) -> list[int]:
     return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(NWORD)]
 
+
+# The kernels whose CUDA body holds a modulus p >= 2^255, each checked on
+# the card over T-256 (chip_smoke.py): `mul` (field.cuh's fe_mont_mul keeps
+# the carry out of 256 bits for any p < 2^256) and the kWide instances of
+# `jadd` and `jdbl` (csrc/warp.cuh; crescent_jadd_wide and
+# crescent_jdbl_wide, a != 0 only).  The others assume p < 2^255.
+WIDE_KERNELS = ("mul", "jadd", "jdbl")
+WIDE_LATER = ("is not lifted to a modulus at or above 2^255 on the card: its CUDA body "
+              "assumes p < 2^255 (ROADMAP Queue 2 item 1)")
 
 KERNELS = ("mul", "butterfly", "inv", "affine_denom", "affine_add", "jadd",
            "jdbl_n", "jdbl", "madd", "fixed_base", "bucket_reduce", "batch_inv")
@@ -222,6 +235,8 @@ def jadd_plain(f, a, X1, Y1, Z1, X2, Y2, Z2):
     r_zero = f.is_zero(r)
     p_inf = f.is_zero(Z1)
     q_inf = f.is_zero(Z2)
+    same = h_zero & r_zero & ~p_inf & ~q_inf
+    negs = h_zero & ~r_zero & ~p_inf & ~q_inf
 
     I = f.mont_sqr(f.add_mod(H, H))
     J = f.mont_mul(H, I)
@@ -233,10 +248,13 @@ def jadd_plain(f, a, X1, Y1, Z1, X2, Y2, Z2):
     Z3 = f.mont_mul(
         f.sub_mod(f.sub_mod(f.mont_sqr(f.add_mod(Z1, Z2)), Z1Z1), Z2Z2), H)
 
-    dX, dY, dZ = double_plain(f, a, X1, Y1, Z1)
-
-    same = h_zero & r_zero & ~p_inf & ~q_inf
-    negs = h_zero & ~r_zero & ~p_inf & ~q_inf
+    # On the card the doubling is always computed (no wait on the device, and
+    # the plain version stays capturable in a CUDA graph); on the CPU only
+    # where a lane takes it (the selects below discard it elsewhere).
+    if same.device.type != "cpu" or same.any():
+        dX, dY, dZ = double_plain(f, a, X1, Y1, Z1)
+    else:
+        dX, dY, dZ = X3, Y3, Z3
 
     sel = f.select
     x = sel(p_inf, X2, sel(q_inf, X1, sel(same, dX, X3)))
@@ -370,6 +388,7 @@ class _Kernels:
     KERNELS: tuple = ()
     LIB = PREFIX = ""
     WIDTH = NWORD
+    wide = False  # the modulus is at or above 2^255
     # The most buckets a window `bucket_reduce` takes: csrc/bucket.cuh keeps
     # a window's two level tables (6 planes of ceil(B / 4) + 1 rows of WIDTH
     # words) in the shared memory of a cluster of 4 blocks, at most
@@ -396,9 +415,19 @@ class _Kernels:
             raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
         setattr(self, f"{kernel}_launches", getattr(self, f"{kernel}_launches") + 1)
 
-    def _entry(self, kernel: str):
-        """The C entry point of `kernel` in this set's library."""
-        return getattr(_build.library(self.LIB), self.PREFIX + kernel)
+    def _entry(self, kernel: str, lib: str = ""):
+        """The C entry point of `kernel` in this set's library (or `lib`):
+        over a modulus p >= 2^255 its wide instance, and a refusal where it
+        has none."""
+        name = self.PREFIX + kernel
+        if self.wide:
+            if kernel not in WIDE_KERNELS:
+                raise NotImplementedError(f"{kernel} {WIDE_LATER}")
+            if kernel != "mul":
+                if self.a_is_zero:
+                    raise NotImplementedError(f"{kernel} with a = 0 {WIDE_LATER}")
+                name += "_wide"
+        return getattr(_build.library(lib or self.LIB), name)
 
     def _mul_args(self, x, y, out):
         """Checks of a strided product: (n, x stride, y stride (0: y is one
@@ -697,6 +726,7 @@ class CudaEC(_Kernels):
     def __init__(self, modulus: int, a_host: int = 0):
         self.modulus = modulus
         self.ctx = get_ctx(modulus)
+        self.wide = self.ctx.wide
         self.a_host = a_host % modulus
         self.a_is_zero = self.a_host == 0
         self.a_mont = self.a_host * self.ctx.R % modulus
@@ -719,13 +749,13 @@ class CudaEC(_Kernels):
             r = self.mul_plain(x, y)
             return r if out is None else out.copy_(r)
         n, xs, ys, os_, out = self._mul_args(x, y, out)
-        self._launched("mul", _build.library("ntt").crescent_mul(
+        self._launched("mul", self._entry("mul", "ntt")(
             self._mod9, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
             xs, ys, os_, _stream(x.device)))
         return out
 
     def _butterfly_launch(self, a, b, tw, npairs: int, log_half: int) -> None:
-        self._launched("butterfly", _build.library("ntt").crescent_butterfly(
+        self._launched("butterfly", self._entry("butterfly", "ntt")(
             self._mod9, a.data_ptr(), b.data_ptr(), tw.data_ptr(), npairs,
             log_half, _stream(a.device)))
 

@@ -45,7 +45,7 @@ def points_valid(pts) -> np.ndarray:
 
 
 class CurveCtx:
-    """One curve y^2 = x^3 + a*x + b over a prime field p < 2^255 or its
+    """One curve y^2 = x^3 + a*x + b over a prime field p < 2^256 or its
     quadratic extension: `fctx` is the field's ``ModCtx`` or ``QuadCtx``,
     `ec` its kernels, `a_host` the coefficient a (an int; 0 over Fq2)."""
 

@@ -172,30 +172,49 @@ def _resolve(t: torch.Tensor, bits: int, carry_in: int = 0):
 
 def _toeplitz(b: torch.Tensor) -> torch.Tensor:
     """(..., 16) limbs -> the (..., 32, 16) view U with U[k, j] = b[k+j-15]
-    (0 outside b), so that column k of the schoolbook product a * b is
-    sum_j a[15-j] * U[k, j]."""
+    (0 outside b), so that column k of the product of a and b is
+    sum_j a[15-j] * U[k, j] (``ModCtx._table``'s layout)."""
     padded = torch.nn.functional.pad(b, (NLIMB - 1, NLIMB + 1))
     return padded.unfold(-1, NLIMB, 1)[..., : 2 * NLIMB, :]
 
 
-def _columns(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """(..., 16) limbs a and a (..., rows, 16) table u -> (..., rows):
-    column k is sum_i a[i] * u[k, i].  With u[k, i] = b[k - i] these are the
-    column sums of the schoolbook product a * b (< 2^36 for limbs < 2^16),
-    its low columns where the table has fewer rows."""
-    return (u * a[..., None, :]).sum(-1)
+@functools.lru_cache(maxsize=None)
+def _column_of(device: str) -> torch.Tensor:
+    """(256,) int64: i + j for the products a[i] b[j], i-major."""
+    i = torch.arange(NLIMB, dtype=torch.int64, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
+def _product_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 16) limbs a and b of one shape -> the (..., 32) column sums of
+    the schoolbook product a * b (< 2^36 for limbs < 2^16; column 31 is 0):
+    the 256 limb products, each added into column i + j."""
+    prods = (a[..., :, None] * b[..., None, :]).reshape(a.shape[:-1] + (NLIMB * NLIMB,))
+    out = torch.zeros(a.shape[:-1] + (2 * NLIMB,), dtype=torch.int64, device=a.device)
+    return out.index_add_(out.dim() - 1, _column_of(str(a.device)), prods)
+
+
+def _const_columns(a: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(..., 16) int64 limbs a and a constant's (16, rows) float64 table
+    (``ModCtx._table``) -> the (..., rows) int64 columns of a times the
+    constant, as one matrix product: exact, since the callers keep every
+    product and column sum far below 2^53."""
+    return (a.to(torch.float64) @ table).to(torch.int64)
 
 
 class ModCtx:
-    """Montgomery constants for one odd modulus p < 2^255, and the plain
+    """Montgomery constants for one odd modulus p < 2^256, and the plain
     PyTorch field ops on (..., 8) int32 word tensors (any device, leading
-    dimensions broadcast)."""
+    dimensions broadcast).  `wide` is p >= 2^255 (P-256's and T-256's
+    base fields): a sum of two elements, and REDC's result below 2p, may
+    then carry out of 256 bits."""
 
     nword = NWORD  # int32 words per element
 
     def __init__(self, modulus: int):
-        assert modulus % 2 == 1 and modulus.bit_length() < 256
+        assert modulus % 2 == 1 and modulus.bit_length() <= 256
         self.modulus = modulus
+        self.wide = modulus.bit_length() == 256
         self.R = 1 << 256
         self.r_mod_n = self.R % modulus  # Montgomery 1
         self.r2 = self.R * self.R % modulus
@@ -215,11 +234,13 @@ class ModCtx:
         return self._consts[key]
 
     def _table(self, name: str, rows: int, device) -> torch.Tensor:
-        """The (rows, 16) table u of the constant c = `name` with
-        u[k, i] = c[k - i], for ``_columns``; cached."""
+        """The (16, rows) float64 table of the constant c = `name` with
+        entry [i, k] = c[k - i] (its 16-bit limbs, 0 outside), for
+        ``_const_columns``; cached."""
         key = (name, "table", rows, str(device))
         if key not in self._consts:
-            self._consts[key] = _toeplitz(self._limbs(name, device))[:rows].flip(-1).contiguous()
+            u = _toeplitz(self._limbs(name, device))[:rows].flip(-1)  # u[k, i] = c[k - i]
+            self._consts[key] = u.T.to(torch.float64).contiguous()
         return self._consts[key]
 
     # -- host conversions ---------------------------------------------------
@@ -245,12 +266,14 @@ class ModCtx:
         return pow(a, -1, self.modulus)
 
     # -- plain device ops ---------------------------------------------------
-    # (p < 2^255, so a sum of two elements and a value below 2p fit 256 bits)
-    def _cond_sub(self, x: torch.Tensor, bits: int) -> torch.Tensor:
-        """Reduced limbs x of radix 2^bits, value < 2p -> the limbs of
-        x mod p."""
+    def _cond_sub(self, x: torch.Tensor, bits: int, top: torch.Tensor) -> torch.Tensor:
+        """Reduced limbs x of radix 2^bits and the bit `top` above them (a
+        (...) int64 tensor of 0 and 1, always 0 for p < 2^255), value X =
+        x + top 2^256 < 2p -> the limbs of X mod p (the reference's
+        ``_cond_sub_top``): X - p where x - p does not borrow or top covers
+        the borrow."""
         d, ge_p = _resolve(x + self._limbs("comp", x.device, bits), bits)  # x - p + 2^256
-        return torch.where(ge_p[..., None] != 0, d, x)
+        return torch.where((ge_p | top)[..., None] != 0, d, x)
 
     def mont_mul(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """x * y * 2^-256 mod p (REDC; the same value as
@@ -273,21 +296,29 @@ class ModCtx:
     def _mont_mul_limbs(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """mont_mul on (..., 16) int64 limbs of one shape -> words."""
         dev = a.device
-        t = _columns(a.flip(-1), _toeplitz(b))  # 32 columns < 2^36, carries not propagated
-        # m = (t mod 2^256) * (-p^-1) mod 2^256: columns < 2^56.  Three
-        # passes leave limbs < 2^16 + 2^9 (not reduced: m stands for a value
-        # below 1.01 * 2^256 that is right mod 2^256, which is what makes
-        # the low half of t + m*p cancel)
-        m = _pass(_pass(_pass(_columns(t[..., :NLIMB], self._table("ninv", NLIMB, dev)))))
-        u = t + _columns(m, self._table("p", 2 * NLIMB, dev))  # columns < 2^38
+        t = _product_columns(a, b)  # 32 columns < 2^36, carries not propagated
+        # m = (t mod 2^256) * (-p^-1) mod 2^256 from t's low half carried to
+        # limbs < 2^16 + 2^5 (what its top limb hands up is dropped: mod
+        # 2^256), so that the columns stay below 2^37.  Three passes leave
+        # limbs < 2^16 + 2 (not reduced: m stands for a value below
+        # 1.01 * 2^256 that is right mod 2^256, which is what makes the low
+        # half of t + m*p cancel)
+        tl = _pass(_pass(t[..., :NLIMB]))
+        m = _pass(_pass(_pass(_const_columns(tl, self._table("ninv", NLIMB, dev)))))
+        if self.wide:
+            # m < 2^256 exactly, so that the result below stays under 2p
+            m, _ = _resolve(m, LIMB_BITS)
+        u = t + _const_columns(m, self._table("p", 2 * NLIMB, dev))  # columns < 2^38
         # two passes leave limbs < 2^16 + 2^7; the low 16 limbs cancel and
         # the high 16 are (t + m*p) / 2^256 < p * (p / 2^256 + 1.01) < 2p
-        x, _ = _resolve(_pass(_pass(u)), LIMB_BITS)
-        return _join(self._cond_sub(x[..., NLIMB:], LIMB_BITS))
+        # for p < 2^255, < p * (p / 2^256 + 1) < 2p with m reduced; limb 32
+        # takes the carry out of 2^512 that a value above 2^256 leaves
+        x, _ = _resolve(_pass(_pass(torch.nn.functional.pad(u, (0, 1)))), LIMB_BITS)
+        return _join(self._cond_sub(x[..., NLIMB:2 * NLIMB], LIMB_BITS, x[..., 2 * NLIMB]))
 
     def add_mod(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        s, _ = _resolve(_wide(x) + _wide(y), WORD_BITS)
-        return self._cond_sub(s, WORD_BITS).to(torch.int32)
+        s, top = _resolve(_wide(x) + _wide(y), WORD_BITS)
+        return self._cond_sub(s, WORD_BITS, top).to(torch.int32)
 
     def sub_mod(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         # x - y + 2^256 as x + ~y + 1; no carry out means it borrowed

@@ -108,7 +108,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "designs")
 
-THREAD_PRODUCT = """template <int N>
+THREAD_PRODUCT = """template <int N, bool kWide>
 __device__ __forceinline__ void warp_products(const Fe (&a)[N], const Fe (&b)[N],
                                               Fe (&out)[N], const Mod& M,
                                               int g, int k, uint32_t pk) {
@@ -286,14 +286,15 @@ def _aadd_ring(src: str) -> str:
 
 def _field_sums(src: str) -> str:
     body = src[src.index("__device__ __forceinline__ PtT<Fe> warp_double("):]
-    assert "fe_add_cc(" in body and "fe_sub_cc(" in body
-    new = body.replace("fe_add_cc(", "fe_add(").replace("fe_sub_cc(", "fe_sub(")
+    assert "fe_add_cc<X::kWide>(" in body and "fe_sub_cc(" in body
+    new = re.sub(r"fe_add_cc(<X::kWide>)?\(", "fe_add(", body).replace("fe_sub_cc(", "fe_sub(")
     return src[:len(src) - len(body)] + new
 
 
 def _thread_product(src: str) -> str:
-    return _replace_function(src, "template <int N>\n__device__ __forceinline__ void warp_products(",
-                             THREAD_PRODUCT)
+    return _replace_function(
+        src, "template <int N, bool kWide>\n__device__ __forceinline__ void warp_products(",
+        THREAD_PRODUCT)
 
 
 def _one_warp(src: str) -> str:

@@ -874,3 +874,69 @@ def test_cuda_jdbl_lane_counts_match_plain(cuda, field, a, lanes):
     if lanes > 1:
         assert inf[3] and inf[5] and inf[-1] and int(inf.sum()) == 3
     assert ec.jdbl_launches == before + len(calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 64, 128, 256, 512, 513, 1024, 1025, 8192, 16383, 16384,
+                                   32768])
+def test_cuda_t256_jadd_jdbl_match_plain(cuda, lanes):
+    """`jadd` and `jdbl` over T-256's base field (p >= 2^255, a = p - 3):
+    warp.cuh's kWide instances (crescent_jadd_wide, crescent_jdbl_wide)
+    against their plain versions at Spartan's widths (64 to 16,384 lanes)
+    and at each executor's switch, P + P (a tangent with a != 0), P + (-P)
+    and the identity planted, and coordinates whose Montgomery words are
+    p - 1 and 2^255 (sums and products across 2^256); `jdbl` also against
+    jadd(P, P) off the identities; `mul` by R^2 as points_to_device runs
+    it."""
+    from crescent_tpu_torch.core.curves import T256
+
+    ec = get_cuda_ec(T256.p, T256.a)
+    n = max(lanes, 16)
+    x1, y1, z1, x2, y2, z2 = _planted_points(ec, n + 16, 37, cuda)
+    top, half = (ec.ctx.words([v], cuda)[0] for v in (T256.p - 1, 1 << 255))
+    z1[6], x1[7], x2[7], y1[8], z2[8] = top, top, top, half, half
+    x1[9], y1[9], z1[9] = top, top, top
+    x2[9], y2[9], z2[9] = top, top, top
+    pq = tuple(t[:lanes].contiguous() for t in (x1, y1, z1, x2, y2, z2))
+    before = ec.jadd_launches, ec.jdbl_launches
+    assert _equal(ec.jadd(*pq), ec.jadd_plain(*pq))
+    got = ec.jdbl(*pq[:3])
+    assert _equal(got, ec.jdbl_plain(*pq[:3]))
+    fin = pq[2].ne(0).any(dim=1)
+    twice = ec.jadd(*pq[:3], *pq[:3])
+    assert all(torch.equal(g[fin], w[fin]) for g, w in zip(got, twice))
+    assert (ec.jadd_launches, ec.jdbl_launches) == (before[0] + 2, before[1] + 1)
+    base = get_cuda_ec(T256.p)
+    x = _elems(T256.p, lanes + 16, 41, cuda)
+    r2 = base.ctx.const_words(base.ctx.r2, cuda)
+    assert torch.equal(base.mul(x, r2), base.mul_plain(x, r2))
+
+
+@pytest.mark.cuda
+def test_cuda_t256_refuses_the_unlifted_kernels(cuda):
+    """Over T-256 (p >= 2^255) every kernel but `mul`, `jadd` and `jdbl`
+    refuses a CUDA tensor, naming ROADMAP Queue 2 item 1, and launches
+    nothing."""
+    from crescent_tpu_torch.core.curves import T256
+
+    ec = get_cuda_ec(T256.p, T256.a)
+    x = _elems(T256.p, 64, 3, cuda)
+    flags = torch.ones(64, dtype=torch.int32, device=cuda)
+    table = torch.zeros((8192, 16), dtype=torch.int32, device=cuda)
+    calls = {
+        "inv": lambda: ec.inv(x),
+        "batch_inv": lambda: ec.batch_inv(x, 16),
+        "affine_denom": lambda: ec.affine_denom(x, x, flags, x, x, flags),
+        "affine_add": lambda: ec.affine_add(x, x, flags, x, x, flags, x),
+        "jdbl_n": lambda: ec.jdbl_n(x, x, x, 2),
+        "madd": lambda: ec.madd(x, x, x, x, x, flags, flags),
+        "fixed_base": lambda: ec.fixed_base(table, x),
+        "bucket_reduce": lambda: ec.bucket_reduce(x[:5], x[:5], x[:5], 1, 5),
+        "butterfly": lambda: ec.butterfly(x, x, x),
+    }
+    before = ec.launches()
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
+            call()
+    assert ec.launches() == before
+    assert set(calls) | {"mul", "jadd", "jdbl"} == set(ec.KERNELS)

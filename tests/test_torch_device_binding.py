@@ -9,9 +9,8 @@ with the Spartan prover's OS entropy (``RandomTape``, spartan.py:411-418)
 patched to the same bytes in both, so the two proofs, the Spartan NIZK of
 the ECDSA circuit among them, must be the same bytes; each package's
 proof must pass the other's verifier, and a flipped byte of the NIZK must
-be refused.  With the native backend off (CRESCENT_NATIVE=0), Spartan's
-T-256 device fallbacks raise, naming ROADMAP Queue 1 item 5, and never
-reach the native MSM.  Comparisons are exact (tolerance 0).
+be refused.  Spartan's T-256 device routes under CRESCENT_NATIVE=0 are
+held in tests/test_torch_t256.py.  Comparisons are exact (tolerance 0).
 """
 
 import hashlib
@@ -36,7 +35,6 @@ from crescent_tpu_torch.credentials import dlog as pdlog
 from crescent_tpu_torch.credentials import ecdsa_pop as ppop
 from crescent_tpu_torch.models import spartan as psp
 from crescent_tpu_torch.models import spartan_ser as pser
-from crescent_tpu_torch.native import backend as nb
 from crescent_tpu_torch.utils import ark as park
 
 
@@ -119,28 +117,3 @@ def test_device_proofs_cross_verify(proofs):
     pi2[len(pi2) // 2] ^= 1
     as_port.pi2 = bytes(pi2)
     assert not pdev.DeviceProof.verify(as_port, *stmt)
-
-
-def test_t256_device_fallbacks_raise_with_the_native_backend_off(monkeypatch):
-    """CRESCENT_NATIVE=0: commit_vector above 16 bases, _t256_msm above 32
-    points and poly_commit's row commits (at least 8 rows of 32) are the
-    reference's device routes over T-256, which the port's field layer
-    cannot hold yet: they raise naming ROADMAP Queue 1 item 5 and never
-    call the native MSM.  At or under those sizes they stay on the host
-    oracle, as in the reference."""
-    monkeypatch.setenv("CRESCENT_NATIVE", "0")
-    monkeypatch.setattr(nb, "msm", lambda *a: pytest.fail("the native MSM was reached"))
-    rng = random.Random(5)
-    gens = psp.pedersen_gens(20)
-    vals = [rng.randrange(T256_FQ) for _ in range(20)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        psp.commit_vector(gens, vals, 7)
-    small = psp.commit_vector(psp.PedersenGens(gens.g[:3], gens.h), vals[:3], 7)
-    assert small == rsp.commit_vector(rsp.PedersenGens(gens.g[:3], gens.h), vals[:3], 7)
-    pts = psp.derive_generators(33, b"t")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        psp._t256_msm(vals + vals[:13], pts)
-    assert psp._t256_msm(vals[:4], pts[:4]) == rsp._t256_msm(vals[:4], pts[:4])
-    poly = psp.DenseMlPoly([rng.randrange(T256_FQ) for _ in range(1 << 10)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        psp.poly_commit(poly, psp.PolyCommitmentGens(10, b"g"), None)
